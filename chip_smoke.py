@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's tissue-inference path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's tissue inference and stage-1 training on
+one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
+    python3 chip_smoke.py --phases train     # only the training checks
 
 Phases, in order (any failure exits non-zero; nothing is caught):
-  1. build:   compile ldiffusion_tpu_torch/csrc/*.cu with nvcc (sm_90a).
-  2. kernels: every kernel at every distinct shape of the 1024² path, held
-              against its plain PyTorch version in bf16 (plus f32 and ragged
-              cases), timed beside the plain version and one library call.
+  1. build:   compile ldiffusion_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
+              nvcc per source, in parallel.
+  2. kernels: every kernel at every distinct shape of its path (inference at
+              1024², training at 512²), held against its plain PyTorch version
+              in bf16 (plus f32 and ragged cases), timed beside the plain
+              version and one library call; the flash forward with logsumexp
+              also at tools/bench_attn_exp2.py's three shapes.
   3. tiny:    the whole ``inference_tissue`` at the tiny configs on a 64² ROI,
               once on cuda with the kernels (f32, TF32 off) and once on the
               CPU with the plain versions, same weights; compared.
@@ -17,12 +22,23 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               layout, then ``LDiffusionModel.inference_tissue`` on one 1024²
               ROI and in folder mode on 3 square ROIs + 1 non-square ROI.
               Launch counters are reset just before and read just after.
+  5. train:   one stage-1 step at the tiny configs in f32 on cuda against the
+              same step on the CPU (same weights, noise, contrastive indices);
+              then SD-v1.5 width, bf16 compute over f32 masters, batch 1, 25
+              inference steps (6 timesteps), remat: (a) 64² images through
+              ``LDiffusionModel.train(component="ldiffusion")`` on synthetic
+              PNG pairs, 3 steps, and the saved UNet read back by
+              ``inference_tissue``; (b) 512² images with 64² labels through
+              ``DiffusionWarmupTrainer``, 3 steps. Counters are reset before
+              (a) and read after (b); one step of each size is profiled.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import gc
 import json
 import math
 import os
@@ -30,6 +46,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3.
 PEAK_BF16 = 989e12
@@ -52,6 +69,14 @@ GN_BF16 = (1e-3, 0.0, 1.6e-2)
 # f32: only the summation order differs.
 ATTN_F32 = (2e-5, 0.0, 1e-4)
 GN_F32 = (1e-5, 0.0, 1e-4)
+# The logsumexp (K5): bf16 inputs give exact f32 products in both versions,
+# so only the order of the f32 sums differs.
+LSE = {"bfloat16": (1e-3, 0.0, 1e-5), "float32": (1e-4, 0.0, 1e-5)}
+# The flash backward (K6): in bf16 both versions round P and dS to bf16 before
+# their products, from f32 values that differ by summation order, and round
+# dq/dk/dv to bf16 — the forward's bound; in f32 only the order of the sums
+# over up to 4096 terms differs, relative to each gradient's scale.
+BWD = {"bfloat16": ATTN_BF16, "float32": (0.0, 1e-4, 1e-4)}
 
 
 def log(*a):
@@ -120,6 +145,20 @@ GN_PATH_SHAPES = [(1, 16, 16, 1280, True, 1e-5), (1, 16, 16, 2560, True, 1e-5),
                   (1, 1024, 1024, 128, True, 1e-6), (1, 1024, 1024, 128, False, 1e-5)]
 GN_EXTRA = [((2, 7, 9, 96, 8), "float32"), ((1, 64, 64, 64, 32), "float32"),
             ((3, 33, 31, 640, 32), "bfloat16")]
+# (B, S, H, D) of the differentiated flash attention at 512² training images,
+# SD-v1.5 width: UNet level 0 (4096 tokens) and level 1 (1024 tokens), each 5
+# self-attentions per UNet pass, 6 timesteps a step → 30 K6 launches a step
+# each, and twice as many K5 (remat runs each timestep's forward twice). d=160
+# (level 2, 256 tokens at 512²) is routed plain there; K6 takes it anyway.
+TRAIN_ATTN_SHAPES = [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 1024, 8, 160)]
+TRAIN_PER_STEP = {"flash_attention_fwd_lse": [60, 60, 0], "flash_attention_bwd": [30, 30, 0]}
+# ragged lengths and other head dims, f32 (the tiny runs' 16 and 64) and bf16
+TRAIN_EXTRA = [((2, 300, 3, 8), "float32"), ((1, 1024, 2, 16), "float32"),
+               ((1, 1024, 1, 64), "float32"), ((1, 777, 2, 160), "float32"),
+               ((2, 300, 3, 8), "bfloat16"), ((1, 129, 2, 100), "bfloat16"),
+               ((1, 515, 2, 136), "bfloat16"), ((2, 700, 2, 40), "bfloat16")]
+# tools/bench_attn_exp2.py's (BH, S, D) shapes as (B, S, H, D): K7's formulation
+K7_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
 
 
 def attn_row(b, s, h, d, dtype, gen, iters):
@@ -194,6 +233,95 @@ def gn_row(b, hh, ww, c, groups, silu, eps, dtype, gen, iters):
     return row
 
 
+def attn_bound(b, s, h, d, dt, ops_per_mac: int, n_tensors: int, extra_bytes: float = 0.0):
+    """(bound_ms, bound_by): ops_per_mac·B·H·S²·D operations at the peak of the
+    type, or n_tensors (B, S, H, D) tensors + extra_bytes moved once."""
+    import torch
+
+    t_ops = ops_per_mac * b * h * s * s * d / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+    t_bytes = (n_tensors * b * s * h * d * dt.itemsize + extra_bytes) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def lse_row(b, s, h, d, dtype, gen, iters):
+    """K5: the forward with logsumexp against plain_attention_lse."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldiffusion_tpu_torch.ops.attention import flash_attention_fwd_lse, plain_attention_lse
+
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash_attention_fwd_lse(q, k, v, scale)
+    ref, ref_lse = plain_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    name = f"flash_attention_fwd_lse{(b, s, h, d)} {dtype}"
+    row = {"shape": [b, s, h, d], "dtype": dtype,
+           "out": compare(name + " out", out, ref, ATTN_BF16 if dt == torch.bfloat16 else ATTN_F32),
+           "lse": compare(name + " lse", lse, ref_lse, LSE[dtype])}
+    row["max_abs_err"] = max(row["out"]["max_abs_err"], row["lse"]["max_abs_err"])
+    del ref, ref_lse
+    if iters:
+        row["ms"] = cuda_ms(lambda: flash_attention_fwd_lse(q, k, v, scale), iters)
+        row["plain_ms"] = cuda_ms(lambda: plain_attention_lse(q, k, v, scale), iters)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters)
+        row["bound_ms"], row["bound_by"] = attn_bound(b, s, h, d, dt, 4, 4, 4.0 * b * h * s)
+    return row
+
+
+def bwd_row(b, s, h, d, dtype, gen, iters, memory_check=False):
+    """K6: dq/dk/dv against plain_attention_bwd, from the same lse."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldiffusion_tpu_torch.ops.attention import (
+        flash_attention_bwd,
+        plain_attention_bwd,
+        plain_attention_lse,
+    )
+
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = plain_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = flash_attention_bwd(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    refs = plain_attention_bwd(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    name = f"flash_attention_bwd{(b, s, h, d)} {dtype}"
+    row = {"shape": [b, s, h, d], "dtype": dtype, "peak_rise_bytes": rise}
+    for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        row[gname] = compare(f"{name} {gname}", g, r, BWD[dtype])
+    row["max_abs_err"] = max(row[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
+    del refs
+    if memory_check:
+        row["score_matrix_bytes"] = 4 * s * s
+        if rise >= 4 * s * s:
+            raise AssertionError(f"{name}: the backward raised the peak by {rise} B, not below "
+                                 f"one f32 score matrix ({4 * s * s} B)")
+    if iters:
+        row["ms"] = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse, scale), iters)
+        row["plain_ms"] = cuda_ms(lambda: plain_attention_bwd(q, k, v, out, do, lse, scale),
+                                  iters)
+        # SDPA's backward alone on the same shape: one forward kept, grads timed
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        dot = do.transpose(1, 2)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), iters)
+        # reads q, k, v, o, do, lse, Δ; writes dq, dk, dv
+        row["bound_ms"], row["bound_by"] = attn_bound(b, s, h, d, dt, 10, 8, 8.0 * b * h * s)
+    return row
+
+
 def phase_kernels(seed: int):
     import torch
 
@@ -212,7 +340,20 @@ def phase_kernels(seed: int):
         for silu in (True, False):
             r = gn_row(b, hh, ww, c, groups, silu, 1e-5, dtype, gen, iters=0)
             log("kernel groupnorm_silu", json.dumps(r))
-    return {"flash_attention_fwd": attn, "groupnorm_silu": gn}
+    lse, bwd = [], []
+    for i, (b, s, h, d) in enumerate(TRAIN_ATTN_SHAPES):
+        lse.append(lse_row(b, s, h, d, "bfloat16", gen, iters=5))
+        log("kernel flash_attention_fwd_lse", json.dumps(lse[-1]))
+        bwd.append(bwd_row(b, s, h, d, "bfloat16", gen, iters=5, memory_check=i == 0))
+        log("kernel flash_attention_bwd", json.dumps(bwd[-1]))
+    for shape, dtype in TRAIN_EXTRA:
+        log("kernel flash_attention_fwd_lse", json.dumps(lse_row(*shape, dtype, gen, iters=0)))
+        log("kernel flash_attention_bwd", json.dumps(bwd_row(*shape, dtype, gen, iters=0)))
+    for b, s, h, d in K7_SHAPES:  # the exp2 formulation at the A/B tool's shapes
+        log("kernel k7_exp2_shapes flash_attention_fwd_lse",
+            json.dumps(lse_row(b, s, h, d, "bfloat16", gen, iters=5)))
+    return {"flash_attention_fwd": attn, "groupnorm_silu": gn,
+            "flash_attention_fwd_lse": lse, "flash_attention_bwd": bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -220,10 +361,16 @@ def phase_kernels(seed: int):
 # ---------------------------------------------------------------------------
 
 def counters():
-    from ldiffusion_tpu_torch.ops.attention import flash_attention_fwd
+    from ldiffusion_tpu_torch.ops.attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_fwd_lse,
+    )
     from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu
 
-    return {"flash_attention_fwd": flash_attention_fwd, "groupnorm_silu": groupnorm_silu}
+    return {"flash_attention_fwd": flash_attention_fwd, "groupnorm_silu": groupnorm_silu,
+            "flash_attention_fwd_lse": flash_attention_fwd_lse,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_counters():
@@ -233,6 +380,9 @@ def reset_counters():
 
 def read_counters():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+INFERENCE_KERNELS = ("flash_attention_fwd", "groupnorm_silu")
 
 
 def tissue_like(rng, h, w):
@@ -336,7 +486,7 @@ def phase_tiny(work, seed):
         raise AssertionError(f"tiny: cuda vs cpu transformed image differs by {err}")
     if agree < TINY_MASK_AGREEMENT:
         raise AssertionError(f"tiny: masks agree on only {agree:.4%} of pixels")
-    if min(launched.values()) == 0:
+    if min(launched[k] for k in INFERENCE_KERNELS) == 0:
         raise AssertionError(f"tiny: a kernel was not launched on cuda: {launched}")
     return row
 
@@ -420,7 +570,7 @@ def phase_full(work, seed):
         lo, hi = float(t.min()), float(t.max())
     if not finite or lo < 0 or hi > 1:
         raise AssertionError(f"full: transformed image finite={finite} range [{lo}, {hi}]")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in INFERENCE_KERNELS) == 0:
         raise AssertionError(f"full: a kernel was not launched on the main path: {launches}")
 
     from ldiffusion_tpu_torch.segmentor.planner import SegPlan
@@ -444,10 +594,245 @@ def phase_full(work, seed):
     return row
 
 
+# ---------------------------------------------------------------------------
+# stage-1 training
+# ---------------------------------------------------------------------------
+
+# The tiny step, cuda vs CPU, both f32 with TF32 off: only the order of sums
+# differs (the CPU tests measure 1.6e-5 of each tensor's scale for the port
+# against the JAX package on such a step). Loss relative; gradients and the
+# AdamW moments within a share of each tensor's largest value.
+TINY_TRAIN_TOL = {"loss": 1e-4, "grads": 1e-3, "exp_avg": 1e-3, "exp_avg_sq": 2e-3}
+# 512² images: 10 self-attentions of >= 512 keys per UNet pass (4096 tokens:
+# 2 down + 3 up; 1024 tokens: 2 down + 3 up) x 6 timesteps
+K6_PER_STEP_512 = 60
+
+
+def train_labels(rng, size=64, classes=7):
+    """A smooth class map: a coarse random field cut into ``classes`` bands."""
+    import numpy as np
+    from PIL import Image
+
+    coarse = Image.fromarray((rng.random((4, 4)) * 255).astype(np.uint8))
+    field = np.asarray(coarse.resize((size, size), Image.BICUBIC), np.float32)
+    edges = np.quantile(field, np.linspace(0, 1, classes + 1)[1:-1])
+    return np.digitize(field, edges).astype(np.int32)
+
+
+def per_tensor_err(a_list, b_list):
+    """Largest |a - b| / max|b| over paired tensors."""
+    worst = 0.0
+    for a, b in zip(a_list, b_list):
+        scale = max(float(b.abs().max()), 1e-30)
+        worst = max(worst, float((a.float().cpu() - b.float().cpu()).abs().max()) / scale)
+    return worst
+
+
+def phase_train_tiny(seed):
+    """One stage-1 step at the tiny configs, f32, on cuda (kernels) and on the
+    CPU (plain versions), from the same weights, noise and indices."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
+    from ldiffusion_tpu_torch.losses.infonce import ContrastIndices, InfoNceLoss
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.normal(size=(1, 64, 64, 3)).astype(np.float32))
+    labels = torch.from_numpy(train_labels(rng, classes=4)).long()[None]
+    cfg = DiffusionTrainConfig(num_inference_steps=25, compute_dtype="float32", num_classes=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-VGG warning
+        info = InfoNceLoss.create(device="cpu", num_anchors=16, num_negatives=64, num_classes=4)
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        comps = SDComponents.random(seed=seed, device="cpu").to(dev)
+        dev_info = InfoNceLoss(vgg=copy.deepcopy(info.vgg).to(dev), num_anchors=16,
+                               num_negatives=64, num_classes=4)
+        trainers[dev] = DiffusionWarmupTrainer(comps, cfg, info_nce=dev_info)
+    noise, idx = trainers["cpu"].draw(images, labels)
+    losses = {}
+    reset_counters()
+    for dev, tr in trainers.items():
+        losses[dev], _ = tr.loss_and_grads(images.to(dev), labels.to(dev), noise.to(dev),
+                                           ContrastIndices(*(t.to(dev) for t in idx)))
+        tr.apply_update()
+    torch.cuda.synchronize()
+    launched = read_counters()
+    cpu, cuda = trainers["cpu"], trainers["cuda"]
+    errs = {"loss": abs(float(losses["cuda"]) - float(losses["cpu"])) / abs(float(losses["cpu"])),
+            "grads": per_tensor_err([m.grad for m in cuda.master], [m.grad for m in cpu.master])}
+    for key in ("exp_avg", "exp_avg_sq"):
+        errs[key] = per_tensor_err([cuda.opt.state[m][key] for m in cuda.master],
+                                   [cpu.opt.state[m][key] for m in cpu.master])
+    row = {"loss_cpu": float(losses["cpu"]), "loss_cuda": float(losses["cuda"]),
+           "errors": errs, "tol": TINY_TRAIN_TOL, "cuda_launches": launched}
+    log("train_tiny", json.dumps(row))
+    bad = {k: v for k, v in errs.items() if not v <= TINY_TRAIN_TOL[k]}
+    if bad:
+        raise AssertionError(f"train tiny: cuda vs cpu outside the tolerance: {bad}")
+    if min(launched.values()) == 0:
+        raise AssertionError(f"train tiny: a kernel was not launched on cuda: {launched}")
+    return row
+
+
+def train_pairs(root, n, rng):
+    """n synthetic 64² ROI/label PNG pairs, labels in the tissue pixel code."""
+    import argparse as ap
+
+    import numpy as np
+    from PIL import Image
+
+    codes = np.array([0, 100, 150, 50, 200, 250, 255], np.uint8)  # class ids 0..6
+    images, labels = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    for i in range(n):
+        tissue_like(rng, 64, 64).save(os.path.join(images, f"roi_{i}.png"))
+        Image.fromarray(codes[train_labels(rng)]).save(os.path.join(labels, f"roi_{i}.png"))
+    return ap.Namespace(image_dir=images, label_dir=labels, batch_size=1,
+                        num_inference_steps=25, num_classes=7, num_epochs=1)
+
+
+def sd15_components(seed, dtype):
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
+    from ldiffusion_tpu_torch.models.clip_text import CLIPTextConfig
+    from ldiffusion_tpu_torch.models.unet import UNet2DConditionConfig
+    from ldiffusion_tpu_torch.models.vae import VAEConfig
+
+    return SDComponents.random(seed=seed, dtype=dtype, device="cuda",
+                               unet_config=UNet2DConditionConfig.sd15(),
+                               vae_config=VAEConfig.sd15(), text_config=CLIPTextConfig.sd15())
+
+
+def step_summary(trainer, launches):
+    import numpy as np
+
+    hist = trainer.history
+    n = len(hist)
+    return {"steps": n, "losses": [h["loss"] for h in hist],
+            "contents": [h["content"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_s": [h["seconds"] for h in hist],
+            "s_per_step_median_steps_2_3": float(np.median([h["seconds"] for h in hist[1:3]])),
+            "launches_per_step": {k: v / n for k, v in launches.items()}}
+
+
+def phase_train(work, seed):
+    """SD-v1.5-width stage-1 training: (a) 64² through the public API, read
+    back by inference; (b) 512² through the trainer. Returns the launches of
+    both runs (the training path's main path)."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.api import LDiffusionModel
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.data.dataset import load_image
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    phase_train_tiny(seed)
+    rng = np.random.default_rng(seed + 2)
+    args = train_pairs(os.path.join(work, "train_pairs"), 5, rng)  # 70/30 → 3 steps
+    seg = write_segmentor(os.path.join(work, "seg_train"), seg_plan(*FULL_PLAN), seed)
+    roi = os.path.join(work, "train_readback_roi.png")
+    tissue_like(rng, 1024, 1024).save(roi)
+
+    # (a) the reference configuration, 64², through LDiffusionModel.train
+    comps = sd15_components(seed, torch.float32)  # f32 masters; the trainer casts to bf16
+    watch = {"unet.conv_in.weight": comps.unet.conv_in.weight,
+             "unet.conv_out.weight": comps.unet.conv_out.weight,
+             "proj.weight": comps.proj.weight}
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    cfg = DiffusionTrainConfig(num_epochs=1, num_inference_steps=25, num_classes=7)
+    model = LDiffusionModel("sd15-seeded-random", "tissue", components=comps,
+                            work_dir=os.path.join(work, "train_work"), diffusion_config=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()  # the training main path starts here
+    saved = model.train(args, component="ldiffusion")["ldiffusion"]
+    torch.cuda.synchronize()
+    launches_64 = read_counters()
+    peak_64 = torch.cuda.max_memory_allocated()
+    tr = model.trainer
+    names = [f"{k}.{n}" for k, n in tr.names]
+    master = dict(zip(names, tr.master))
+    moved = {k: not torch.equal(master[k], before[k]) for k in watch}
+    row_a = {"images": [64, 64], "dtype": "bfloat16 compute, float32 masters",
+             "peak_bytes": peak_64, **step_summary(tr, launches_64), "params_moved": moved,
+             "saved": os.path.relpath(saved, work)}
+    decoded, mask = model.inference_tissue(roi, saved, seg, 7)  # reads the trained UNet back
+    unet = model._components.unet
+    readback = all(torch.equal(p.detach(), master[f"unet.{n}"].to(p.dtype))
+                   for n, p in unet.named_parameters())
+    row_a.update(readback_equal=readback, readback_mask_shape=list(mask.shape))
+    log("train_64", json.dumps(row_a))
+    if not (all(np.isfinite(row_a["losses"])) and row_a["steps"] == 3 and all(moved.values())):
+        raise AssertionError(f"train 64²: {row_a}")
+    if launches_64["flash_attention_bwd"] != 0 or launches_64["flash_attention_fwd_lse"] != 0:
+        raise AssertionError(f"train 64²: no attention has >= 512 keys, yet {launches_64}")
+    if not readback or mask.shape != (1024, 1024) or decoded.size != (1024, 1024):
+        raise AssertionError("train 64²: the saved UNet was not read back by inference")
+    del model, tr, master, comps, unet, watch, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 512² images, 64² labels, through the trainer
+    comps = sd15_components(seed + 1, torch.float32)
+    trainer = DiffusionWarmupTrainer(comps, DiffusionTrainConfig(num_inference_steps=25,
+                                                                 num_classes=7),
+                                     work_dir=os.path.join(work, "train_512"))
+    w0 = trainer.master[0].detach().clone()
+    img = os.path.join(work, "train_512.png")
+    tissue_like(rng, 512, 512).save(img)
+    images = load_image(img, (512, 512))[None]
+    labels = train_labels(rng)[None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_before = read_counters()
+    for _ in range(3):
+        trainer.train_step(images, labels)
+    torch.cuda.synchronize()
+    total = read_counters()  # the training main path ends here
+    launches_512 = {k: total[k] - counts_before[k] for k in total}
+    row_b = {"images": [512, 512], "labels": [64, 64],
+             "dtype": "bfloat16 compute, float32 masters",
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             **step_summary(trainer, launches_512),
+             "params_moved": not torch.equal(trainer.master[0], w0)}
+    row_b["profiled_step"] = device_profile(lambda: trainer.train_step(images, labels))
+    log("train_512", json.dumps(row_b))
+    # one 64² step of the same trainer, profiled (the reference configuration's shapes)
+    log("train_64_profiled_step",
+        json.dumps(device_profile(lambda: trainer.train_step(*tr_batch(rng, 64)))))
+    if not (all(np.isfinite(row_b["losses"])) and row_b["params_moved"]):
+        raise AssertionError(f"train 512²: {row_b}")
+    if launches_512["flash_attention_bwd"] != 3 * K6_PER_STEP_512:
+        raise AssertionError(f"train 512²: flash_attention_bwd launched "
+                             f"{launches_512['flash_attention_bwd']} times in 3 steps, "
+                             f"expected {3 * K6_PER_STEP_512}")
+    if min(launches_512.values()) == 0:
+        raise AssertionError(f"train 512²: a kernel was not launched: {launches_512}")
+    return total
+
+
+def tr_batch(rng, size):
+    """A (images, labels) batch of one synthetic size² ROI with 64² labels."""
+    import numpy as np
+
+    from ldiffusion_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
+
+    img = np.asarray(tissue_like(rng, size, size), np.float32) / 255.0
+    return ((img - IMAGENET_MEAN) / IMAGENET_STD)[None], train_labels(rng)[None]
+
+
 def kernel_family(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_attention_fwd (ours)"
+    if "flash_bwd" in n:
+        return "flash_attention_bwd (ours)"
     if "gn_stats" in n or "gn_finalize" in n or "gn_apply" in n:
         return "groupnorm_silu (ours)"
     if any(k in n for k in ("conv", "cudnn", "implicit", "winograd", "dgrad", "fprop")):
@@ -461,13 +846,46 @@ def kernel_family(name: str) -> str:
     return "elementwise and other (PyTorch)"
 
 
+def device_profile(fn):
+    """Run ``fn`` once under torch.profiler: wall seconds (host clock, ending in
+    a synchronize), device busy ms, idle share, ms by kernel family, top
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        # device work only: a user range such as "Optimizer.step#AdamW.step"
+        # is listed on the device too, over kernels that are counted already
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    families = {}
+    for name, ms in kernels.items():
+        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_s": wall, "device_busy_ms": busy,
+            "device_idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
+            "by_family_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
 def profile_roi(model, roi, seg, predictor, comps):
     """Device time by kernel over one 1024² single-ROI inference (API call,
     checkpoint loading included), the device's idle share over it, and the
     time of the compute alone (transform + sliding window, models resident)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ldiffusion_tpu_torch.data.dataset import load_image
     from ldiffusion_tpu_torch.diffusion.pipeline import one_step_transform, trajectory_text_emb
@@ -485,30 +903,9 @@ def profile_roi(model, roi, seg, predictor, comps):
             t0 = time.perf_counter()
             compute()
             times.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.inference_tissue(roi, None, seg, 7)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
-    busy = sum(kernels.values())
-    families = {}
-    for name, ms in kernels.items():
-        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    prof = device_profile(lambda: model.inference_tissue(roi, None, seg, 7))
     row = {"compute_s_per_roi": float(np.median(times)), "compute_s_runs": times,
-           "api_wall_s": wall, "device_busy_ms": busy,
-           "device_idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
-           "by_family_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
-           "top_kernels_ms": [[k[:90], v] for k, v in top]}
+           "api_wall_s": prof.pop("wall_s"), **prof}
     log("profile", json.dumps(row))
     return row
 
@@ -519,23 +916,33 @@ KERNEL_META = {
         "replaces": "ldiffusion_tpu/ops/attention.py:41 (_flash_kernel, K1); "
                     ":102 (_flash_kvgrid_kernel, K2)",
         # launches of each path shape per ROI (UNet levels 0-2, VAE mid-block)
-        "per_roi": [5, 5, 5, 2]},
+        "per_call": [5, 5, 5, 2]},
     "groupnorm_silu": {
         "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/groupnorm.cu",
         "replaces": "ldiffusion_tpu/ops/groupnorm.py:82 (_gn_kernel, K3); "
                     ":147 (_gn_stats_kernel, K4a); :168 (_gn_apply_kernel, K4b)",
-        "per_roi": None},
+        "per_call": None},
+    "flash_attention_fwd_lse": {
+        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "ldiffusion_tpu/ops/attention.py:180 (_flash_kernel_lse, K5); its exp2 "
+                    "softmax is tools/bench_attn_exp2.py:29 (_kernel, K7)",
+        "per_call": TRAIN_PER_STEP["flash_attention_fwd_lse"]},
+    "flash_attention_bwd": {
+        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "ldiffusion_tpu/ops/attention.py:245 (_flash_bwd_kernel, K6); its exp2 "
+                    "softmax is tools/bench_attn_exp2.py:29 (_kernel, K7)",
+        "per_call": TRAIN_PER_STEP["flash_attention_bwd"]},
 }
 
 
 def kernel_summary(kernel_rows, launches):
     """One entry per kernel, timed at its heaviest path shape (attention: the
-    largest ms x launches per ROI; GroupNorm: the largest map)."""
+    largest ms x launches per ROI or train step; GroupNorm: the largest map)."""
     out = []
     for name, rows in kernel_rows.items():
         meta = KERNEL_META[name]
-        if meta["per_roi"]:
-            rows_w = [(r["ms"] * n, r) for r, n in zip(rows, meta["per_roi"])]
+        if meta["per_call"]:
+            rows_w = [(r["ms"] * n, r) for r, n in zip(rows, meta["per_call"])]
             top = max(rows_w, key=lambda p: p[0])[1]
         else:
             top = max(rows, key=lambda r: math.prod(r["shape"]))
@@ -559,8 +966,8 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full",
-                    help="comma-separated subset of kernels,tiny,full")
+    ap.add_argument("--phases", default="kernels,tiny,full,train",
+                    help="comma-separated subset of kernels,tiny,full,train")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -594,8 +1001,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         if "tiny" in phases:
             phase_tiny(work, args.seed)
-        if "full" in phases:
-            launches = phase_full(work, args.seed)["launches"]
+        if "full" in phases:  # the inference path's kernels: their launches there
+            full = phase_full(work, args.seed)["launches"]
+            launches.update({k: full[k] for k in INFERENCE_KERNELS})
+        if "train" in phases:  # the training path's kernels: their launches there
+            train = phase_train(work, args.seed)
+            log("train_launches", json.dumps(train))
+            launches.update({k: train[k] for k in ("flash_attention_fwd_lse",
+                                                   "flash_attention_bwd")})
 
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

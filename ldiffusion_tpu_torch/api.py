@@ -1,8 +1,14 @@
-"""Public API (counterpart of ``ldiffusion_tpu/api.py``), tissue inference:
+"""Public API (counterpart of ``ldiffusion_tpu/api.py``): stage-1 training
+and tissue inference.
 
     model = LDiffusionModel(diffusion_path, level="tissue")      # on cuda
-    decoded, mask = model.inference(image_path, ldiffusion_weight,
+    weights = model.train(args, component="ldiffusion")          # {"ldiffusion": dir}
+    decoded, mask = model.inference(image_path, weights["ldiffusion"],
                                     segmentor_weight, num_classes)
+
+Training (``component="ldiffusion"``): a 70/30 split of the image/label
+pairs, then ``DiffusionWarmupTrainer`` on 64² images and labels; the UNet is
+saved in the JAX trainer's directory layout, which ``inference`` reads back.
 
 Per ROI: CLIP text → projection, VAE ``encode_mean``, PNDM one step through
 the UNet, ``decode_latents``, z-score, sliding-window DynUNet with gaussian
@@ -11,9 +17,10 @@ blending and 4-way mirror TTA → uint8 mask. The ROI is 1024² unless
 the diffusion transform; in folder mode existing outputs are skipped unless
 ``overwrite``.
 
-Not ported yet (they raise ``NotImplementedError``): training (ROADMAP queue 1
-items 9-10), the cell level (item 11), and reading a diffusers SD checkpoint
-directory (item 6) — a non-``random:`` path needs ``components=``.
+Not ported yet (they raise ``NotImplementedError``): segmentor training
+(``component="all"`` or ``"segmentor"``, ROADMAP queue 1 item 10), the cell
+level (item 11), and reading a diffusers SD checkpoint directory (item 6) — a
+non-``random:`` path needs ``components=``.
 """
 from __future__ import annotations
 
@@ -24,20 +31,31 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
 from ldiffusion_tpu_torch.core.device import resolve_device
-from ldiffusion_tpu_torch.data.dataset import load_image
+from ldiffusion_tpu_torch.data.dataset import (
+    SegmentationDataset,
+    list_pairs,
+    load_image,
+    split_dataset,
+)
 
 
 class LDiffusionModel:
     def __init__(self, diffusion_path: str, level: str, local_rank: int = -1,
-                 components=None, device=None):
+                 components=None, device=None, work_dir: str = "train_save",
+                 diffusion_config: Optional[DiffusionTrainConfig] = None):
         """``device``: None → the GPU (raises when there is none); pass
         ``"cpu"`` to run on the CPU. ``components``: an ``SDComponents``
-        bundle, moved to ``device``."""
+        bundle, moved to ``device``. ``diffusion_config``: the stage-1
+        hyperparameters (else built from ``train``'s args)."""
         del local_rank  # accepted for signature parity
         self.level = level
         self.diffusion_path = diffusion_path
         self.device = resolve_device(device)
+        self.work_dir = work_dir
+        self.diffusion_config = diffusion_config
+        self.trainer = None  # the last stage-1 trainer, kept for inspection
         self._components = None if components is None else components.to(self.device)
 
     @property
@@ -71,9 +89,40 @@ class LDiffusionModel:
         self._components = comps
         return comps
 
+    def load_data(self, image_dir: str, label_dir: str, train_ratio: float = 0.7,
+                  seed: int = 0):
+        """70/30 split (reference ``ldiffusion.py:72-119``)."""
+        images, labels = list_pairs(image_dir, label_dir)
+        tr_i, tr_l, te_i, te_l = split_dataset(images, labels, train_ratio, seed)
+        return (SegmentationDataset(tr_i, tr_l, self.level),
+                SegmentationDataset(te_i, te_l, self.level))
+
     # ------------------------------------------------------------------
-    def train(self, *args, **kwargs):
-        raise NotImplementedError("training is not ported yet (ROADMAP queue 1 items 9-10)")
+    def train(self, args, component: str = "all", ldiffusion_weight: Optional[str] = None):
+        """``component="ldiffusion"``: stage-1 warm-up → {"ldiffusion": the
+        saved UNet directory}. ``args``: image_dir, label_dir, batch_size,
+        num_inference_steps, num_classes (the CLI's names)."""
+        del ldiffusion_weight  # read by segmentor training, which is not ported yet
+        if component != "ldiffusion":
+            raise NotImplementedError(
+                f"component={component!r}: segmentor training is not ported yet (ROADMAP "
+                "queue 1 item 10); train component='ldiffusion'")
+        train_ds, _ = self.load_data(args.image_dir, args.label_dir)
+        print("Starting LDiffusion warming up...", flush=True)
+        return {"ldiffusion": self.train_ldiffusion(args, train_ds)}
+
+    def train_ldiffusion(self, args, train_ds: SegmentationDataset) -> str:
+        from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+        comps = self._load_components()
+        cfg = self.diffusion_config or DiffusionTrainConfig(
+            batch_size=args.batch_size, num_inference_steps=args.num_inference_steps,
+            num_classes=getattr(args, "num_classes", None))
+        self.trainer = DiffusionWarmupTrainer(comps, cfg, work_dir=self.work_dir)
+        steps = max(1, len(train_ds) // max(1, args.batch_size))
+        it = train_ds.iter_batches(args.batch_size, image_size=cfg.latent_size,
+                                   label_size=cfg.latent_size)
+        return self.trainer.train(it, steps_per_epoch=steps)
 
     def inference(self, image_path: str, ldiffusion_weight: Optional[str],
                   segmentor_weight: str, num_classes: int):

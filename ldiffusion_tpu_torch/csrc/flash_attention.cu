@@ -1,9 +1,13 @@
-// Forward flash attention for Hopper (sm_90a): softmax(Q K^T * scale) V.
+// Forward flash attention for Hopper (sm_90a): softmax(Q K^T * scale) V, and
+// optionally the per-row logsumexp the backward needs.
 //
-// Replaces the two Pallas forward kernels of the JAX package,
+// Replaces three Pallas forward kernels of the JAX package,
 // ldiffusion_tpu/ops/attention.py `_flash_kernel` (:41, resident K/V streamed
-// in block_k chunks) and `_flash_kvgrid_kernel` (:102, K/V blocks on the grid,
-// m/l/acc in scratch). On the TPU the sequential KV grid axis carried the
+// in block_k chunks), `_flash_kvgrid_kernel` (:102, K/V blocks on the grid,
+// m/l/acc in scratch) and `_flash_kernel_lse` (:180, the first one also
+// writing lse = m + log l for training). With a non-null `lse` pointer each
+// row also writes its logsumexp, (B, H, Sq) float32, in natural log; the
+// inference path passes null and writes nothing more. On the TPU the sequential KV grid axis carried the
 // online-softmax state between grid steps; here one CTA owns a block of query
 // rows of one (batch, head) and walks every KV tile in a loop, so m, l and the
 // f32 accumulator never leave the CTA. One kernel covers both Pallas kernels:
@@ -44,16 +48,15 @@
 // rows x NJ columns of the accumulator in registers; the CTA shrinks to 32
 // rows above d=256.
 //
+// The softmax runs in base 2 with log2(e) folded into the scale (the exp2
+// formulation of tools/bench_attn_exp2.py, K7): m is a base-2 running max,
+// p = exp2(s*scale*log2(e) - m), and lse = ln 2 * (m + log2 l).
+//
 // Not yet done (performance work for later): cp.async/TMA double buffering
-// of the K/V tiles, wgmma, exp2 with log2(e) folded into the scale.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// of the K/V tiles, wgmma.
+#include "flash_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16)
@@ -65,63 +68,6 @@ constexpr int kTK = 32;         // keys per K/V tile
 constexpr int kVS = kTK + 8;    // row stride of V^T in shared memory (bf16)
 constexpr int kXS = kTK + 8;    // row stride of the partial-score exchange (f32)
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [r0, r0+rows) x columns [0, DP) of a (S, H, D) tensor (row stride rs,
-// `src` at the head's first column) into shared memory, zero outside
-// [0, limit) x [0, d). TRANS stores column-major (dst[c*stride + r]).
-// vec: d % 8 == 0 and 16-byte aligned, so 8 values move per load.
-template <int DP, int NT, bool TRANS>
-__device__ __forceinline__ void load_tile(bf16* dst, int stride, const bf16* __restrict__ src,
-                                          long rs, int r0, int rows, int limit, int d,
-                                          bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int CH = DP / 8;
-    for (int e = tid; e < rows * CH; e += NT) {
-      // row-major walk for plain stores (coalesced reads); column-chunk-major
-      // for transposed stores, so neighbouring threads store to neighbouring
-      // addresses of shared memory
-      const int r = TRANS ? e % rows : e / CH;
-      const int c = 8 * (TRANS ? e / rows : e % CH);
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < limit && c < d)
-        val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * rs + c);
-      if (TRANS) {
-        const bf16* pv = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dst[(c + i) * stride + r] = pv[i];
-      } else {
-        *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
-      }
-    }
-  } else {
-    for (int e = tid; e < rows * DP; e += NT) {
-      const int r = e / DP, c = e % DP;
-      bf16 val = __float2bfloat16(0.f);
-      if (r0 + r < limit && c < d) val = src[(long)(r0 + r) * rs + c];
-      dst[TRANS ? c * stride + r : r * stride + c] = val;
-    }
-  }
-}
-
 template <int NK, int DS>
 constexpr int mma_smem_bytes() {
   return (kBQ * (16 * NK * DS + 8) + kTK * (16 * NK * DS + 8) + 16 * NK * DS * kVS) * 2 +
@@ -130,13 +76,12 @@ constexpr int mma_smem_bytes() {
 
 // NK: 16-column k-steps in a warp's head-dim slice (slice = 16*NK columns).
 // DS: warps per row group that split the head dim (DP = DS * slice >= d).
-// Fragment names follow the PTX ISA: g = lane/4 is the row (A, C) or column
-// (B) inside a tile, tg = lane%4 picks the column pair.
+// scale2 = scale * log2(e).
 template <int NK, int DS>
 __global__ void __launch_bounds__(32 * kRG * DS)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int heads, int sq, int sk,
-              int d, float scale, int vec) {
+              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+              int heads, int sq, int sk, int d, float scale2, int vec) {
   constexpr int SL = 16 * NK;
   constexpr int DP = SL * DS;
   constexpr int QS = DP + 8;  // row stride of Q and K tiles: conflict-free fragment reads
@@ -222,7 +167,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool valid = k0 + 8 * j + 2 * tg + (e & 1) < sk;
-        s[j][e] = valid ? s[j][e] * scale : -INFINITY;
+        s[j][e] = valid ? s[j][e] * scale2 : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
     float corr[2], rsum[2] = {0.f, 0.f};
@@ -231,7 +176,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);  // finite: every tile has a valid key
-      corr[r] = expf(m[r] - m_new);
+      corr[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
     }
     // P as the A fragments of the two 16-key steps of P V: n-blocks 2ks and
@@ -239,8 +184,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t pa[2][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float p0 = expf(s[j][0] - m[0]), p1 = expf(s[j][1] - m[0]);
-      const float p2 = expf(s[j][2] - m[1]), p3 = expf(s[j][3] - m[1]);
+      const float p0 = exp2f(s[j][0] - m[0]), p1 = exp2f(s[j][1] - m[0]);
+      const float p2 = exp2f(s[j][2] - m[1]), p3 = exp2f(s[j][3] - m[1]);
       rsum[0] += p0 + p1;
       rsum[1] += p2 + p3;
       pa[j >> 1][2 * (j & 1)] = pack_bf16(p0, p1);
@@ -274,6 +219,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + rg * 16 + g + 8 * r;
     if (row >= sq) continue;
+    if (lse != nullptr && ds == 0 && tg == 0)
+      lse[(long)blockIdx.y * sq + row] = kLn2 * (m[r] + log2f(l[r]));
     bf16* orow = o + qbase + (long)row * rs;
 #pragma unroll
     for (int j = 0; j < 2 * NK; ++j) {
@@ -285,8 +232,9 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int NK, int DS>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int batch,
-                       int heads, int sq, int sk, int d, float scale, cudaStream_t st) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int batch, int heads, int sq, int sk, int d, float scale,
+                       cudaStream_t st) {
   constexpr int bytes = mma_smem_bytes<NK, DS>();
   static_assert(bytes <= 232448, "tile exceeds the H100's shared memory per block");
   auto kernel = flash_fwd_mma<NK, DS>;
@@ -298,16 +246,18 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
   kernel<<<grid, 32 * kRG * DS, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), heads, sq, sk, d, scale, vec);
+      static_cast<bf16*>(o), lse, heads, sq, sk, d, scale * kLog2e, vec);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, int batch,
-                          int heads, int sq, int sk, int d, float scale, cudaStream_t st) {
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int batch, int heads, int sq, int sk, int d, float scale,
+                          cudaStream_t st) {
   const int ds = d <= 128 ? 1 : d <= 256 ? 2 : 4;
   const int nk = (d + 16 * ds - 1) / (16 * ds);
 #define LDT_CASE(DS, NK) \
-  if (ds == DS && nk == NK) return launch_mma<NK, DS>(q, k, v, o, batch, heads, sq, sk, d, scale, st);
+  if (ds == DS && nk == NK)                                                   \
+    return launch_mma<NK, DS>(q, k, v, o, lse, batch, heads, sq, sk, d, scale, st);
   LDT_CASE(1, 1) LDT_CASE(1, 2) LDT_CASE(1, 3) LDT_CASE(1, 4)
   LDT_CASE(1, 5) LDT_CASE(1, 6) LDT_CASE(1, 7) LDT_CASE(1, 8)
   LDT_CASE(2, 5) LDT_CASE(2, 6) LDT_CASE(2, 7) LDT_CASE(2, 8)
@@ -334,8 +284,8 @@ constexpr int smem_floats() {
 template <int NI, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int heads, int sq, int sk,
-              int d, float scale) {
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int heads, int sq, int sk, int d, float scale2) {
   constexpr int BQ = 16 * NI;
   constexpr int DP = 16 * NJ;
   constexpr int NC = kBK / 16;  // score columns per thread
@@ -413,18 +363,18 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         const bool valid = k0 + tx + 16 * j < sk;
-        s[i][j] = valid ? s[i][j] * scale : -INFINITY;
+        s[i][j] = valid ? s[i][j] * scale2 : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
+      const float corr = exp2f(m[i] - m_new);
       float rsum = 0.f;
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = exp2f(s[i][j] - m_new);
         rsum += p;
         ps[(ty + 16 * i) * kKS + tx + 16 * j] = p;
       }
@@ -456,6 +406,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < NI; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= sq) continue;
+    if (lse != nullptr && tx == 0) lse[(long)blockIdx.y * sq + r] = kLn2 * (m[i] + log2f(l[i]));
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
@@ -465,8 +416,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int NJ>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int batch,
-                       int heads, int sq, int sk, int d, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int batch, int heads, int sq, int sk, int d, float scale,
+                       cudaStream_t stream) {
   constexpr int NI = NJ > 16 ? 2 : 4;
   constexpr int BQ = 16 * NI;
   constexpr int bytes = smem_floats<BQ, 16 * NJ>() * (int)sizeof(float);
@@ -478,15 +430,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   dim3 grid((sq + BQ - 1) / BQ, batch * heads);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), heads, sq, sk, d, scale);
+      static_cast<float*>(o), lse, heads, sq, sk, d, scale * kLog2e);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int batch,
-                         int heads, int sq, int sk, int d, float scale, cudaStream_t st) {
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int batch, int heads, int sq, int sk, int d, float scale,
+                         cudaStream_t st) {
   const int nj = (d + 15) / 16;
 #define LDT_CASE(N) \
-  if (nj <= N) return launch_f32<N>(q, k, v, o, batch, heads, sq, sk, d, scale, st);
+  if (nj <= N) return launch_f32<N>(q, k, v, o, lse, batch, heads, sq, sk, d, scale, st);
   LDT_CASE(1)
   LDT_CASE(2)
   LDT_CASE(3)
@@ -504,15 +457,17 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, i
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. lse: null, or (B, H, Sq) float32 for the
+// per-row logsumexp. Returns a cudaError_t (0 on success).
 extern "C" int ldt_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                       void* o, int batch, int heads, int sq, int sk,
-                                       int d, float scale, int dtype, void* stream) {
+                                       void* o, void* lse, int batch, int heads, int sq,
+                                       int sk, int d, float scale, int dtype, void* stream) {
   if (batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 512 ||
       batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_f32(q, k, v, o, batch, heads, sq, sk, d, scale, st);
-  if (dtype == 1) return (int)dispatch_bf16(q, k, v, o, batch, heads, sq, sk, d, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) return (int)dispatch_f32(q, k, v, o, l, batch, heads, sq, sk, d, scale, st);
+  if (dtype == 1) return (int)dispatch_bf16(q, k, v, o, l, batch, heads, sq, sk, d, scale, st);
   return (int)cudaErrorInvalidValue;
 }

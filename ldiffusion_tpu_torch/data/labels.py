@@ -1,0 +1,27 @@
+"""PUMA label maps: grayscale PNG values → class ids (the port's copy of
+``convert_labels`` in ``ldiffusion_tpu/data/labels.py``). Tissue: 7
+classes; cell: 11. A 256-entry lookup table; unmapped values → 0."""
+from __future__ import annotations
+
+import numpy as np
+
+# reference dataset.py:10-18
+PIXEL_TO_LABEL_TISSUE = {0: 0, 100: 1, 150: 2, 50: 3, 200: 4, 250: 5, 255: 6}
+# reference dataset.py:20-32
+PIXEL_TO_LABEL_CELL = {0: 0, 25: 1, 50: 2, 75: 3, 100: 4, 125: 5, 150: 6,
+                       175: 7, 200: 8, 225: 9, 250: 10}
+
+
+def label_lut(level: str) -> np.ndarray:
+    mapping = {"tissue": PIXEL_TO_LABEL_TISSUE, "cell": PIXEL_TO_LABEL_CELL}.get(level)
+    if mapping is None:
+        raise ValueError("Unsupported level. Use 'tissue' or 'cell'.")
+    lut = np.zeros(256, np.uint8)
+    for k, v in mapping.items():
+        lut[k] = v
+    return lut
+
+
+def convert_labels(gray: np.ndarray, level: str) -> np.ndarray:
+    """Grayscale uint8 mask → class-id mask."""
+    return label_lut(level)[gray.astype(np.uint8)]

@@ -1,10 +1,20 @@
-"""SD components and the one-step diffusion transform (counterpart of
-``ldiffusion_tpu/diffusion/pipeline.py``, inference half).
+"""SD components and the two transforms (counterpart of
+``ldiffusion_tpu/diffusion/pipeline.py``).
 
 ``one_step_transform``: VAE encode → PNDM ``set_timesteps(1)`` → one UNet
 pass → scheduler step → ``decode_latents`` → [0, 1] image. Quirks kept:
 the ImageNet-normalised image is encoded as it is; latents are the raw VAE
 mean (not scaled by 0.18215) while ``decode_latents`` divides by 0.18215.
+
+``trajectory_features``: the stage-1 warm-up forward. Per PLMS timestep t
+(``num_inference_steps`` give ``num_inference_steps + 1`` of them), the same
+clean latents plus Laplace noise scaled by sqrt(1 − ᾱ_t) go through the
+UNet, whose raw output is decoded as latents (``vae.decode``, not as an
+epsilon prediction), resized to 64² and reduced to gray; the grays stack
+along channels. The noise is an input (``laplace_noise`` draws it from a
+generator), so ``torch.utils.checkpoint`` recomputes a timestep from the same
+values, and tests can hand in the JAX package's draws.
+
 Public functions take and return NHWC tensors, as the JAX package's do.
 """
 from __future__ import annotations
@@ -12,8 +22,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.diffusion.schedulers import PNDMScheduler
@@ -27,6 +39,7 @@ from ldiffusion_tpu_torch.models.convert import (
 from ldiffusion_tpu_torch.models.layers import init_random_
 from ldiffusion_tpu_torch.models.unet import UNet2DCondition, UNet2DConditionConfig
 from ldiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from ldiffusion_tpu_torch.ops.resize import resize_bilinear, rgb_to_gray
 
 # Fixed conditioning prompt "A pathological slide" under the CLIP vocab:
 # [bos, a, pathological, slide, eos] (no tokenizer files needed).
@@ -122,14 +135,71 @@ class SDComponents:
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
 
+    @property
+    def latent_factor(self) -> int:
+        """Image size / latent size of the VAE (8 for SD v1.5)."""
+        return 2 ** (len(self.vae_config.block_out_channels) - 1)
+
 
 def trajectory_text_emb(components: SDComponents, batch_size: int):
     """Prompt embedding for the fixed prompt, computed at batch 1 and
-    broadcast: CLIP last_hidden_state → learned projection."""
+    broadcast: CLIP last_hidden_state → learned projection. The text tower
+    is frozen (no graph); the projection is trained."""
     ids = torch.tensor([list(components.prompt_ids)], dtype=torch.long,
                        device=components.device)
-    emb = apply_proj(components.proj, components.text(ids))
+    with torch.no_grad():
+        hidden = components.text(ids)
+    emb = apply_proj(components.proj, hidden)
     return emb.expand((batch_size,) + emb.shape[1:])
+
+
+def laplace_noise(shape, generator: torch.Generator, device=None, dtype=torch.float32):
+    """Laplace(0, 1) samples by the inverse CDF, as ``jax.random.laplace``:
+    u ~ U(−1 + ε, 1), x = sign(u)·log1p(−|u|)."""
+    u = torch.empty(shape, device=device, dtype=dtype)
+    u.uniform_(-1.0 + torch.finfo(dtype).eps / 2, 1.0, generator=generator)
+    return torch.sign(u) * torch.log1p(-u.abs())
+
+
+def trajectory_timesteps(components: SDComponents, num_inference_steps: int):
+    """(timesteps, noise scales sqrt(1 − ᾱ_t) in float32) of the trajectory."""
+    ts = components.scheduler.set_timesteps(max(1, num_inference_steps))
+    acp = np.asarray(components.scheduler.schedule.alphas_cumprod, np.float32)
+    return ts.values, [float(np.sqrt(np.float32(1.0) - acp[t])) for t in ts.values]
+
+
+def trajectory_features(components: SDComponents, images, noise, num_inference_steps: int,
+                        remat: bool = True):
+    """The stage-1 forward pass (reference ``ldiffusion.py:209-252``).
+
+    images: (B, H, W, 3) ImageNet-normalised; noise: (T, B, H/f, W/f, 4)
+    unit Laplace draws, one per timestep (``laplace_noise``; f the VAE's
+    factor). Returns (trajectory (B, 64, 64, T) gray decodes, final_rgb
+    (B, 64, 64, 3) last decode), float32. With ``remat`` each timestep's
+    activations are recomputed in the backward instead of kept.
+    """
+    timesteps, scales = trajectory_timesteps(components, num_inference_steps)
+    if noise.shape[0] != len(timesteps):
+        raise ValueError(f"noise has {noise.shape[0]} timesteps, the trajectory {len(timesteps)}")
+    with torch.no_grad():
+        latents = components.vae.encode_mean(images.permute(0, 3, 1, 2))
+    emb = trajectory_text_emb(components, images.shape[0])
+
+    def step(noisy, emb, t):
+        rgb = components.vae.decode(components.unet(noisy, t, emb))
+        rgb64 = resize_bilinear(rgb, (64, 64), channel_last=False).permute(0, 2, 3, 1)
+        return rgb_to_gray(rgb64)[..., 0], rgb64
+
+    grays, rgb64 = [], None
+    for t, scale, eps in zip(timesteps, scales, noise):
+        noisy = latents + eps.permute(0, 3, 1, 2).to(latents.dtype) * scale
+        if remat:
+            gray, rgb64 = checkpoint(step, noisy, emb, t, use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            gray, rgb64 = step(noisy, emb, t)
+        grays.append(gray)
+    return torch.stack(grays, dim=-1), rgb64
 
 
 def one_step_transform(components: SDComponents, images, text_emb):

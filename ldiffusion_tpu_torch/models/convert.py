@@ -12,7 +12,9 @@ convolves: its (in, out, kh, kw) weight is the flax kernel spatially flipped.
 
 Also reads the two artifacts the JAX trainers write: the fine-tuned UNet
 directory (``unet_params.npz`` + ``unet_config.json`` + ``proj_weights.npz``)
-and, through ``core/checkpoint.py``, the segmentor's pickles.
+and, through ``core/checkpoint.py``, the segmentor's pickles; and writes the
+first (``save_unet_dir``) in the same layout, readable by the JAX package's
+``load_unet_dir`` and by this one's.
 """
 from __future__ import annotations
 
@@ -277,6 +279,17 @@ def proj_to_flax(state_dict) -> dict:
 # the JAX trainer's fine-tuned UNet directory
 # ---------------------------------------------------------------------------
 
+def _flatten(node, prefix: str = "", out=None) -> Dict[str, np.ndarray]:
+    """A nested dict → {"a/b/c": array}, the npz keys of the JAX package."""
+    out = {} if out is None else out
+    if isinstance(node, dict):
+        for k, v in node.items():
+            _flatten(v, f"{prefix}/{k}" if prefix else k, out)
+    else:
+        out[prefix] = np.asarray(node)
+    return out
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
     tree: dict = {}
     for k, v in flat.items():
@@ -300,3 +313,17 @@ def load_unet_dir(path: str):
         with np.load(proj_path) as z:
             proj = proj_from_flax(_unflatten({k: z[k] for k in z.files}))
     return config, unet_from_flax(params, config), proj
+
+
+def save_unet_dir(path: str, config: UNet2DConditionConfig, unet_state_dict,
+                  proj_state_dict=None) -> None:
+    """Write a UNet (and the text projection) in the JAX trainer's layout:
+    ``unet_params.npz`` (flax tree, "/"-joined keys), ``unet_config.json``,
+    ``proj_weights.npz`` (``{"kernel", "bias"}``)."""
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "unet_params.npz"),
+             **_flatten(unet_to_flax(unet_state_dict, config)))
+    with open(os.path.join(path, "unet_config.json"), "w") as f:
+        json.dump(config.__dict__, f, default=list, indent=2)
+    if proj_state_dict is not None:
+        np.savez(os.path.join(path, "proj_weights.npz"), **_flatten(proj_to_flax(proj_state_dict)))

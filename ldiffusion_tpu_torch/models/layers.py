@@ -10,6 +10,9 @@ downsample's asymmetric (0, 1) padding.
 
 GroupNorm and long self-attention go through ``ops/`` (the CUDA kernels on
 the card, the plain versions on the CPU); everything else is plain PyTorch.
+Where autograd needs a gradient (training), they go through the ops'
+``autograd.Function``s; under ``no_grad``/``inference_mode`` the inference
+path runs the kernels directly.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ldiffusion_tpu_torch.ops._build import needs_grad
 from ldiffusion_tpu_torch.ops.attention import dot_product_attention
-from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu
+from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_trainable
 from ldiffusion_tpu_torch.ops.resize import upsample_nearest_2x
 
 
@@ -62,8 +66,8 @@ class FusedGroupNormSiLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        y = groupnorm_silu(to_nhwc(x).contiguous(), self.weight, self.bias, self.groups,
-                           self.eps, self.silu)
+        op = groupnorm_silu_trainable if needs_grad(x, self.weight, self.bias) else groupnorm_silu
+        y = op(to_nhwc(x).contiguous(), self.weight, self.bias, self.groups, self.eps, self.silu)
         return to_nchw(y)
 
 

@@ -3,9 +3,14 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use into ``ldiffusion_tpu_torch/_build/`` (listed in
-``.gitignore``); the library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
-``build()`` starts one ``nvcc`` per source, all at once.
+``.gitignore``); the library's file name carries a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt
+and a stale library is never loaded. ``build()`` starts one ``nvcc`` per
+source, all at once.
+
+A ``ctypes`` call has no autograd: its output has no ``grad_fn``. So every
+kernel wrapper calls ``refuse_grad`` before it launches, and a caller that
+needs gradients goes through the ``torch.autograd.Function`` of its op.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module on a host that has no ``nvcc``.
@@ -20,10 +25,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention", "groupnorm")
+SOURCES = ("flash_attention", "flash_attention_bwd", "groupnorm")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,8 +50,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -87,3 +95,16 @@ def library(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where a kernel's output would silently drop the gradient."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{what}: a kernel output carries no gradient; differentiate "
+                           "through the op's autograd Function (dot_product_attention, "
+                           "groupnorm_silu_trainable) or call it under torch.no_grad()")

@@ -1,17 +1,26 @@
-"""Attention: the hand-written flash-attention kernel and its plain version.
+"""Attention: the hand-written flash-attention kernels and their plain versions.
 
 Counterpart of ``ldiffusion_tpu/ops/attention.py``. The TPU package routes
-long self-attention to two Pallas forward kernels (``_flash_kernel`` :41,
-``_flash_kvgrid_kernel`` :102); here one CUDA kernel,
-``csrc/flash_attention.cu``, covers both (its header says how and what bounds
-it). ``plain_attention`` is ``_xla_attention`` in PyTorch: the CPU path and
-the reference the kernel is held against on the card.
+long self-attention to Pallas kernels: two forwards (``_flash_kernel`` :41,
+``_flash_kvgrid_kernel`` :102), a forward that also writes the logsumexp
+(``_flash_kernel_lse`` :180) and the flash backward (``_flash_bwd_kernel``
+:245). Here ``csrc/flash_attention.cu`` is one forward kernel for the first
+three (the logsumexp is an optional output) and ``csrc/flash_attention_bwd.cu``
+the backward; their headers say how and what bounds them. ``plain_attention``,
+``plain_attention_lse`` and ``plain_attention_bwd`` are the same functions in
+PyTorch: the CPU path and the reference the kernels are held against on the
+card.
 
-Routing (``dot_product_attention``): on a CUDA tensor, attention over at
-least ``FLASH_MIN_KV`` keys goes to the kernel — every spatial self-attention
-of the UNet at 1024² (1024..16384 tokens) and the VAE mid-block's. Short
-attention stays plain, as the JAX package leaves it to XLA: the 5-token text
-cross-attention and the UNet mid-block's 256-token self-attention.
+Routing (``dot_product_attention``): attention over at least ``FLASH_MIN_KV``
+keys goes to the kernels — every spatial self-attention of the UNet from
+1024 tokens up and the VAE mid-block's. Short attention stays plain, as the
+JAX package leaves it to XLA: the 5-token text cross-attention, and the
+UNet's 256-token and shorter self-attention. Where autograd needs a gradient,
+long attention runs through an ``autograd.Function``: ``_FlashTrainable`` (the
+forward with logsumexp, then the flash backward) for head dims the backward
+takes, ``_FlashPlainBackward`` (the forward, then a plain recomputed backward)
+above them — the VAE's single-head d = 512, as the JAX package keeps the XLA
+vjp for its kvgrid kernel (:416-422).
 """
 from __future__ import annotations
 
@@ -27,51 +36,112 @@ from ldiffusion_tpu_torch.ops import _build
 FLASH_MIN_KV = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The backward keeps 16 rows of dK and dV per warp in f32 registers, d/2 a
+# thread each: d = 160 (SD-v1.5's widest UNet head) is the widest that stays
+# under the 255-register limit. Its tiles must also fit a block's shared memory.
+BWD_MAX_HEAD_DIM = 160
+SMEM_PER_BLOCK = 232448  # H100, bytes of dynamic shared memory a block may use
+_BWD_TILES = (1, 2, 3, 4, 5, 6, 8, 10)  # compiled 16-column tile counts
+
+
+def _compute_dtype(t):
+    """f32 for bf16/f32 inputs, the input's own type where it is wider."""
+    return torch.promote_types(t.dtype, torch.float32)
+
 
 def plain_attention(q, k, v, scale: float):
     """(B, S, H, D) softmax(q kᵀ · scale) v: f32 logits and softmax, the
     probabilities cast to the input dtype before the product with v."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    ct = _compute_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct))
     probs = torch.softmax(logits * scale, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def plain_attention_lse(q, k, v, scale: float):
+    """``plain_attention`` and the logsumexp of each query row's scaled
+    logits, (B, H, Sq) in f32: ``_flash_attention_bhsd_lse`` in PyTorch."""
+    ct = _compute_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None]).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v), lse
+
+
+def plain_attention_bwd(q, k, v, o, do, lse, scale: float):
+    """(dq, dk, dv) from probabilities recomputed as exp(S·scale − lse):
+    ``_flash_bwd_kernel`` in PyTorch. P and dS are rounded to the input dtype
+    before their products, as the kernel rounds them; dS is formed from the
+    unrounded P."""
+    ct = _compute_dtype(q)
+    qf, kf, vf, dof = (t.to(ct) for t in (q, k, v, do))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None].to(ct))
+    delta = (dof * o.to(ct)).sum(-1).transpose(1, 2)  # Δ = rowsum(dO ∘ O), (B, H, Sq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(ct), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).to(ct)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.cache
-def _kernel_fn():
+def _fwd_fn():
     fn = _build.library("flash_attention").ldt_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_fwd(q, k, v, scale: float):
-    """q: (B, Sq, H, D), k/v: (B, Sk, H, D) → (B, Sq, H, D). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
-    if q.device.type == "cpu":
-        return plain_attention(q, k, v, scale)
+@functools.cache
+def _bwd_fn():
+    fn = _build.library("flash_attention_bwd").ldt_flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_qkv(what: str, q, k, v, max_d: int):
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd takes float32 or bfloat16 q/k/v, got "
+        raise TypeError(f"{what} takes float32 or bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if d > 512:
-        raise ValueError(f"flash_attention_fwd: head dim {d} > 512")
+        raise ValueError(f"{what}: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if d > max_d:
+        raise ValueError(f"{what}: head dim {d} > {max_d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd: q, k, v must be contiguous (B, S, H, D)")
+        raise ValueError(f"{what}: q, k, v must be contiguous (B, S, H, D)")
     if not (k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_fwd: q, k, v on different devices")
+        raise ValueError(f"{what}: q, k, v on different devices")
+
+
+def _launch_fwd(what: str, q, k, v, scale: float, lse):
+    _build.refuse_grad(what, q, k, v)
+    _check_qkv(what, q, k, v, 512)
+    b, sq, h, d = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           b, h, sq, sk, d, float(scale), _DTYPES[q.dtype],
-                           torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_fwd launch")
+        err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        None if lse is None else lse.data_ptr(),
+                        b, h, sq, k.shape[1], d, float(scale), _DTYPES[q.dtype],
+                        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, f"{what} launch")
+    return out
+
+
+def flash_attention_fwd(q, k, v, scale: float):
+    """q: (B, Sq, H, D), k/v: (B, Sk, H, D) → (B, Sq, H, D). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises (also where
+    autograd would need the output's gradient)."""
+    if q.device.type == "cpu":
+        return plain_attention(q, k, v, scale)
+    out = _launch_fwd("flash_attention_fwd", q, k, v, scale, None)
     flash_attention_fwd.launches += 1
     return out
 
@@ -79,10 +149,130 @@ def flash_attention_fwd(q, k, v, scale: float):
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_fwd_lse(q, k, v, scale: float):
+    """The forward and each query row's logsumexp: (out (B, Sq, H, D),
+    lse (B, H, Sq) float32). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return plain_attention_lse(q, k, v, scale)
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    out = _launch_fwd("flash_attention_fwd_lse", q, k, v, scale, lse)
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_lse.launches = 0
+
+
+def bwd_tiles(d: int) -> int:
+    """The 16-column tile count the backward kernels run head dim ``d`` at
+    (``tiles_for`` in csrc/flash_attention_bwd.cu); 0 where d is not taken."""
+    if not 1 <= d <= BWD_MAX_HEAD_DIM:
+        return 0
+    return next(t for t in _BWD_TILES if 16 * t >= d)
+
+
+def bwd_smem_bytes(d: int, dtype) -> int:
+    """Shared memory of the larger backward kernel at head dim ``d`` (the
+    ``*_smem_bytes``/``*_f32_floats`` formulas of the CUDA source), or -1."""
+    n = bwd_tiles(d)
+    if n == 0:
+        return -1
+    dp = 16 * n
+    if dtype == torch.bfloat16:
+        rs, bq = dp + 8, 64 if n <= 5 else 32
+        dkdv = (2 * 64 * rs + 2 * bq * rs + 2 * dp * (bq + 8)) * 2 + 2 * bq * 4
+        dq = (2 * 64 * rs + 2 * 32 * rs + dp * 40) * 2
+        return max(dkdv, dq)
+    fs = 33
+    dkdv = 4 * dp * fs + 2 * 32 * dp + 2 * 32 * fs + 2 * 32
+    dq = 4 * dp * fs + 32 * dp + 32 * fs
+    return 4 * max(dkdv, dq)
+
+
+def flash_bwd_fits(d: int, dtype=torch.bfloat16) -> bool:
+    """The routing gate of the flash backward (the Hopper counterpart of
+    ``_flash_bwd_fits_pallas``): the head dim's dK/dV accumulators fit the
+    registers and its tiles a block's shared memory."""
+    return 0 < bwd_smem_bytes(d, dtype) <= SMEM_PER_BLOCK
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, scale: float):
+    """(dq, dk, dv) of ``o = attention(q, k, v)`` for the output gradient
+    ``do``, from the forward's ``lse`` (B, H, Sq). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernels (dK/dV, then dQ) or raises.
+    Δ = rowsum(dO ∘ O) is computed here with PyTorch, as the JAX package
+    computes it outside its kernel."""
+    if q.device.type == "cpu":
+        return plain_attention_bwd(q, k, v, o, do, lse, scale)
+    what = "flash_attention_bwd"
+    _build.refuse_grad(what, q, k, v, o, do)
+    _check_qkv(what, q, k, v, BWD_MAX_HEAD_DIM)
+    b, sq, h, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"{what}: o/do must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"{what}: lse must be ({b}, {h}, {sq}) float32")
+    do, lse = do.contiguous(), lse.contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), b, h, sq, k.shape[1], d, float(scale),
+                        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, f"{what} launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashTrainable(torch.autograd.Function):
+    """The forward with logsumexp, then the flash backward (``_flash_trainable``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.to(q.dtype), lse, ctx.scale)
+        return dq, dk, dv, None
+
+
+class _FlashPlainBackward(torch.autograd.Function):
+    """The forward kernel, then a backward recomputed through
+    ``plain_attention`` (``_flash_kvgrid_trainable``), for head dims the flash
+    backward does not take."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_attention_fwd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = plain_attention(q, k, v, ctx.scale)
+        return (*torch.autograd.grad(out, (q, k, v), do), None)
+
+
 def dot_product_attention(q, k, v, scale=None):
     """Multi-head attention, (B, S, H, D) layout (the JAX signature)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cuda" and k.shape[1] >= FLASH_MIN_KV:
-        return flash_attention_fwd(q, k, v, scale)
-    return plain_attention(q, k, v, scale)
+    if k.shape[1] < FLASH_MIN_KV:
+        return plain_attention(q, k, v, scale)
+    if _build.needs_grad(q, k, v):
+        fn = _FlashTrainable if flash_bwd_fits(q.shape[-1], q.dtype) else _FlashPlainBackward
+        return fn.apply(q, k, v, scale)
+    return flash_attention_fwd(q, k, v, scale)

@@ -6,6 +6,10 @@ become one two-pass CUDA kernel, ``csrc/groupnorm.cu``, used for every
 GroupNorm on CUDA, small maps and large (its header says how and what bounds
 it). ``plain_groupnorm_silu`` is ``_xla_groupnorm_silu`` in PyTorch: the CPU
 path and the reference the kernel is held against on the card.
+
+Under autograd, ``groupnorm_silu_trainable`` runs the kernel forward and
+differentiates through ``plain_groupnorm_silu``, as the JAX package's
+``_gn_bwd`` (:319-323) takes the XLA form's vjp.
 """
 from __future__ import annotations
 
@@ -35,15 +39,15 @@ def _stats_to_affine(s_c, ss_c, n_spatial: int, groups: int, c: int, scale, bias
     rstd_g = torch.rsqrt(var_g + eps)
     mean_c = mean_g.repeat_interleave(c // groups, dim=1)
     rstd_c = rstd_g.repeat_interleave(c // groups, dim=1)
-    mul = rstd_c * scale[None, :].float()
-    add = bias[None, :].float() - mean_c * mul
+    mul = rstd_c * scale[None, :].to(s_c.dtype)
+    add = bias[None, :].to(s_c.dtype) - mean_c * mul
     return mul, add
 
 
 def plain_groupnorm_silu(x, scale, bias, groups: int, eps: float, silu: bool):
-    """x: (B, H, W, C). f32 math, output in x's dtype."""
+    """x: (B, H, W, C). f32 math (f64 for f64 input), output in x's dtype."""
     b, h, w, c = x.shape
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     s_c = xf.sum(dim=(1, 2))
     ss_c = (xf * xf).sum(dim=(1, 2))
     mul, add = _stats_to_affine(s_c, ss_c, h * w, groups, c, scale, bias, eps)
@@ -73,9 +77,11 @@ def _kernel_fn():
 def groupnorm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
                    silu: bool = True):
     """x: (B, H, W, C); scale/bias: (C,). GroupNorm [+ SiLU]. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    takes the plain version; a CUDA tensor launches the kernel or raises (also
+    where autograd would need the output's gradient)."""
     if x.device.type == "cpu":
         return plain_groupnorm_silu(x, scale, bias, groups, eps, silu)
+    _build.refuse_grad("groupnorm_silu", x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPES:
@@ -106,3 +112,29 @@ def groupnorm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
 
 
 groupnorm_silu.launches = 0
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    """Kernel forward; backward by autograd through ``plain_groupnorm_silu``,
+    recomputed from the saved input."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (groups, eps, silu)
+        return groupnorm_silu(x, scale, bias, groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        wanted = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wanted)]
+        with torch.enable_grad():
+            y = plain_groupnorm_silu(*inputs, *ctx.args)
+        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], dy))
+        return (*(next(grads) if w else None for w in wanted), None, None, None)
+
+
+def groupnorm_silu_trainable(x, scale, bias, groups: int = 32, eps: float = 1e-5,
+                             silu: bool = True):
+    """``groupnorm_silu`` with a gradient for x, scale and bias."""
+    return _GroupNormSiLU.apply(x, scale, bias, groups, eps, silu)

@@ -1,6 +1,17 @@
-"""Image resizing (counterpart of ``ldiffusion_tpu/ops/resize.py``). Only the
-2x nearest upsample is on the tissue-inference path."""
+"""Image resizing (counterpart of ``ldiffusion_tpu/ops/resize.py``).
+
+``resize_bilinear`` uses half-pixel centres (``align_corners=False``) and
+never antialiases, also when shrinking (512² decodes → 64² trajectory
+features): the JAX package forces ``antialias=False`` to match torch's
+``F.interpolate`` default. ``rgb_to_gray`` is the ITU-R 601 luma with the
+reference's weights.
+"""
 from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+GRAY_WEIGHTS = (0.2989, 0.5870, 0.1140)
 
 
 def upsample_nearest_2x(x):
@@ -8,3 +19,18 @@ def upsample_nearest_2x(x):
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
     return x.reshape(b, h * 2, w * 2, c)
+
+
+def resize_bilinear(x, size, channel_last: bool = True):
+    """Resize the spatial dims to ``size=(H, W)``; x: (B, H, W, C) if
+    ``channel_last`` else (B, C, H, W). Keeps x's dtype."""
+    nchw = x.permute(0, 3, 1, 2) if channel_last else x
+    y = F.interpolate(nchw, size=tuple(size), mode="bilinear", align_corners=False,
+                      antialias=False)
+    return y.permute(0, 2, 3, 1) if channel_last else y
+
+
+def rgb_to_gray(x):
+    """(..., 3) → (..., 1): 0.2989 R + 0.5870 G + 0.1140 B."""
+    w = torch.tensor(GRAY_WEIGHTS, dtype=x.dtype, device=x.device)
+    return (x * w).sum(-1, keepdim=True)

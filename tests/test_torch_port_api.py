@@ -180,11 +180,18 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 _HYGIENE = r"""
-import sys
+import importlib, pkgutil, sys
+import ldiffusion_tpu_torch
 from ldiffusion_tpu_torch.api import LDiffusionModel
 model = LDiffusionModel("random:tiny", "tissue", device="cpu")
 decoded, mask = model.inference(sys.argv[1], None, sys.argv[2], 7)
 assert mask.shape == (64, 64), mask.shape
+# every module of the package, the training slice's included
+names = [m.name for m in pkgutil.walk_packages(ldiffusion_tpu_torch.__path__,
+                                               "ldiffusion_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "ldiffusion_tpu_torch.train.ldiffusion" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu"))
 print("FOREIGN", bad)

@@ -15,6 +15,14 @@ the unnormalised probabilities to bf16 where the plain version rounds the
 normalised ones (about 2^-9*rms(o) an output: 2^-5*rms), and both round the
 output, at most one ulp apart (2^-6|p|). GroupNorm outputs are O(1), with
 the same f32 math; its bf16 output may differ by one ulp (1e-3 + 1.6e-2|p|).
+
+The forward's logsumexp (K5) differs from the plain one by summation order
+only: bf16 inputs make exact f32 products in both (1e-4 + 1e-5|p| in f32,
+1e-3 + 1e-5|p| in bf16). The backward (K6) has the forward's tolerances: in
+bf16 both versions round P and dS to bf16 before their products and the
+results to bf16 (2^-5·rms + 2^-6|p|); in f32 only the order of the sums over
+up to a few thousand terms differs, relative to each gradient's scale
+(1e-4·rms + 1e-4|p|).
 """
 import numpy as np
 import pytest
@@ -24,6 +32,15 @@ from ldiffusion_tpu_torch.ops import attention as tatt
 from ldiffusion_tpu_torch.ops import groupnorm as tgn
 
 ATTN_TOL = {torch.float32: (2e-5, 0.0, 1e-4), torch.bfloat16: (0.0, 2 ** -5, 2 ** -6)}
+LSE_TOL = {torch.float32: (1e-4, 0.0, 1e-5), torch.bfloat16: (1e-3, 0.0, 1e-5)}
+BWD_TOL = {torch.float32: (0.0, 1e-4, 1e-4), torch.bfloat16: (0.0, 2 ** -5, 2 ** -6)}
+# the training path's head dims (40, 80 at 512² images; 160 the widest K6
+# takes; 16 and 64 in the tiny f32 runs), ragged lengths and d % 8 != 0
+BWD_CASES = [(torch.float32, (2, 300, 3, 8)), (torch.float32, (1, 1024, 2, 16)),
+             (torch.float32, (1, 777, 2, 64)), (torch.float32, (1, 333, 1, 160)),
+             (torch.bfloat16, (1, 1024, 2, 40)), (torch.bfloat16, (1, 1024, 2, 80)),
+             (torch.bfloat16, (1, 1024, 2, 160)), (torch.bfloat16, (2, 300, 3, 8)),
+             (torch.bfloat16, (1, 129, 2, 100)), (torch.bfloat16, (1, 515, 2, 136))]
 GN_TOL = {torch.float32: (1e-5, 0.0, 1e-4), torch.bfloat16: (1e-3, 0.0, 1.6e-2)}
 
 
@@ -134,3 +151,122 @@ def test_groupnorm_kernel_clamps_the_variance(cuda):
     ones, zeros = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
     out = tgn.groupnorm_silu(x, ones, zeros, 32, 1e-6, True)
     assert bool(torch.isfinite(out).all())
+
+
+def _bwd_inputs(rng, shape, dtype, device):
+    q, k, v, do = (_normal(rng, shape, dtype, device) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    out, lse = tatt.plain_attention_lse(q, k, v, scale)
+    return q, k, v, do, out, lse, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", BWD_CASES)
+def test_flash_lse_kernel_matches_plain_on_gpu(cuda, dtype, shape):
+    rng = np.random.default_rng(5)
+    q, k, v = (_normal(rng, shape, dtype, cuda) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    before = tatt.flash_attention_fwd_lse.launches
+    out, lse = tatt.flash_attention_fwd_lse(q, k, v, scale)
+    assert tatt.flash_attention_fwd_lse.launches == before + 1
+    assert lse.shape == (shape[0], shape[2], shape[1]) and lse.dtype == torch.float32
+    ref_out, ref_lse = tatt.plain_attention_lse(q, k, v, scale)
+    _assert_close(out, ref_out, ATTN_TOL[dtype])
+    _assert_close(lse, ref_lse, LSE_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_on_gpu(cuda, dtype, shape):
+    q, k, v, do, out, lse, scale = _bwd_inputs(np.random.default_rng(6), shape, dtype, cuda)
+    before = tatt.flash_attention_bwd.launches
+    grads = tatt.flash_attention_bwd(q, k, v, out, do, lse, scale)
+    assert tatt.flash_attention_bwd.launches == before + 1
+    for g, ref in zip(grads, tatt.plain_attention_bwd(q, k, v, out, do, lse, scale)):
+        assert g.dtype == dtype and g.shape == ref.shape
+        _assert_close(g, ref, BWD_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernel_takes_other_key_lengths_and_is_deterministic(cuda):
+    rng = np.random.default_rng(7)
+    q, do = (_normal(rng, (2, 200, 2, 40), torch.bfloat16, cuda) for _ in range(2))
+    k, v = (_normal(rng, (2, 77, 2, 40), torch.bfloat16, cuda) for _ in range(2))
+    out, lse = tatt.plain_attention_lse(q, k, v, 0.15)
+    first = tatt.flash_attention_bwd(q, k, v, out, do, lse, 0.15)
+    for g, ref in zip(first, tatt.plain_attention_bwd(q, k, v, out, do, lse, 0.15)):
+        _assert_close(g, ref, BWD_TOL[torch.bfloat16])
+    again = tatt.flash_attention_bwd(q, k, v, out, do, lse, 0.15)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))  # no atomics
+
+
+@pytest.mark.gpu
+def test_flash_bwd_keeps_no_score_matrix(cuda):
+    """The port's counterpart of tests/test_flash_backward.py:95-116: at 4096
+    tokens the backward stays far below one 4·S²-byte f32 score matrix."""
+    s = 4096
+    q, k, v, do = (_normal(np.random.default_rng(8), (1, s, 8, 40), torch.bfloat16, cuda)
+                   for _ in range(4))
+    out, lse = tatt.flash_attention_fwd_lse(q, k, v, 40 ** -0.5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tatt.flash_attention_bwd(q, k, v, out, do, lse, 40 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 4 * s * s
+
+
+@pytest.mark.gpu
+def test_bwd_gate_matches_the_kernels_shared_memory(cuda):
+    import ctypes
+
+    from ldiffusion_tpu_torch.ops import _build
+
+    fn = _build.library("flash_attention_bwd").ldt_flash_attention_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in range(1, 200):
+            assert fn(d, code) == tatt.bwd_smem_bytes(d, dtype), (d, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [40, 512])
+def test_attention_gradients_match_plain_autograd_on_gpu(cuda, dtype, d):
+    """dot_product_attention under autograd: K5+K6 at d = 40, the forward
+    kernel + plain backward at d = 512; against autograd through the plain
+    version in f32 (autograd of the bf16 plain version would round dP)."""
+    rng = np.random.default_rng(9)
+    shape = (1, 600, 1, d)
+    q, k, v, do = (_normal(rng, shape, dtype, cuda) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tatt.dot_product_attention(*leaves)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(tatt.plain_attention(*ref_leaves, d ** -0.5), ref_leaves,
+                              do.float())
+    for g, r in zip(grads, ref):
+        _assert_close(g, r, BWD_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_outputs_that_would_drop_the_gradient(cuda):
+    """A CUDA tensor that requires grad never leaves a raw kernel wrapper
+    without a grad_fn: the wrappers raise, the layers route to the Functions."""
+    from ldiffusion_tpu_torch.models.layers import FusedGroupNormSiLU
+
+    x = torch.randn((1, 600, 2, 16), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="gradient"):
+        tatt.flash_attention_fwd(x, x, x, 0.25)
+    assert tatt.dot_product_attention(x, x, x).grad_fn is not None
+    with torch.no_grad():
+        tatt.flash_attention_fwd(x, x, x, 0.25)  # inference: the kernel as before
+    m = torch.randn((1, 8, 8, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="gradient"):
+        tgn.groupnorm_silu(m, torch.ones(64, device=cuda), torch.zeros(64, device=cuda), 32)
+    layer = FusedGroupNormSiLU(64).to(cuda)
+    y = layer(m.permute(0, 3, 1, 2))
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert m.grad is not None and layer.weight.grad is not None

@@ -3,8 +3,10 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ldiffusion_tpu.diffusion.pipeline import SDComponents, init_proj
+from ldiffusion_tpu.losses import infonce as jinfo
 from ldiffusion_tpu.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from ldiffusion_tpu.models.unet import UNet2DCondition, UNet2DConditionConfig
 from ldiffusion_tpu.models.vae import AutoencoderKL, VAEConfig
@@ -27,3 +29,55 @@ def jax_random_components() -> SDComponents:
     }
     return SDComponents(unet_config=ucfg, vae_config=vcfg, text_config=tcfg, unet=unet,
                         vae=vae, text=text, params=params)
+
+
+def jax_contrast_indices(labels, key, num_negatives, num_anchors, num_classes):
+    """The anchors, positives, negatives and validity ``contrastive_loss`` of
+    the JAX package draws from ``key`` (the same splits and formulas,
+    ldiffusion_tpu/losses/infonce.py:60-90), as numpy."""
+    b = labels.shape[0]
+    labs = jnp.asarray(labels).reshape(b, -1)
+    n = labs.shape[1]
+    out = []
+    for lab, k in zip(labs, jax.random.split(key, b)):
+        k_anchor, k_pos, k_neg, k_cls = jax.random.split(k, 4)
+        if num_classes is None:
+            anchor = jax.random.randint(k_anchor, (num_anchors,), 0, n)
+            present = jnp.ones((num_anchors,), bool)
+        else:
+            class_mask = lab[None, :] == jnp.arange(num_classes)[:, None]
+            scores = jnp.where(class_mask, jinfo._gumbel(k_cls, (num_classes, n)), -jnp.inf)
+            uniform = jax.random.randint(k_anchor, (num_anchors - num_classes,), 0, n)
+            anchor = jnp.concatenate([jnp.argmax(scores, axis=1), uniform])
+            present = jnp.concatenate([class_mask.any(axis=1),
+                                       jnp.ones((num_anchors - num_classes,), bool)])
+        same = lab[None, :] == lab[anchor][:, None]
+        n_same = jnp.sum(same, axis=1)
+        valid = present & (n_same > 1) & (n - n_same > num_negatives)
+        pos_mask = same.at[jnp.arange(num_anchors), anchor].set(False)
+        pos = jnp.argmax(jnp.where(pos_mask, jinfo._gumbel(k_pos, (num_anchors, n)), -jnp.inf),
+                         axis=1)
+        neg = jax.random.categorical(k_neg, jnp.where(~same, 0.0, -jnp.inf)[:, None, :],
+                                     axis=-1, shape=(num_anchors, num_negatives))
+        out.append([np.asarray(a) for a in (anchor, pos, neg, valid)])
+    return [np.stack(x) for x in zip(*out)]
+
+
+def jax_laplace_noise(key, n_steps: int, shape):
+    """The unit Laplace draws ``trajectory_features`` of the JAX package takes
+    from ``key``, one per timestep (``split(key, T)``, pipeline.py:203-217),
+    stacked: (T, *shape) numpy."""
+    return np.stack([np.asarray(jax.random.laplace(k, shape, jnp.float32))
+                     for k in jax.random.split(key, n_steps)])
+
+
+def flat(tree, prefix="", out=None):
+    """A nested dict of arrays → {"a/b/c": numpy array}."""
+    out = {} if out is None else out
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            flat(v, name, out)
+        else:
+            out[name] = np.asarray(v)
+    return out
