@@ -8,12 +8,16 @@ one NVIDIA GPU.
 
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. build:   compile ldiffusion_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
-              nvcc per source, in parallel.
+              nvcc per source, in parallel; count the HGMMA and UTMALDG
+              instructions in the wgmma forward's SASS (cuobjdump), none fails.
   2. kernels: every kernel at every distinct shape of its path (inference at
               1024², training at 512²), held against its plain PyTorch version
               in bf16 (plus f32 and ragged cases), timed beside the plain
-              version and one library call; the flash forward with logsumexp
-              also at tools/bench_attn_exp2.py's three shapes.
+              version and one library call (each window at least 50 ms of
+              device work); the forward rows name the route they took and
+              time the mma.sync kernel (the previous design) on the same
+              inputs; the flash forward with logsumexp also at
+              tools/bench_attn_exp2.py's three shapes.
   3. tiny:    the whole ``inference_tissue`` at the tiny configs on a 64² ROI,
               once on cuda with the kernels (f32, TF32 off) and once on the
               CPU with the plain versions, same weights; compared.
@@ -21,7 +25,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               segmentor directory at the 1024²/7-class plan written in the JAX
               layout, then ``LDiffusionModel.inference_tissue`` on one 1024²
               ROI and in folder mode on 3 square ROIs + 1 non-square ROI.
-              Launch counters are reset just before and read just after.
+              Launch counters are reset just before and read just after;
+              every forward launch there took the wgmma route.
   5. train:   one stage-1 step at the tiny configs in f32 on cuda against the
               same step on the CPU (same weights, noise, contrastive indices);
               then SD-v1.5 width, bf16 compute over f32 masters, batch 1, 25
@@ -30,7 +35,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               PNG pairs, 3 steps, and the saved UNet read back by
               ``inference_tissue``; (b) 512² images with 64² labels through
               ``DiffusionWarmupTrainer``, 3 steps. Counters are reset before
-              (a) and read after (b); one step of each size is profiled.
+              (a) and read after (b), every forward launch on the wgmma
+              route; one step of each size is profiled.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -83,12 +89,16 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+# A timed window holds at least this much device work (and at least the
+# caller's count of calls), so sub-0.1 ms kernels are timed over hundreds of
+# launches and their times compare on one footing.
+MIN_WINDOW_MS = 50.0
+MAX_TIMED_CALLS = 5000
+
+
+def _events_ms(fn, iters: int) -> float:
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -96,7 +106,59 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """ms per call, over a window of max(iters, MIN_WINDOW_MS of work) calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    once = _events_ms(fn, 1)
+    n = min(MAX_TIMED_CALLS, max(iters, math.ceil(MIN_WINDOW_MS / max(once, 1e-3))))
+    return _events_ms(fn, n) / n
+
+
+def device_kernel_ms(prof) -> dict:
+    """Device time by kernel name (ms) from a finished torch.profiler run:
+    device work only; a user range such as "Optimizer.step#AdamW.step" is
+    listed on the device too, over kernels that are counted already."""
+    import torch
+
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    return kernels
+
+
+def profiled_device_ms(fn, iters: int) -> float:
+    """Device time per call: the sum of the CUDA kernels' times of ``iters``
+    calls under torch.profiler, without the host time between them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_kernel_ms(prof).values()) / iters
+
+
+def route_delta(fn, before: dict) -> str:
+    """The one route a wrapper launched since ``before`` (its counts then)."""
+    moved = [r for r, n in fn.launches_by_route.items() if n != before[r]]
+    if len(moved) != 1 or fn.launches_by_route[moved[0]] != before[moved[0]] + 1:
+        raise AssertionError(f"expected one launch, routes {before} -> {fn.launches_by_route}")
+    return moved[0]
 
 
 def compare(name, out, ref, tol):
@@ -130,9 +192,10 @@ def compare(name, out, ref, tol):
 # UNet level 0 (5), level 1 (5), level 2 (5), VAE mid-block (2)
 ATTN_PATH_SHAPES = [(1, 16384, 8, 40), (1, 4096, 8, 80), (1, 1024, 8, 160),
                     (1, 16384, 1, 512)]
-# ragged sequences and other head dims: the f32 kernel's tile widths, and the
-# bf16 kernel's head-dim splits (1, 2 and 4 warps per row group) and its
-# unaligned-load path (d % 8 != 0)
+# ragged sequences and other head dims: the f32 kernel's tile widths; the
+# wgmma kernel's other configurations (d % 8 == 0: 8, 96, 128, 136, 200 and
+# the split at 512) and the shapes TMA cannot address, which stay on the
+# mma.sync kernel (d = 100, 300)
 ATTN_EXTRA = [((2, 300, 3, 8), "float32"), ((1, 1000, 2, 16), "float32"),
               ((1, 777, 2, 64), "float32"), ((1, 600, 1, 512), "float32"),
               ((2, 300, 3, 8), "bfloat16"), ((2, 515, 2, 96), "bfloat16"),
@@ -165,21 +228,28 @@ def attn_row(b, s, h, d, dtype, gen, iters):
     import torch
     import torch.nn.functional as F
 
-    from ldiffusion_tpu_torch.ops.attention import flash_attention_fwd, plain_attention
+    from ldiffusion_tpu_torch.ops.attention import _launch_fwd, flash_attention_fwd, plain_attention
 
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
                for _ in range(3))
     scale = 1.0 / math.sqrt(d)
+    before = dict(flash_attention_fwd.launches_by_route)
     out = flash_attention_fwd(q, k, v, scale)
+    route = route_delta(flash_attention_fwd, before)
     ref = plain_attention(q, k, v, scale)
     torch.cuda.synchronize()
     tol = ATTN_BF16 if dt == torch.bfloat16 else ATTN_F32
-    row = {"shape": [b, s, h, d], "dtype": dtype,
+    row = {"shape": [b, s, h, d], "dtype": dtype, "route": route,
            **compare(f"flash_attention_fwd{(b, s, h, d)} {dtype}", out, ref, tol)}
     del ref
     if iters:
         row["ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale), iters)
+        # the kernel alone: at the short shapes the host's launch path sets "ms"
+        row["device_ms"] = profiled_device_ms(lambda: flash_attention_fwd(q, k, v, scale), 20)
+        if route == "wgmma":  # the mma.sync kernel (the previous design), same inputs
+            row["mma_ms"] = cuda_ms(
+                lambda: _launch_fwd("flash_attention_fwd (mma)", q, k, v, scale, None, route="mma"), iters)
         row["plain_ms"] = cuda_ms(lambda: plain_attention(q, k, v, scale), iters)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         row["library_ms"] = cuda_ms(
@@ -248,22 +318,32 @@ def lse_row(b, s, h, d, dtype, gen, iters):
     import torch
     import torch.nn.functional as F
 
-    from ldiffusion_tpu_torch.ops.attention import flash_attention_fwd_lse, plain_attention_lse
+    from ldiffusion_tpu_torch.ops.attention import (
+        _launch_fwd,
+        flash_attention_fwd_lse,
+        plain_attention_lse,
+    )
 
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt) for _ in range(3))
     scale = 1.0 / math.sqrt(d)
+    before = dict(flash_attention_fwd_lse.launches_by_route)
     out, lse = flash_attention_fwd_lse(q, k, v, scale)
+    route = route_delta(flash_attention_fwd_lse, before)
     ref, ref_lse = plain_attention_lse(q, k, v, scale)
     torch.cuda.synchronize()
     name = f"flash_attention_fwd_lse{(b, s, h, d)} {dtype}"
-    row = {"shape": [b, s, h, d], "dtype": dtype,
+    row = {"shape": [b, s, h, d], "dtype": dtype, "route": route,
            "out": compare(name + " out", out, ref, ATTN_BF16 if dt == torch.bfloat16 else ATTN_F32),
            "lse": compare(name + " lse", lse, ref_lse, LSE[dtype])}
     row["max_abs_err"] = max(row["out"]["max_abs_err"], row["lse"]["max_abs_err"])
     del ref, ref_lse
     if iters:
         row["ms"] = cuda_ms(lambda: flash_attention_fwd_lse(q, k, v, scale), iters)
+        row["device_ms"] = profiled_device_ms(lambda: flash_attention_fwd_lse(q, k, v, scale), 20)
+        if route == "wgmma":  # the mma.sync kernel (the previous design), same inputs
+            row["mma_ms"] = cuda_ms(
+                lambda: _launch_fwd("flash_attention_fwd (mma)", q, k, v, scale, lse, route="mma"), iters)
         row["plain_ms"] = cuda_ms(lambda: plain_attention_lse(q, k, v, scale), iters)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         row["library_ms"] = cuda_ms(
@@ -315,8 +395,9 @@ def bwd_row(b, s, h, d, dtype, gen, iters, memory_check=False):
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
         dot = do.transpose(1, 2)
-        row["library_ms"] = cuda_ms(
-            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), iters)
+        sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+        row["library_ms"] = cuda_ms(sdpa_bwd, iters)  # host time of autograd included
+        row["library_device_ms"] = profiled_device_ms(sdpa_bwd, 50)  # kernels only
         # reads q, k, v, o, do, lse, Δ; writes dq, dk, dv
         row["bound_ms"], row["bound_by"] = attn_bound(b, s, h, d, dt, 10, 8, 8.0 * b * h * s)
     return row
@@ -328,7 +409,7 @@ def phase_kernels(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     attn, gn = [], []
     for b, s, h, d in ATTN_PATH_SHAPES:
-        attn.append(attn_row(b, s, h, d, "bfloat16", gen, iters=3))
+        attn.append(attn_row(b, s, h, d, "bfloat16", gen, iters=5))
         log("kernel flash_attention_fwd", json.dumps(attn[-1]))
     for shape, dtype in ATTN_EXTRA:
         r = attn_row(*shape, dtype, gen, iters=0)
@@ -376,10 +457,26 @@ def counters():
 def reset_counters():
     for fn in counters().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_counters():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def read_routes():
+    """Launches by route of the forward wrappers."""
+    return {name: dict(fn.launches_by_route) for name, fn in counters().items()
+            if hasattr(fn, "launches_by_route")}
+
+
+def check_bf16_routes(where: str, routes: dict) -> None:
+    """Every bf16 forward of the model's path shapes takes the wgmma route."""
+    for name, by_route in routes.items():
+        off = {r: n for r, n in by_route.items() if r != "wgmma" and n}
+        if off:
+            raise AssertionError(f"{where}: {name} launched off the wgmma route: {by_route}")
 
 
 INFERENCE_KERNELS = ("flash_attention_fwd", "groupnorm_silu")
@@ -550,7 +647,9 @@ def phase_full(work, seed):
     torch.cuda.synchronize()
     folder_s = time.perf_counter() - t0
     launches = read_counters()  # the main path ends here
+    routes = read_routes()
     peak = torch.cuda.max_memory_allocated()
+    check_bf16_routes("full", routes)
 
     from PIL import Image
 
@@ -587,7 +686,7 @@ def phase_full(work, seed):
            "predictor_build_s": predictor_s,
            "single_s_per_roi": single_s, "folder_rois": 4, "folder_s": folder_s,
            "folder_s_per_roi": folder_s / 4, "max_memory_allocated": peak,
-           "launches_per_roi": per_roi, "launches": launches,
+           "launches_per_roi": per_roi, "launches": launches, "launches_by_route": routes,
            "mask_classes": np.bincount(mask.ravel(), minlength=7).tolist(),
            "transformed_range": [lo, hi]}
     log("full", json.dumps(row))
@@ -795,11 +894,14 @@ def phase_train(work, seed):
         trainer.train_step(images, labels)
     torch.cuda.synchronize()
     total = read_counters()  # the training main path ends here
+    routes = read_routes()
+    check_bf16_routes("train", routes)
     launches_512 = {k: total[k] - counts_before[k] for k in total}
     row_b = {"images": [512, 512], "labels": [64, 64],
              "dtype": "bfloat16 compute, float32 masters",
              "peak_bytes": torch.cuda.max_memory_allocated(),
              **step_summary(trainer, launches_512),
+             "launches_by_route_64_and_512": routes,
              "params_moved": not torch.equal(trainer.master[0], w0)}
     row_b["profiled_step"] = device_profile(lambda: trainer.train_step(images, labels))
     log("train_512", json.dumps(row_b))
@@ -814,7 +916,7 @@ def phase_train(work, seed):
                              f"expected {3 * K6_PER_STEP_512}")
     if min(launches_512.values()) == 0:
         raise AssertionError(f"train 512²: a kernel was not launched: {launches_512}")
-    return total
+    return total, routes
 
 
 def tr_batch(rng, size):
@@ -859,16 +961,7 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        # device work only: a user range such as "Optimizer.step#AdamW.step"
-        # is listed on the device too, over kernels that are counted already
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    kernels = device_kernel_ms(prof)
     busy = sum(kernels.values())
     families = {}
     for name, ms in kernels.items():
@@ -912,7 +1005,7 @@ def profile_roi(model, roi, seg, predictor, comps):
 
 KERNEL_META = {
     "flash_attention_fwd": {
-        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_attention.cu",
+        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_fwd_wgmma.cu",
         "replaces": "ldiffusion_tpu/ops/attention.py:41 (_flash_kernel, K1); "
                     ":102 (_flash_kvgrid_kernel, K2)",
         # launches of each path shape per ROI (UNet levels 0-2, VAE mid-block)
@@ -923,7 +1016,7 @@ KERNEL_META = {
                     ":147 (_gn_stats_kernel, K4a); :168 (_gn_apply_kernel, K4b)",
         "per_call": None},
     "flash_attention_fwd_lse": {
-        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_attention.cu",
+        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_fwd_wgmma.cu",
         "replaces": "ldiffusion_tpu/ops/attention.py:180 (_flash_kernel_lse, K5); its exp2 "
                     "softmax is tools/bench_attn_exp2.py:29 (_kernel, K7)",
         "per_call": TRAIN_PER_STEP["flash_attention_fwd_lse"]},
@@ -935,9 +1028,10 @@ KERNEL_META = {
 }
 
 
-def kernel_summary(kernel_rows, launches):
+def kernel_summary(kernel_rows, launches, routes):
     """One entry per kernel, timed at its heaviest path shape (attention: the
-    largest ms x launches per ROI or train step; GroupNorm: the largest map)."""
+    largest ms x launches per ROI or train step; GroupNorm: the largest map);
+    the forwards also with their launches by route and the mma.sync kernel's time."""
     out = []
     for name, rows in kernel_rows.items():
         meta = KERNEL_META[name]
@@ -952,10 +1046,28 @@ def kernel_summary(kernel_rows, launches):
                     "ms": top["ms"], "plain_ms": top["plain_ms"],
                     "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                     "library_ms": top["library_ms"], "shape": top["shape"]})
+        for key in ("mma_ms", "device_ms", "library_device_ms"):
+            if key in top:
+                out[-1][key] = top[key]
+        if name in routes:
+            out[-1]["launches_by_route"] = routes[name]
     return out
 
 
 # ---------------------------------------------------------------------------
+
+def sass_counts(name: str) -> dict:
+    """Hopper's warpgroup MMA (HGMMA) and TMA load (UTMALDG) instructions in
+    the SASS of csrc/<name>.cu's library, as cuobjdump lists them."""
+    import re
+
+    from ldiffusion_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+
 
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -995,22 +1107,30 @@ def main(argv=None) -> int:
     for name in _build.SOURCES:
         log(f"--- ptxas {name}\n" + (_build.BUILD_DIR / f"{name}.log").read_text())
 
-    kernel_rows, launches = {}, {}
+    sass = sass_counts("flash_fwd_wgmma")
+    log("sass flash_fwd_wgmma", json.dumps(sass))
+    if min(sass.values()) == 0:
+        raise AssertionError(f"flash_fwd_wgmma: no Hopper instructions in its SASS: {sass}")
+
+    kernel_rows, launches, routes = {}, {}, {}
     if "kernels" in phases:
         kernel_rows = phase_kernels(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         if "tiny" in phases:
             phase_tiny(work, args.seed)
         if "full" in phases:  # the inference path's kernels: their launches there
-            full = phase_full(work, args.seed)["launches"]
-            launches.update({k: full[k] for k in INFERENCE_KERNELS})
+            full = phase_full(work, args.seed)
+            launches.update({k: full["launches"][k] for k in INFERENCE_KERNELS})
+            routes["flash_attention_fwd"] = full["launches_by_route"]["flash_attention_fwd"]
         if "train" in phases:  # the training path's kernels: their launches there
-            train = phase_train(work, args.seed)
-            log("train_launches", json.dumps(train))
+            train, train_routes = phase_train(work, args.seed)
+            log("train_launches", json.dumps({"launches": train,
+                                              "launches_by_route": train_routes}))
             launches.update({k: train[k] for k in ("flash_attention_fwd_lse",
                                                    "flash_attention_bwd")})
+            routes["flash_attention_fwd_lse"] = train_routes["flash_attention_fwd_lse"]
 
-    log(json.dumps({"kernels": kernel_summary(kernel_rows, launches)}))
+    log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,5 +1,10 @@
 // Forward flash attention for Hopper (sm_90a): softmax(Q K^T * scale) V, and
-// optionally the per-row logsumexp the backward needs.
+// optionally the per-row logsumexp the backward needs. Two of the forward's
+// three routes (ops/attention.py `fwd_route`): "mma" (`flash_fwd_mma`, the
+// bf16 shapes TMA cannot address: d % 8 != 0 or unaligned pointers) and
+// "f32" (`flash_fwd_f32`). The bf16 path shapes take the "wgmma" route,
+// flash_fwd_wgmma.cu, which replaces the same Pallas kernels with TMA and
+// wgmma; `flash_fwd_mma` also stays the yardstick it is timed against.
 //
 // Replaces three Pallas forward kernels of the JAX package,
 // ldiffusion_tpu/ops/attention.py `_flash_kernel` (:41, resident K/V streamed
@@ -24,7 +29,7 @@
 // tensor-core rate. The design therefore puts both products on the tensor
 // cores and keeps the S x S scores out of device memory:
 //
-// bf16 (`flash_fwd_mma`, the model's path): mma.sync m16n8k16 bf16 tiles with
+// bf16 (`flash_fwd_mma`): mma.sync m16n8k16 bf16 tiles with
 // f32 accumulation. A CTA owns 64 query rows (4 row groups of 16, one warp
 // each) and walks 32-key tiles of K and V staged in shared memory (V stored
 // transposed, so both products read their B operands as 32-bit words). The
@@ -51,9 +56,6 @@
 // The softmax runs in base 2 with log2(e) folded into the scale (the exp2
 // formulation of tools/bench_attn_exp2.py, K7): m is a base-2 running max,
 // p = exp2(s*scale*log2(e) - m), and lse = ln 2 * (m + log2 l).
-//
-// Not yet done (performance work for later): cp.async/TMA double buffering
-// of the K/V tiles, wgmma.
 #include "flash_common.cuh"
 
 namespace {

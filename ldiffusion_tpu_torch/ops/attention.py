@@ -4,9 +4,13 @@ Counterpart of ``ldiffusion_tpu/ops/attention.py``. The TPU package routes
 long self-attention to Pallas kernels: two forwards (``_flash_kernel`` :41,
 ``_flash_kvgrid_kernel`` :102), a forward that also writes the logsumexp
 (``_flash_kernel_lse`` :180) and the flash backward (``_flash_bwd_kernel``
-:245). Here ``csrc/flash_attention.cu`` is one forward kernel for the first
-three (the logsumexp is an optional output) and ``csrc/flash_attention_bwd.cu``
-the backward; their headers say how and what bounds them. ``plain_attention``,
+:245). Here one forward serves the first three (the logsumexp is an optional
+output), by one of three routes that ``fwd_route`` picks from the head dim,
+the dtype and the pointers' alignment: ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``,
+TMA and wgmma: bf16 with d % 8 == 0), ``"mma"`` (``flash_fwd_mma`` in
+``csrc/flash_attention.cu``: the other bf16 shapes, which TMA cannot address)
+and ``"f32"`` (``flash_fwd_f32``, same file). ``csrc/flash_attention_bwd.cu`` is
+the backward; the headers say how and what bounds them. ``plain_attention``,
 ``plain_attention_lse`` and ``plain_attention_bwd`` are the same functions in
 PyTorch: the CPU path and the reference the kernels are held against on the
 card.
@@ -42,6 +46,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_MAX_HEAD_DIM = 160
 SMEM_PER_BLOCK = 232448  # H100, bytes of dynamic shared memory a block may use
 _BWD_TILES = (1, 2, 3, 4, 5, 6, 8, 10)  # compiled 16-column tile counts
+FWD_ROUTES = ("wgmma", "mma", "f32")
+WGMMA_MAX_HEAD_DIM = 512
 
 
 def _compute_dtype(t):
@@ -95,6 +101,44 @@ def _fwd_fn():
 
 
 @functools.cache
+def _wgmma_fn():
+    fn = _build.library("flash_fwd_wgmma").ldt_flash_attention_fwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fwd_route(d: int, dtype, aligned: bool) -> str:
+    """The forward kernel that takes head dim ``d`` (the C dispatchers' rule):
+    ``"wgmma"`` for bf16 with d % 8 == 0 (TMA's 16-byte strides), d <= 512 and
+    16-byte-aligned q/k/v; ``"mma"`` for the other bf16 shapes; ``"f32"`` for
+    float32."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got {dtype}")
+    if aligned and d % 8 == 0 and 8 <= d <= WGMMA_MAX_HEAD_DIM:
+        return "wgmma"
+    return "mma"
+
+
+def wgmma_config(d: int) -> dict:
+    """The compiled configuration of the ``"wgmma"`` route at head dim ``d``
+    (``Cfg`` in csrc/flash_fwd_wgmma.cu): padded head dim, swizzle bytes,
+    query rows and keys per tile, K/V stages and dynamic shared memory."""
+    split = d > 256
+    dp = (384 if d <= 384 else 512) if split else -(-d // 16) * 16
+    sw = 128 if dp % 64 == 0 else 64 if dp % 32 == 0 else 32
+    bq = 64 if split else 128
+    bk = 32 if split else 128 if dp <= 80 else 64
+    fixed = 1024 + bq * dp * 2 + 256  # alignment slack, Q, barriers
+    tile = bk * dp * 2
+    stages = min(4, (SMEM_PER_BLOCK - fixed) // (2 * tile))
+    return {"dp": dp, "swizzle": sw, "split": split, "rows": bq, "keys": bk, "stages": stages,
+            "smem": fixed + stages * 2 * tile}
+
+
+@functools.cache
 def _bwd_fn():
     fn = _build.library("flash_attention_bwd").ldt_flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
@@ -121,48 +165,68 @@ def _check_qkv(what: str, q, k, v, max_d: int):
         raise ValueError(f"{what}: q, k, v on different devices")
 
 
-def _launch_fwd(what: str, q, k, v, scale: float, lse):
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_fwd(what: str, q, k, v, scale: float, lse, route=None):
+    """Launch the forward by ``route`` (``fwd_route``'s choice when None) and
+    return (out, route). A route that does not take the shape raises."""
     _build.refuse_grad(what, q, k, v)
     _check_qkv(what, q, k, v, 512)
     b, sq, h, d = q.shape
+    if route is None:
+        route = fwd_route(d, q.dtype, _aligned(q, k, v))
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, sq, k.shape[1], d, float(scale))
     with torch.cuda.device(q.device):
-        err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        None if lse is None else lse.data_ptr(),
-                        b, h, sq, k.shape[1], d, float(scale), _DTYPES[q.dtype],
-                        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, f"{what} launch")
-    return out
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "wgmma":
+            err = _wgmma_fn()(*args, stream)
+        elif route in ("mma", "f32") and route == fwd_route(d, q.dtype, False):
+            err = _fwd_fn()(*args, _DTYPES[q.dtype], stream)
+        else:
+            raise ValueError(f"{what}: route {route!r} does not take {q.dtype} d={d}")
+    _build.check(err, f"{what} launch ({route})")
+    return out, route
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
 
 
 def flash_attention_fwd(q, k, v, scale: float):
     """q: (B, Sq, H, D), k/v: (B, Sk, H, D) → (B, Sq, H, D). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises (also where
-    autograd would need the output's gradient)."""
+    the plain version; a CUDA tensor launches the kernel of ``fwd_route`` or
+    raises (also where autograd would need the output's gradient)."""
     if q.device.type == "cpu":
         return plain_attention(q, k, v, scale)
-    out = _launch_fwd("flash_attention_fwd", q, k, v, scale, None)
-    flash_attention_fwd.launches += 1
+    out, route = _launch_fwd("flash_attention_fwd", q, k, v, scale, None)
+    _count(flash_attention_fwd, route)
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = dict.fromkeys(FWD_ROUTES, 0)
 
 
 def flash_attention_fwd_lse(q, k, v, scale: float):
     """The forward and each query row's logsumexp: (out (B, Sq, H, D),
     lse (B, H, Sq) float32). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel of ``fwd_route`` or raises."""
     if q.device.type == "cpu":
         return plain_attention_lse(q, k, v, scale)
     b, sq, h, _ = q.shape
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    out = _launch_fwd("flash_attention_fwd_lse", q, k, v, scale, lse)
-    flash_attention_fwd_lse.launches += 1
+    out, route = _launch_fwd("flash_attention_fwd_lse", q, k, v, scale, lse)
+    _count(flash_attention_fwd_lse, route)
     return out, lse
 
 
 flash_attention_fwd_lse.launches = 0
+flash_attention_fwd_lse.launches_by_route = dict.fromkeys(FWD_ROUTES, 0)
 
 
 def bwd_tiles(d: int) -> int:

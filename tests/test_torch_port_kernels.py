@@ -270,3 +270,72 @@ def test_kernel_wrappers_refuse_outputs_that_would_drop_the_gradient(cuda):
     assert y.grad_fn is not None
     y.sum().backward()
     assert m.grad is not None and layer.weight.grad is not None
+
+
+# The "wgmma" route (csrc/flash_fwd_wgmma.cu): every compiled split of the
+# head dim that the model and the tests reach, ragged Sq/Sk that are
+# multiples of neither the query block (128 or 64 rows) nor the key tile (32,
+# 64 or 128 keys), and B = 2, H = 3 so that the tensor maps' strides across
+# heads and batches are exercised.
+WGMMA_DIMS = [8, 40, 64, 80, 128, 160, 512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", WGMMA_DIMS)
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_wgmma_route_matches_plain_on_gpu(cuda, d, with_lse):
+    rng = np.random.default_rng(10)
+    sk = 1100 if with_lse else 1000  # odd and even counts of 32-, 64- and 128-key tiles
+    q = _normal(rng, (2, 515, 3, d), torch.bfloat16, cuda)
+    k, v = (_normal(rng, (2, sk, 3, d), torch.bfloat16, cuda) for _ in range(2))
+    scale = d ** -0.5
+    fn = tatt.flash_attention_fwd_lse if with_lse else tatt.flash_attention_fwd
+    before = dict(fn.launches_by_route)
+    res = fn(q, k, v, scale)
+    assert fn.launches_by_route["wgmma"] == before["wgmma"] + 1
+    if with_lse:
+        out, lse = res
+        ref, ref_lse = tatt.plain_attention_lse(q, k, v, scale)
+        _assert_close(lse, ref_lse, LSE_TOL[torch.bfloat16])
+    else:
+        out, ref = res, tatt.plain_attention(q, k, v, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _assert_close(out, ref, ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_path_shapes_take_the_wgmma_route(cuda):
+    """SD-v1.5's head dims go to the wgmma kernel; d = 100 (d % 8 != 0) and an
+    unaligned q stay on mma.sync; asking the wgmma kernel for d = 100 raises."""
+    rng = np.random.default_rng(12)
+    routes = tatt.flash_attention_fwd.launches_by_route
+    for d, route in ((40, "wgmma"), (80, "wgmma"), (160, "wgmma"), (512, "wgmma"),
+                     (100, "mma")):
+        x = _normal(rng, (1, 600, 1, d), torch.bfloat16, cuda)
+        before = dict(routes)
+        tatt.flash_attention_fwd(x, x, x, d ** -0.5)
+        assert routes[route] == before[route] + 1 and sum(routes.values()) == \
+            sum(before.values()) + 1, (d, route)
+    flat = _normal(rng, (600 * 40 + 1,), torch.bfloat16, cuda)
+    q = flat[1:].view(1, 600, 1, 40)  # 2 bytes off the 16-byte grid
+    k = _normal(rng, (1, 600, 1, 40), torch.bfloat16, cuda)
+    before = dict(routes)
+    out = tatt.flash_attention_fwd(q, k, k, 0.15)
+    assert routes["mma"] == before["mma"] + 1
+    _assert_close(out, tatt.plain_attention(q, k, k, 0.15), ATTN_TOL[torch.bfloat16])
+    x = _normal(rng, (1, 600, 1, 100), torch.bfloat16, cuda)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        tatt._launch_fwd("flash_attention_fwd", x, x, x, 0.1, None, route="wgmma")
+
+
+@pytest.mark.gpu
+def test_wgmma_config_matches_the_kernels_shared_memory(cuda):
+    import ctypes
+
+    from ldiffusion_tpu_torch.ops import _build
+
+    fn = _build.library("flash_fwd_wgmma").ldt_flash_attention_fwd_wgmma_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for d in range(1, 530):
+        takes = d % 8 == 0 and 8 <= d <= 512
+        assert fn(d) == (tatt.wgmma_config(d)["smem"] if takes else -1), d
