@@ -9,14 +9,15 @@ one NVIDIA GPU.
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. build:   compile ldiffusion_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
               nvcc per source, in parallel; count the HGMMA and UTMALDG
-              instructions in the wgmma forward's SASS (cuobjdump), none fails.
+              instructions in the SASS of the wgmma forward and backward
+              (cuobjdump); none fails.
   2. kernels: every kernel at every distinct shape of its path (inference at
               1024², training at 512²), held against its plain PyTorch version
               in bf16 (plus f32 and ragged cases), timed beside the plain
               version and one library call (each window at least 50 ms of
-              device work); the forward rows name the route they took and
-              time the mma.sync kernel (the previous design) on the same
-              inputs; the flash forward with logsumexp also at
+              device work); the forward and backward rows name the route
+              they took and time the mma.sync kernels (the previous design)
+              on the same inputs; the flash forward with logsumexp also at
               tools/bench_attn_exp2.py's three shapes.
   3. tiny:    the whole ``inference_tissue`` at the tiny configs on a 64² ROI,
               once on cuda with the kernels (f32, TF32 off) and once on the
@@ -35,8 +36,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               PNG pairs, 3 steps, and the saved UNet read back by
               ``inference_tissue``; (b) 512² images with 64² labels through
               ``DiffusionWarmupTrainer``, 3 steps. Counters are reset before
-              (a) and read after (b), every forward launch on the wgmma
-              route; one step of each size is profiled.
+              (a) and read after (b), every bf16 forward and backward launch
+              on the wgmma route; one step of each size is profiled.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -138,9 +139,9 @@ def device_kernel_ms(prof) -> dict:
     return kernels
 
 
-def profiled_device_ms(fn, iters: int) -> float:
-    """Device time per call: the sum of the CUDA kernels' times of ``iters``
-    calls under torch.profiler, without the host time between them."""
+def profiled_kernels_ms(fn, iters: int) -> dict:
+    """Device time per call by kernel name: ``iters`` calls under
+    torch.profiler, without the host time between them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -150,7 +151,12 @@ def profiled_device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(device_kernel_ms(prof).values()) / iters
+    return {name: ms / iters for name, ms in device_kernel_ms(prof).items()}
+
+
+def profiled_device_ms(fn, iters: int) -> float:
+    """Device time per call: the sum of ``profiled_kernels_ms``."""
+    return sum(profiled_kernels_ms(fn, iters).values())
 
 
 def route_delta(fn, before: dict) -> str:
@@ -358,6 +364,7 @@ def bwd_row(b, s, h, d, dtype, gen, iters, memory_check=False):
     import torch.nn.functional as F
 
     from ldiffusion_tpu_torch.ops.attention import (
+        _launch_bwd,
         flash_attention_bwd,
         plain_attention_bwd,
         plain_attention_lse,
@@ -368,16 +375,21 @@ def bwd_row(b, s, h, d, dtype, gen, iters, memory_check=False):
                    for _ in range(4))
     scale = 1.0 / math.sqrt(d)
     out, lse = plain_attention_lse(q, k, v, scale)
+    # contiguous, as the forward kernel writes it (the plain einsum returns a
+    # permuted view, which the wrapper would copy inside the timed calls)
+    out = out.contiguous()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    before = dict(flash_attention_bwd.launches_by_route)
     grads = flash_attention_bwd(q, k, v, out, do, lse, scale)
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
+    route = route_delta(flash_attention_bwd, before)
     refs = plain_attention_bwd(q, k, v, out, do, lse, scale)
     torch.cuda.synchronize()
     name = f"flash_attention_bwd{(b, s, h, d)} {dtype}"
-    row = {"shape": [b, s, h, d], "dtype": dtype, "peak_rise_bytes": rise}
+    row = {"shape": [b, s, h, d], "dtype": dtype, "route": route, "peak_rise_bytes": rise}
     for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
         row[gname] = compare(f"{name} {gname}", g, r, BWD[dtype])
     row["max_abs_err"] = max(row[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
@@ -388,7 +400,16 @@ def bwd_row(b, s, h, d, dtype, gen, iters, memory_check=False):
             raise AssertionError(f"{name}: the backward raised the peak by {rise} B, not below "
                                  f"one f32 score matrix ({4 * s * s} B)")
     if iters:
-        row["ms"] = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse, scale), iters)
+        ours = lambda: flash_attention_bwd(q, k, v, out, do, lse, scale)
+        row["ms"] = cuda_ms(ours, iters)
+        by_kernel = profiled_kernels_ms(ours, 50)  # the kernels (pre-pass included) alone
+        row["device_ms"] = sum(by_kernel.values())
+        row["device_ms_by_kernel"] = {name[:60]: ms for name, ms in by_kernel.items()}
+        if route == "wgmma":  # the mma.sync kernels (the previous design), same inputs
+            mma = lambda: _launch_bwd("flash_attention_bwd (mma)", q, k, v, out, do, lse, scale,
+                                      route="mma")
+            row["mma_ms"] = cuda_ms(mma, iters)
+            row["mma_device_ms"] = profiled_device_ms(mma, 50)  # Δ's PyTorch kernels included
         row["plain_ms"] = cuda_ms(lambda: plain_attention_bwd(q, k, v, out, do, lse, scale),
                                   iters)
         # SDPA's backward alone on the same shape: one forward kept, grads timed
@@ -466,13 +487,14 @@ def read_counters():
 
 
 def read_routes():
-    """Launches by route of the forward wrappers."""
+    """Launches by route of the attention wrappers."""
     return {name: dict(fn.launches_by_route) for name, fn in counters().items()
             if hasattr(fn, "launches_by_route")}
 
 
 def check_bf16_routes(where: str, routes: dict) -> None:
-    """Every bf16 forward of the model's path shapes takes the wgmma route."""
+    """Every bf16 forward and backward of the model's path shapes takes the
+    wgmma route."""
     for name, by_route in routes.items():
         off = {r: n for r, n in by_route.items() if r != "wgmma" and n}
         if off:
@@ -890,6 +912,7 @@ def phase_train(work, seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts_before = read_counters()
+    routes_before = read_routes()
     for _ in range(3):
         trainer.train_step(images, labels)
     torch.cuda.synchronize()
@@ -897,6 +920,8 @@ def phase_train(work, seed):
     routes = read_routes()
     check_bf16_routes("train", routes)
     launches_512 = {k: total[k] - counts_before[k] for k in total}
+    bwd_wgmma_512 = (routes["flash_attention_bwd"]["wgmma"]
+                     - routes_before["flash_attention_bwd"]["wgmma"])
     row_b = {"images": [512, 512], "labels": [64, 64],
              "dtype": "bfloat16 compute, float32 masters",
              "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -910,10 +935,12 @@ def phase_train(work, seed):
         json.dumps(device_profile(lambda: trainer.train_step(*tr_batch(rng, 64)))))
     if not (all(np.isfinite(row_b["losses"])) and row_b["params_moved"]):
         raise AssertionError(f"train 512²: {row_b}")
-    if launches_512["flash_attention_bwd"] != 3 * K6_PER_STEP_512:
+    if launches_512["flash_attention_bwd"] != 3 * K6_PER_STEP_512 or \
+            bwd_wgmma_512 != 3 * K6_PER_STEP_512:
         raise AssertionError(f"train 512²: flash_attention_bwd launched "
                              f"{launches_512['flash_attention_bwd']} times in 3 steps, "
-                             f"expected {3 * K6_PER_STEP_512}")
+                             f"{bwd_wgmma_512} on the wgmma route, expected "
+                             f"{3 * K6_PER_STEP_512}")
     if min(launches_512.values()) == 0:
         raise AssertionError(f"train 512²: a kernel was not launched: {launches_512}")
     return total, routes
@@ -1021,7 +1048,7 @@ KERNEL_META = {
                     "softmax is tools/bench_attn_exp2.py:29 (_kernel, K7)",
         "per_call": TRAIN_PER_STEP["flash_attention_fwd_lse"]},
     "flash_attention_bwd": {
-        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/flash_bwd_wgmma.cu",
         "replaces": "ldiffusion_tpu/ops/attention.py:245 (_flash_bwd_kernel, K6); its exp2 "
                     "softmax is tools/bench_attn_exp2.py:29 (_kernel, K7)",
         "per_call": TRAIN_PER_STEP["flash_attention_bwd"]},
@@ -1031,7 +1058,8 @@ KERNEL_META = {
 def kernel_summary(kernel_rows, launches, routes):
     """One entry per kernel, timed at its heaviest path shape (attention: the
     largest ms x launches per ROI or train step; GroupNorm: the largest map);
-    the forwards also with their launches by route and the mma.sync kernel's time."""
+    the attention kernels also with their launches by route and the mma.sync
+    kernels' time."""
     out = []
     for name, rows in kernel_rows.items():
         meta = KERNEL_META[name]
@@ -1046,7 +1074,7 @@ def kernel_summary(kernel_rows, launches, routes):
                     "ms": top["ms"], "plain_ms": top["plain_ms"],
                     "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                     "library_ms": top["library_ms"], "shape": top["shape"]})
-        for key in ("mma_ms", "device_ms", "library_device_ms"):
+        for key in ("mma_ms", "mma_device_ms", "device_ms", "library_device_ms"):
             if key in top:
                 out[-1][key] = top[key]
         if name in routes:
@@ -1107,10 +1135,11 @@ def main(argv=None) -> int:
     for name in _build.SOURCES:
         log(f"--- ptxas {name}\n" + (_build.BUILD_DIR / f"{name}.log").read_text())
 
-    sass = sass_counts("flash_fwd_wgmma")
-    log("sass flash_fwd_wgmma", json.dumps(sass))
-    if min(sass.values()) == 0:
-        raise AssertionError(f"flash_fwd_wgmma: no Hopper instructions in its SASS: {sass}")
+    for name in ("flash_fwd_wgmma", "flash_bwd_wgmma"):
+        sass = sass_counts(name)
+        log(f"sass {name}", json.dumps(sass))
+        if min(sass.values()) == 0:
+            raise AssertionError(f"{name}: no Hopper instructions in its SASS: {sass}")
 
     kernel_rows, launches, routes = {}, {}, {}
     if "kernels" in phases:
@@ -1128,7 +1157,8 @@ def main(argv=None) -> int:
                                               "launches_by_route": train_routes}))
             launches.update({k: train[k] for k in ("flash_attention_fwd_lse",
                                                    "flash_attention_bwd")})
-            routes["flash_attention_fwd_lse"] = train_routes["flash_attention_fwd_lse"]
+            for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
+                routes[name] = train_routes[name]
 
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,8 +53,10 @@
 // Softmax in base 2 (K7's formulation): P = exp2(S*scale*log2(e) -
 // lse*log2(e)).
 //
-// Not yet done (performance work for later): ldmatrix(.trans) in place of
-// the second, transposed copies; cp.async/TMA double buffering; wgmma.
+// The bf16 shapes TMA can address (d % 8 == 0, aligned pointers) go to the
+// Hopper redesign, flash_bwd_wgmma.cu (the "wgmma" route of ops/attention.py
+// `bwd_route`); the kernels here keep the "mma" route (d % 8 != 0, unaligned
+// views) and the "f32" route.
 #include "flash_common.cuh"
 
 namespace {

@@ -1,8 +1,9 @@
-// Pieces shared by the flash-attention kernels (flash_fwd_wgmma.cu, the
-// Hopper forward; flash_attention.cu, the mma.sync and f32 forwards;
-// flash_attention_bwd.cu, the backward): mma.sync m16n8k16 bf16 tiles and
-// their fragment loads, the tile loader from the (B, S, H, D) layout into
-// shared memory, and Hopper's mbarriers, TMA loads and wgmma.
+// Pieces shared by the flash-attention kernels (flash_fwd_wgmma.cu and
+// flash_bwd_wgmma.cu, the Hopper forward and backward; flash_attention.cu,
+// the mma.sync and f32 forwards; flash_attention_bwd.cu, the mma.sync and f32
+// backward): mma.sync m16n8k16 bf16 tiles and their fragment loads, the tile
+// loader from the (B, S, H, D) layout into shared memory, Hopper's mbarriers,
+// TMA loads and wgmma, and the host's TMA tensor maps.
 //
 // Fragment names follow the PTX ISA: g = lane/4 is the row (A, C) or column
 // (B) inside a tile, tg = lane%4 picks the column pair. An accumulator (C)
@@ -192,6 +193,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into shared memory, both ends
+// 16-byte aligned, reported to `bar` as a TMA load is.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -468,6 +479,98 @@ __device__ __forceinline__ void wgmma_rs<160>(float* d, const uint32_t (&a)[4], 
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
         "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A descriptor the compiler cannot hoist out of the key loop: the constant
+// offsets added to it per k-step would otherwise each hold two registers for
+// the whole loop.
+template <int SW>
+__device__ __forceinline__ uint64_t fresh_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t desc = gmma_desc<SW>(addr, lbo, sbo);
+  asm volatile("" : "+l"(desc));
+  return desc;
+}
+
+// acc[C0/2 ...] += a (64 x 16) * B[16 rows, C0 .. C0+N), B MN-major under
+// descriptor `v` (a tile of BK rows stored as atoms of CW = SW/2 columns,
+// BK*SW bytes apart: V in the forward's P V; dO, Q and K in the backward), in
+// pieces of 256/128/64/32/16 columns; each piece starts on an atom because
+// the head-dim widths are multiples of CW.
+template <int SW, int BK, int N, int C0>
+__device__ __forceinline__ void pv_pieces(float* acc, const uint32_t (&a)[4], uint64_t v) {
+  if constexpr (N > 0) {
+    // one instruction where the width has a wrapper (SD-v1.5's 48, 80, 160)
+    constexpr int P = (N == 48 || N == 80 || N == 160) ? N
+                      : N >= 256 ? 256 : N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32 : 16;
+    wgmma_rs<P>(acc + C0 / 2, a, v + ((C0 / (SW / 2)) * BK * SW >> 4));
+    pv_pieces<SW, BK, N - P, C0 + P>(acc, a, v);
+  }
+}
+
+// P (or dS) rounded to bf16 as A fragments: n-blocks 2kk, 2kk+1 of a 64 x N
+// accumulator are, element for element, the A fragment of k-step kk.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4], const float* p) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float* pj = p + 4 * (2 * kk + half);
+      pa[kk][2 * half] = pack_bf16(pj[0], pj[1]);
+      pa[kk][2 * half + 1] = pack_bf16(pj[2], pj[3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps (the wgmma forward and backward)
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, S, H, D) bf16 as a 4-D map (D, H, S, B); a box is (cols, 1, rows, 1).
+inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int seq, int d,
+                     int cols, int rows, int sw) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {2ull * d, 2ull * heads * d, 2ull * seq * heads * d};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -110,37 +110,6 @@ struct Cfg {
   static_assert((1 + 2 * STAGES) * 8 <= 256, "barrier space");
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A descriptor the compiler cannot hoist out of the key loop: the constant
-// offsets added to it per k-step would otherwise each hold two registers for
-// the whole loop.
-template <int SW>
-__device__ __forceinline__ uint64_t fresh_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  uint64_t desc = gmma_desc<SW>(addr, lbo, sbo);
-  asm volatile("" : "+l"(desc));
-  return desc;
-}
-
-// acc[C0/2 ...] += a (64 x 16) * V[16 keys, C0 .. C0+N), V MN-major under
-// descriptor `v` (atoms of CW columns BK*SW bytes apart), in pieces of
-// 256/128/64/32/16 columns; each piece starts on an atom because DP and OW
-// are multiples of CW.
-template <int SW, int BK, int N, int C0>
-__device__ __forceinline__ void pv_pieces(float* acc, const uint32_t (&a)[4], uint64_t v) {
-  if constexpr (N > 0) {
-    // one instruction where the width has a wrapper (SD-v1.5's 48, 80, 160)
-    constexpr int P = (N == 48 || N == 80 || N == 160) ? N
-                      : N >= 256 ? 256 : N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32 : 16;
-    wgmma_rs<P>(acc + C0 / 2, a, v + ((C0 / (SW / 2)) * BK * SW >> 4));
-    pv_pieces<SW, BK, N - P, C0 + P>(acc, a, v);
-  }
-}
-
 // One consumer warpgroup: 64 query rows x OW output columns, its online
 // softmax state, and the two products of a key tile.
 template <int DP, bool SPLIT>
@@ -235,18 +204,6 @@ struct Consumer {
     }
   }
 
-  // P rounded to bf16: n-blocks 2kk, 2kk+1 of S are, element for element, the
-  // A fragment of k-step kk.
-  __device__ __forceinline__ void pack_p(const float* p) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float* pj = p + 4 * (2 * kk + half);
-        pa[kk][2 * half] = pack_bf16(pj[0], pj[1]);
-        pa[kk][2 * half + 1] = pack_bf16(pj[2], pj[3]);
-      }
-  }
 
   // O *= corr, then O += P V_t over this warpgroup's columns, committed as
   // one wgmma group, not waited for.
@@ -355,7 +312,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         wgmma_wait<0>();
         reg_fence<BK / 2>(sc);
         w.softmax(sc, t);
-        w.pack_p(sc);
+        pack_a<BK>(w.pa, sc);
         w.issue_pv(t);
         wgmma_wait<0>();
         reg_fence<C::OW / 2>(w.acc);
@@ -371,7 +328,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       wgmma_wait<0>();
       reg_fence<BK / 2>(sc);
       w.softmax(sc, 0);
-      w.pack_p(sc);
+      pack_a<BK>(w.pa, sc);
       for (int t = 1; t < n_tiles; ++t) {
         mbar_wait(&full[t % ST], (t / ST) & 1);
         w.issue_s(sc, t);
@@ -382,7 +339,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         wgmma_wait<0>();
         reg_fence<C::OW / 2>(w.acc);
         mbar_arrive(&empty[(t - 1) % ST]);
-        w.pack_p(sc);
+        pack_a<BK>(w.pa, sc);
       }
       w.issue_pv(n_tiles - 1);
     }
@@ -411,48 +368,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 // ---------------------------------------------------------------------------
 // host
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (B, S, H, D) bf16 as a 4-D map (D, H, S, B); a box is (cols, 1, rows, 1).
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int seq, int d, int cols,
-              int rows, int sw) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {2ull * d, 2ull * heads * d, 2ull * seq * heads * d};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int DP, bool SPLIT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,

@@ -30,7 +30,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_fwd_wgmma", "flash_attention", "flash_attention_bwd", "groupnorm")
+SOURCES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_attention", "flash_attention_bwd",
+           "groupnorm")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,11 +9,13 @@ output), by one of three routes that ``fwd_route`` picks from the head dim,
 the dtype and the pointers' alignment: ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``,
 TMA and wgmma: bf16 with d % 8 == 0), ``"mma"`` (``flash_fwd_mma`` in
 ``csrc/flash_attention.cu``: the other bf16 shapes, which TMA cannot address)
-and ``"f32"`` (``flash_fwd_f32``, same file). ``csrc/flash_attention_bwd.cu`` is
-the backward; the headers say how and what bounds them. ``plain_attention``,
-``plain_attention_lse`` and ``plain_attention_bwd`` are the same functions in
-PyTorch: the CPU path and the reference the kernels are held against on the
-card.
+and ``"f32"`` (``flash_fwd_f32``, same file). The backward has the same three
+routes, which ``bwd_route`` picks: ``"wgmma"`` (``csrc/flash_bwd_wgmma.cu``:
+bf16 with d % 8 == 0 up to d = 160), ``"mma"`` and ``"f32"``
+(``csrc/flash_attention_bwd.cu``). The sources' headers say how and what
+bounds them. ``plain_attention``, ``plain_attention_lse`` and
+``plain_attention_bwd`` are the same functions in PyTorch: the CPU path and
+the reference the kernels are held against on the card.
 
 Routing (``dot_product_attention``): attention over at least ``FLASH_MIN_KV``
 keys goes to the kernels — every spatial self-attention of the UNet from
@@ -40,13 +42,16 @@ from ldiffusion_tpu_torch.ops import _build
 FLASH_MIN_KV = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The backward keeps 16 rows of dK and dV per warp in f32 registers, d/2 a
-# thread each: d = 160 (SD-v1.5's widest UNet head) is the widest that stays
-# under the 255-register limit. Its tiles must also fit a block's shared memory.
+# The backward keeps the rows of dK and dV it owns in f32 registers, d/2 a
+# thread each (16 rows a warp in the mma.sync kernels, 64 a warpgroup in the
+# wgmma kernel): d = 160 (SD-v1.5's widest UNet head) is the widest that stays
+# within the registers a thread has. Its tiles must also fit a block's shared
+# memory.
 BWD_MAX_HEAD_DIM = 160
 SMEM_PER_BLOCK = 232448  # H100, bytes of dynamic shared memory a block may use
 _BWD_TILES = (1, 2, 3, 4, 5, 6, 8, 10)  # compiled 16-column tile counts
 FWD_ROUTES = ("wgmma", "mma", "f32")
+BWD_ROUTES = FWD_ROUTES
 WGMMA_MAX_HEAD_DIM = 512
 
 
@@ -74,6 +79,13 @@ def plain_attention_lse(q, k, v, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v), lse
 
 
+def attention_delta(o, do):
+    """Δ = rowsum(dO ∘ O), (B, H, Sq), in f32 (or wider): the JAX package's
+    ``jnp.sum(g * out, axis=-1)`` outside its backward kernel (:395)."""
+    ct = _compute_dtype(o)
+    return (do.to(ct) * o.to(ct)).sum(-1).transpose(1, 2)
+
+
 def plain_attention_bwd(q, k, v, o, do, lse, scale: float):
     """(dq, dk, dv) from probabilities recomputed as exp(S·scale − lse):
     ``_flash_bwd_kernel`` in PyTorch. P and dS are rounded to the input dtype
@@ -82,7 +94,7 @@ def plain_attention_bwd(q, k, v, o, do, lse, scale: float):
     ct = _compute_dtype(q)
     qf, kf, vf, dof = (t.to(ct) for t in (q, k, v, do))
     p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None].to(ct))
-    delta = (dof * o.to(ct)).sum(-1).transpose(1, 2)  # Δ = rowsum(dO ∘ O), (B, H, Sq)
+    delta = attention_delta(o, do)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(ct), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).to(ct)
@@ -255,22 +267,59 @@ def bwd_smem_bytes(d: int, dtype) -> int:
     return 4 * max(dkdv, dq)
 
 
+@functools.cache
+def _wgmma_bwd_fn():
+    fn = _build.library("flash_bwd_wgmma").ldt_flash_attention_bwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_route(d: int, dtype, aligned: bool) -> str:
+    """The backward kernels that take head dim ``d`` (``fwd_route``'s rule,
+    within the backward's head-dim limit): ``"wgmma"`` for bf16 with d % 8 ==
+    0, d <= 160 and 16-byte-aligned q/k/v/o/dO; ``"mma"`` for the other bf16
+    shapes; ``"f32"`` for float32."""
+    route = fwd_route(d, dtype, aligned)
+    if route == "wgmma" and d > BWD_MAX_HEAD_DIM:
+        return "mma"
+    return route
+
+
+def wgmma_bwd_config(d: int) -> dict:
+    """The compiled configuration of the backward's ``"wgmma"`` route at head
+    dim ``d`` (``Cfg`` in csrc/flash_bwd_wgmma.cu): padded head dim, swizzle
+    bytes, keys (dK/dV CTA) and query rows (dQ CTA) a CTA owns, rows of a
+    streamed tile, ring stages and dynamic shared memory."""
+    dp = -(-d // 16) * 16
+    sw = 128 if dp % 64 == 0 else 64 if dp % 32 == 0 else 32
+    own, tile_rows = 128, 64 if dp <= 64 else 32
+    fixed = 1024 + 2 * own * dp * 2 + 256  # alignment slack, K/V or Q/dO, barriers
+    stage = 2 * tile_rows * dp * 2 + 2 * tile_rows * 4  # two tiles, lse2 and Δ rows
+    stages = min(4, (SMEM_PER_BLOCK - fixed) // stage)
+    return {"dp": dp, "swizzle": sw, "own": own, "tile_rows": tile_rows, "stages": stages,
+            "smem": fixed + stages * stage}
+
+
 def flash_bwd_fits(d: int, dtype=torch.bfloat16) -> bool:
     """The routing gate of the flash backward (the Hopper counterpart of
     ``_flash_bwd_fits_pallas``): the head dim's dK/dV accumulators fit the
-    registers and its tiles a block's shared memory."""
-    return 0 < bwd_smem_bytes(d, dtype) <= SMEM_PER_BLOCK
+    registers and its tiles a block's shared memory, on the ``"mma"``/``"f32"``
+    kernels (which any call can fall to: an unaligned view takes ``"mma"``)
+    and, where it would take the head dim, the ``"wgmma"`` kernel."""
+    if not 0 < bwd_smem_bytes(d, dtype) <= SMEM_PER_BLOCK:
+        return False
+    wgmma = dtype == torch.bfloat16 and bwd_route(d, dtype, True) == "wgmma"
+    return not wgmma or wgmma_bwd_config(d)["smem"] <= SMEM_PER_BLOCK
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, scale: float):
-    """(dq, dk, dv) of ``o = attention(q, k, v)`` for the output gradient
-    ``do``, from the forward's ``lse`` (B, H, Sq). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels (dK/dV, then dQ) or raises.
-    Δ = rowsum(dO ∘ O) is computed here with PyTorch, as the JAX package
-    computes it outside its kernel."""
-    if q.device.type == "cpu":
-        return plain_attention_bwd(q, k, v, o, do, lse, scale)
-    what = "flash_attention_bwd"
+def _launch_bwd(what: str, q, k, v, o, do, lse, scale: float, route=None):
+    """Launch the backward by ``route`` (``bwd_route``'s choice when None) and
+    return (dq, dk, dv, route). A route that does not take the shape raises.
+    The ``"wgmma"`` kernel computes Δ = rowsum(dO ∘ O) in its pre-pass; for
+    the others it is computed here with PyTorch, as the JAX package computes
+    it outside its kernel."""
     _build.refuse_grad(what, q, k, v, o, do)
     _check_qkv(what, q, k, v, BWD_MAX_HEAD_DIM)
     b, sq, h, d = q.shape
@@ -278,20 +327,45 @@ def flash_attention_bwd(q, k, v, o, do, lse, scale: float):
         raise ValueError(f"{what}: o/do must match q {tuple(q.shape)} {q.dtype}")
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"{what}: lse must be ({b}, {h}, {sq}) float32")
-    do, lse = do.contiguous(), lse.contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    if route is None:
+        route = bwd_route(d, q.dtype, _aligned(q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), b, h, sq, k.shape[1], d, float(scale),
-                        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, f"{what} launch")
-    flash_attention_bwd.launches += 1
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        if route == "wgmma":
+            # lse·log2(e) and Δ, each (B·H, Sq rounded up to the CTA's rows)
+            rows = wgmma_bwd_config(d)["own"]
+            scratch = torch.empty((2, b * h, -(-sq // rows) * rows), device=q.device,
+                                  dtype=torch.float32)
+            err = _wgmma_bwd_fn()(*ptrs, o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                  scratch.data_ptr(), *grads, b, h, sq, k.shape[1], d,
+                                  float(scale), stream)
+        elif route in ("mma", "f32") and route == bwd_route(d, q.dtype, False):
+            delta = attention_delta(o, do).contiguous()
+            err = _bwd_fn()(*ptrs, do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *grads, b, h,
+                            sq, k.shape[1], d, float(scale), _DTYPES[q.dtype], stream)
+        else:
+            raise ValueError(f"{what}: route {route!r} does not take {q.dtype} d={d}")
+    _build.check(err, f"{what} launch ({route})")
+    return dq, dk, dv, route
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, scale: float):
+    """(dq, dk, dv) of ``o = attention(q, k, v)`` for the output gradient
+    ``do``, from the forward's ``lse`` (B, H, Sq). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernels of ``bwd_route`` or raises."""
+    if q.device.type == "cpu":
+        return plain_attention_bwd(q, k, v, o, do, lse, scale)
+    dq, dk, dv, route = _launch_bwd("flash_attention_bwd", q, k, v, o, do, lse, scale)
+    _count(flash_attention_bwd, route)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class _FlashTrainable(torch.autograd.Function):

@@ -203,7 +203,8 @@ def test_flash_bwd_kernel_takes_other_key_lengths_and_is_deterministic(cuda):
 @pytest.mark.gpu
 def test_flash_bwd_keeps_no_score_matrix(cuda):
     """The port's counterpart of tests/test_flash_backward.py:95-116: at 4096
-    tokens the backward stays far below one 4·S²-byte f32 score matrix."""
+    tokens the backward (the wgmma route, its pre-pass buffers included)
+    stays far below one 4·S²-byte f32 score matrix."""
     s = 4096
     q, k, v, do = (_normal(np.random.default_rng(8), (1, s, 8, 40), torch.bfloat16, cuda)
                    for _ in range(4))
@@ -211,9 +212,11 @@ def test_flash_bwd_keeps_no_score_matrix(cuda):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    before = dict(tatt.flash_attention_bwd.launches_by_route)
     tatt.flash_attention_bwd(q, k, v, out, do, lse, 40 ** -0.5)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < 4 * s * s
+    assert tatt.flash_attention_bwd.launches_by_route["wgmma"] == before["wgmma"] + 1
 
 
 @pytest.mark.gpu
@@ -233,16 +236,22 @@ def test_bwd_gate_matches_the_kernels_shared_memory(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [40, 512])
 def test_attention_gradients_match_plain_autograd_on_gpu(cuda, dtype, d):
-    """dot_product_attention under autograd: K5+K6 at d = 40, the forward
-    kernel + plain backward at d = 512; against autograd through the plain
-    version in f32 (autograd of the bf16 plain version would round dP)."""
+    """dot_product_attention under autograd: K5+K6 at d = 40 (bf16 through
+    the wgmma backward), the forward kernel + plain backward at d = 512;
+    against autograd through the plain version in f32 (autograd of the bf16
+    plain version would round dP)."""
     rng = np.random.default_rng(9)
     shape = (1, 600, 1, d)
     q, k, v, do = (_normal(rng, shape, dtype, cuda) for _ in range(4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = tatt.dot_product_attention(*leaves)
     assert out.grad_fn is not None
+    before = dict(tatt.flash_attention_bwd.launches_by_route)
     grads = torch.autograd.grad(out, leaves, do)
+    if d == 40:
+        route = tatt.bwd_route(d, dtype, True)
+        assert route == ("wgmma" if dtype == torch.bfloat16 else "f32")
+        assert tatt.flash_attention_bwd.launches_by_route[route] == before[route] + 1
     ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
     ref = torch.autograd.grad(tatt.plain_attention(*ref_leaves, d ** -0.5), ref_leaves,
                               do.float())
@@ -339,3 +348,73 @@ def test_wgmma_config_matches_the_kernels_shared_memory(cuda):
     for d in range(1, 530):
         takes = d % 8 == 0 and 8 <= d <= 512
         assert fn(d) == (tatt.wgmma_config(d)["smem"] if takes else -1), d
+
+
+# The backward's "wgmma" route (csrc/flash_bwd_wgmma.cu): every head dim it
+# compiles that the model and the tests reach, ragged Sq/Sk that are
+# multiples of neither the 128 rows a CTA owns nor the streamed tile (32 or
+# 64 rows), and B = 2, H = 3 so that the tensor maps' strides and the pre-pass
+# buffers' rows across heads and batches are exercised.
+WGMMA_BWD_DIMS = [8, 40, 64, 80, 128, 160]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", WGMMA_BWD_DIMS)
+@pytest.mark.parametrize("sk", [1000, 1100])
+def test_wgmma_bwd_route_matches_plain_on_gpu(cuda, d, sk):
+    rng = np.random.default_rng(13)
+    q, do = (_normal(rng, (2, 515, 3, d), torch.bfloat16, cuda) for _ in range(2))
+    k, v = (_normal(rng, (2, sk, 3, d), torch.bfloat16, cuda) for _ in range(2))
+    scale = d ** -0.5
+    out, lse = tatt.plain_attention_lse(q, k, v, scale)
+    before = dict(tatt.flash_attention_bwd.launches_by_route)
+    grads = tatt.flash_attention_bwd(q, k, v, out, do, lse, scale)
+    assert tatt.flash_attention_bwd.launches_by_route["wgmma"] == before["wgmma"] + 1
+    for g, ref in zip(grads, tatt.plain_attention_bwd(q, k, v, out, do, lse, scale)):
+        assert g.dtype == torch.bfloat16 and g.shape == ref.shape
+        _assert_close(g, ref, BWD_TOL[torch.bfloat16])
+    again = tatt.flash_attention_bwd(q, k, v, out, do, lse, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics
+
+
+@pytest.mark.gpu
+def test_path_shapes_take_the_wgmma_bwd_route(cuda):
+    """SD-v1.5's head dims go to the wgmma backward; d = 100 (d % 8 != 0) and
+    an unaligned q stay on mma.sync; asking the wgmma kernel for d = 100
+    raises."""
+    rng = np.random.default_rng(14)
+    routes = tatt.flash_attention_bwd.launches_by_route
+
+    def run(q, route):
+        k, v, do = (_normal(rng, q.shape, torch.bfloat16, cuda) for _ in range(3))
+        scale = q.shape[-1] ** -0.5
+        out, lse = tatt.plain_attention_lse(q, k, v, scale)
+        before = dict(routes)
+        grads = tatt.flash_attention_bwd(q, k, v, out, do, lse, scale)
+        assert routes[route] == before[route] + 1 and sum(routes.values()) == \
+            sum(before.values()) + 1, (q.shape, route)
+        for g, ref in zip(grads, tatt.plain_attention_bwd(q, k, v, out, do, lse, scale)):
+            _assert_close(g, ref, BWD_TOL[torch.bfloat16])
+
+    for d, route in ((40, "wgmma"), (80, "wgmma"), (160, "wgmma"), (100, "mma")):
+        run(_normal(rng, (1, 600, 1, d), torch.bfloat16, cuda), route)
+    flat = _normal(rng, (600 * 40 + 1,), torch.bfloat16, cuda)
+    run(flat[1:].view(1, 600, 1, 40), "mma")  # q 2 bytes off the 16-byte grid
+    x = _normal(rng, (1, 600, 1, 100), torch.bfloat16, cuda)
+    _, lse = tatt.plain_attention_lse(x, x, x, 0.1)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        tatt._launch_bwd("flash_attention_bwd", x, x, x, x, x, lse, 0.1, route="wgmma")
+
+
+@pytest.mark.gpu
+def test_wgmma_bwd_config_matches_the_kernels_shared_memory(cuda):
+    import ctypes
+
+    from ldiffusion_tpu_torch.ops import _build
+
+    fn = _build.library("flash_bwd_wgmma").ldt_flash_attention_bwd_wgmma_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for d in range(1, 201):
+        takes = tatt.bwd_route(d, torch.bfloat16, True) == "wgmma"
+        assert takes == (d % 8 == 0 and 8 <= d <= tatt.BWD_MAX_HEAD_DIM), d
+        assert fn(d) == (tatt.wgmma_bwd_config(d)["smem"] if takes else -1), d
