@@ -18,7 +18,11 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               device work); the forward and backward rows name the route
               they took and time the mma.sync kernels (the previous design)
               on the same inputs; the flash forward with logsumexp also at
-              tools/bench_attn_exp2.py's three shapes.
+              tools/bench_attn_exp2.py's three shapes. GroupNorm rows take
+              the route gn_route names, repeat bitwise, hold the other route
+              (and the resident route at other slice widths) to the same
+              tolerance and time it, and time the first GroupNorm kernel
+              (csrc/groupnorm.cu, "v1").
   3. tiny:    the whole ``inference_tissue`` at the tiny configs on a 64² ROI,
               once on cuda with the kernels (f32, TF32 off) and once on the
               CPU with the plain versions, same weights; compared.
@@ -27,7 +31,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               layout, then ``LDiffusionModel.inference_tissue`` on one 1024²
               ROI and in folder mode on 3 square ROIs + 1 non-square ROI.
               Launch counters are reset just before and read just after;
-              every forward launch there took the wgmma route.
+              every forward launch there took the wgmma route, every
+              GroupNorm launch the route gn_route names for its shape.
   5. train:   one stage-1 step at the tiny configs in f32 on cuda against the
               same step on the CPU (same weights, noise, contrastive indices);
               then SD-v1.5 width, bf16 compute over f32 masters, batch 1, 25
@@ -37,7 +42,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               ``inference_tissue``; (b) 512² images with 64² labels through
               ``DiffusionWarmupTrainer``, 3 steps. Counters are reset before
               (a) and read after (b), every bf16 forward and backward launch
-              on the wgmma route; one step of each size is profiled.
+              on the wgmma route, every GroupNorm launch on its gn_route
+              route; one step of each size is profiled.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -141,17 +147,25 @@ def device_kernel_ms(prof) -> dict:
 
 def profiled_kernels_ms(fn, iters: int) -> dict:
     """Device time per call by kernel name: ``iters`` calls under
-    torch.profiler, without the host time between them."""
+    torch.profiler, without the host time between them. A trace that holds
+    fewer kernels than calls (each call launches at least one) is taken
+    again, up to three times, then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {name: ms / iters for name, ms in device_kernel_ms(prof).items()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        traced = sum(e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation)
+        if traced >= iters:
+            return {name: ms / iters for name, ms in device_kernel_ms(prof).items()}
+    raise AssertionError(f"the profiler traced {traced} kernels for {iters} calls")
 
 
 def profiled_device_ms(fn, iters: int) -> float:
@@ -208,12 +222,30 @@ ATTN_EXTRA = [((2, 300, 3, 8), "float32"), ((1, 1000, 2, 16), "float32"),
               ((1, 1000, 2, 128), "bfloat16"), ((1, 129, 2, 100), "bfloat16"),
               ((1, 700, 2, 136), "bfloat16"), ((1, 1500, 1, 200), "bfloat16"),
               ((1, 333, 1, 300), "bfloat16"), ((1, 600, 1, 512), "bfloat16")]
-# (B, H, W, C, silu, eps): the smallest and largest maps of the path
+# (B, H, W, C, silu, eps): the smallest and largest maps of the path, the
+# largest maps on each side of the routes' boundary (resident: the 512² step's
+# 64²×320 and 64²×960, the ROI's 128²×640 and the VAE's 128²×512; streamed:
+# the ROI's 128²×960 and the VAE's 256²×256, 256²×512 and 512²×256)
 GN_PATH_SHAPES = [(1, 16, 16, 1280, True, 1e-5), (1, 16, 16, 2560, True, 1e-5),
-                  (1, 16, 16, 1280, False, 1e-6), (1, 128, 128, 320, False, 1e-6),
+                  (1, 16, 16, 1280, False, 1e-6), (1, 64, 64, 320, True, 1e-5),
+                  (1, 64, 64, 960, True, 1e-5), (1, 128, 128, 320, False, 1e-6),
+                  (1, 128, 128, 640, True, 1e-5), (1, 128, 128, 512, True, 1e-6),
+                  (1, 128, 128, 960, True, 1e-5), (1, 256, 256, 256, True, 1e-6),
+                  (1, 256, 256, 512, True, 1e-6), (1, 512, 512, 256, True, 1e-6),
                   (1, 1024, 1024, 128, True, 1e-6), (1, 1024, 1024, 128, False, 1e-5)]
-GN_EXTRA = [((2, 7, 9, 96, 8), "float32"), ((1, 64, 64, 64, 32), "float32"),
-            ((3, 33, 31, 640, 32), "bfloat16")]
+# ((B, H, W, C, G), dtype, scale/bias dtype, element offset of x): f32, odd
+# channel counts, bf16 scale/bias, batches > 1, ragged rows; C·itemsize not a
+# multiple of 16 (36 bf16) and x off the 16-byte grid take the scalar variant
+GN_EXTRA = [((2, 7, 9, 96, 8), "float32", "float32", 0),
+            ((1, 64, 64, 64, 32), "float32", "float32", 0),
+            ((3, 33, 31, 640, 32), "bfloat16", "float32", 0),
+            ((2, 40, 40, 320, 32), "bfloat16", "bfloat16", 0),
+            ((3, 64, 64, 256, 32), "bfloat16", "bfloat16", 0),
+            ((1, 300, 300, 128, 32), "bfloat16", "float32", 0),
+            ((2, 256, 256, 256, 32), "bfloat16", "bfloat16", 0),
+            ((1, 9, 9, 36, 4), "bfloat16", "float32", 0),
+            ((2, 7, 9, 96, 8), "bfloat16", "float32", 1),
+            ((1, 50, 50, 100, 4), "float32", "float32", 1)]
 # (B, S, H, D) of the differentiated flash attention at 512² training images,
 # SD-v1.5 width: UNet level 0 (4096 tokens) and level 1 (1024 tokens), each 5
 # self-attentions per UNet pass, 6 timesteps a step → 30 K6 launches a step
@@ -269,25 +301,82 @@ def attn_row(b, s, h, d, dtype, gen, iters):
     return row
 
 
-def gn_row(b, hh, ww, c, groups, silu, eps, dtype, gen, iters):
+def gn_row(b, hh, ww, c, groups, silu, eps, dtype, gen, iters, sdtype="float32", offset=0):
+    """GroupNorm(+SiLU) at one shape: the route ``gn_route`` names, two calls
+    bitwise equal, the plain version's tolerance; timed (``iters``) beside the
+    first kernel (csrc/groupnorm.cu, "v1"), the other route where it takes the shape (the
+    resident route's limit is set from these), the plain version and
+    F.group_norm + F.silu."""
     import torch
     import torch.nn.functional as F
 
-    from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu, plain_groupnorm_silu
+    from ldiffusion_tpu_torch.ops.groupnorm import (
+        _launch,
+        gn_resident_config,
+        gn_route,
+        groupnorm_silu,
+        plain_groupnorm_silu,
+        vectorised,
+    )
 
-    dt = getattr(torch, dtype)
-    x = (torch.randn((b, hh, ww, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dt)
-    scale = 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
-    bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    dt, st = getattr(torch, dtype), getattr(torch, sdtype)
+    shape = (b, hh, ww, c)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dt)
+    if offset:  # the same values, `offset` elements past an allocation's start
+        x = torch.empty(x.numel() + offset, device="cuda", dtype=dt)[offset:].view(shape).copy_(x)
+    scale = (1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")).to(st)
+    bias = (0.1 * torch.randn((c,), generator=gen, device="cuda")).to(st)
+    name = f"groupnorm_silu{shape} {dtype} scale {sdtype} silu={silu} eps={eps} offset={offset}"
+    before = dict(groupnorm_silu.launches_by_route)
     out = groupnorm_silu(x, scale, bias, groups, eps, silu)
+    route = route_delta(groupnorm_silu, before)
+    aligned = x.data_ptr() % 16 == 0
+    if route != gn_route(b, hh * ww, c, groups, dt, aligned):
+        raise AssertionError(f"{name}: took {route}, gn_route names another")
+    again = groupnorm_silu(x, scale, bias, groups, eps, silu)
     ref = plain_groupnorm_silu(x, scale, bias, groups, eps, silu)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls differ ({route})")
     tol = GN_BF16 if dt == torch.bfloat16 else GN_F32
-    row = {"shape": [b, hh, ww, c], "groups": groups, "silu": silu, "eps": eps,
-           "dtype": dtype,
-           **compare(f"groupnorm_silu{(b, hh, ww, c)} silu={silu} eps={eps}", out, ref, tol)}
+    row = {"shape": list(shape), "groups": groups, "silu": silu, "eps": eps, "dtype": dtype,
+           "scale_dtype": sdtype, "offset": offset, "route": route,
+           "vectorised": vectorised(c, dt, aligned), "bitwise_repeat": True,
+           **compare(name, out, ref, tol)}
+    if route == "resident":
+        row["config"] = gn_resident_config(b, hh * ww, c, groups, dt)
+    # the other route, and the resident route with other narrowest slices
+    # (bytes) where they change its choice: held to the same tolerance, timed
+    # below (the route's limit and MIN_SLICE_BYTES are set from these)
+    alts = {}
+    if route == "resident":
+        alts["stream"] = {"route": "stream"}
+    if vectorised(c, dt, aligned):
+        own = gn_resident_config(b, hh * ww, c, groups, dt) if route == "resident" else None
+        for min_slice in (32, 64, 128, 256):
+            cfg = gn_resident_config(b, hh * ww, c, groups, dt, min_slice)
+            if cfg is not None and (own is None or cfg["groups"] != own["groups"]):
+                alts[f"resident_{min_slice}"] = {"route": "resident", "min_slice": min_slice}
+    for key, kw in alts.items():
+        y_alt, _ = _launch(f"{name} ({key})", x, scale, bias, groups, eps, silu, **kw)
+        torch.cuda.synchronize()
+        row[f"{key}_max_abs_err"] = compare(f"{name} ({key})", y_alt, ref, tol)["max_abs_err"]
+    del ref
     if iters:
-        row["ms"] = cuda_ms(lambda: groupnorm_silu(x, scale, bias, groups, eps, silu), iters)
+        ours = lambda: groupnorm_silu(x, scale, bias, groups, eps, silu)
+        row["ms"] = cuda_ms(ours, iters)
+        # the kernels alone: at the small maps the host's launch path sets "ms"
+        by_kernel = profiled_kernels_ms(ours, 20)
+        row["device_ms"] = sum(by_kernel.values())
+        row["device_ms_by_kernel"] = {name.split("<")[0].split("::")[-1]: ms
+                                      for name, ms in by_kernel.items()}
+        v1 = lambda: _launch("groupnorm_silu (v1)", x, scale, bias, groups, eps, silu,
+                             route="v1")
+        row["v1_ms"] = cuda_ms(v1, iters)  # the first kernel, same inputs
+        row["v1_device_ms"] = profiled_device_ms(v1, 20)
+        for key, kw in alts.items():
+            row[f"{key}_device_ms"] = profiled_device_ms(
+                lambda: _launch(key, x, scale, bias, groups, eps, silu, **kw), 20)
         row["plain_ms"] = cuda_ms(
             lambda: plain_groupnorm_silu(x, scale, bias, groups, eps, silu), iters)
 
@@ -297,11 +386,12 @@ def gn_row(b, hh, ww, c, groups, silu, eps, dtype, gen, iters):
 
         xc = x.permute(0, 3, 1, 2)  # NCHW view of the same channels-last memory
         row["library_ms"] = cuda_ms(lambda: library(xc), iters)
+        row["library_device_ms"] = profiled_device_ms(lambda: library(xc), 20)
         # the same values in contiguous NCHW memory, F.group_norm's own layout
         xn = xc.contiguous()
         row["library_nchw_ms"] = cuda_ms(lambda: library(xn), iters)
         del xn
-        nbytes = 2.0 * x.numel() * x.element_size() + 2 * c * 4
+        nbytes = 2.0 * x.numel() * x.element_size() + 2 * c * scale.element_size()
         t_bytes = nbytes / PEAK_BYTES
         t_ops = 10.0 * x.numel() / PEAK_F32
         row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
@@ -438,9 +528,10 @@ def phase_kernels(seed: int):
     for b, hh, ww, c, silu, eps in GN_PATH_SHAPES:
         gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
         log("kernel groupnorm_silu", json.dumps(gn[-1]))
-    for (b, hh, ww, c, groups), dtype in GN_EXTRA:
+    for (b, hh, ww, c, groups), dtype, sdtype, offset in GN_EXTRA:
         for silu in (True, False):
-            r = gn_row(b, hh, ww, c, groups, silu, 1e-5, dtype, gen, iters=0)
+            r = gn_row(b, hh, ww, c, groups, silu, 1e-5, dtype, gen, iters=0, sdtype=sdtype,
+                       offset=offset)
             log("kernel groupnorm_silu", json.dumps(r))
     lse, bwd = [], []
     for i, (b, s, h, d) in enumerate(TRAIN_ATTN_SHAPES):
@@ -487,7 +578,7 @@ def read_counters():
 
 
 def read_routes():
-    """Launches by route of the attention wrappers."""
+    """Launches by route of the attention and GroupNorm wrappers."""
     return {name: dict(fn.launches_by_route) for name, fn in counters().items()
             if hasattr(fn, "launches_by_route")}
 
@@ -496,12 +587,55 @@ def check_bf16_routes(where: str, routes: dict) -> None:
     """Every bf16 forward and backward of the model's path shapes takes the
     wgmma route."""
     for name, by_route in routes.items():
+        if name == "groupnorm_silu":
+            continue
         off = {r: n for r, n in by_route.items() if r != "wgmma" and n}
         if off:
             raise AssertionError(f"{where}: {name} launched off the wgmma route: {by_route}")
 
 
 INFERENCE_KERNELS = ("flash_attention_fwd", "groupnorm_silu")
+
+
+class GnRouteWatch:
+    """Counts, for every GroupNorm layer call on the card while it is open,
+    the route ``gn_route`` names for the call's shape (a global forward
+    pre-hook on ``FusedGroupNormSiLU``, which hands the wrapper its input as
+    contiguous NHWC), and the calls by shape. ``check`` holds the wrapper's
+    launches by route since ``reset_counters`` against them."""
+
+    def __enter__(self):
+        from torch.nn.modules.module import register_module_forward_pre_hook
+
+        from ldiffusion_tpu_torch.ops.groupnorm import ROUTES
+
+        self.expected = dict.fromkeys(ROUTES, 0)
+        self.shapes = {}
+        self.handle = register_module_forward_pre_hook(self._hook)
+        return self
+
+    def _hook(self, module, args):
+        from ldiffusion_tpu_torch.models.layers import FusedGroupNormSiLU
+        from ldiffusion_tpu_torch.ops.groupnorm import gn_route
+
+        x = args[0]
+        if not isinstance(module, FusedGroupNormSiLU) or not x.is_cuda:
+            return
+        b, c, h, w = x.shape
+        # a channels-last input is passed as it is; any other is copied into
+        # a fresh (aligned) allocation
+        aligned = x.data_ptr() % 16 == 0 or not x.permute(0, 2, 3, 1).is_contiguous()
+        self.expected[gn_route(b, h * w, c, module.groups, x.dtype, aligned)] += 1
+        key = f"{b}x{h}x{w}x{c}"
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def check(self, where: str, routes: dict) -> None:
+        if routes["groupnorm_silu"] != self.expected:
+            raise AssertionError(f"{where}: groupnorm_silu launched {routes['groupnorm_silu']} "
+                                 f"by route, gn_route names {self.expected} for its calls")
 
 
 def tissue_like(rng, h, w):
@@ -657,21 +791,25 @@ def phase_full(work, seed):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counters()  # the main path starts here
-    t0 = time.perf_counter()
-    decoded, mask = model.inference_tissue(single, None, seg, 7)
-    torch.cuda.synchronize()
-    single_s = time.perf_counter() - t0
-    per_roi = read_counters()
-    out_dir = os.path.join(work, "masks")
-    t0 = time.perf_counter()
-    model.inference_tissue(rois, None, seg, 7, output_path=out_dir)
-    torch.cuda.synchronize()
-    folder_s = time.perf_counter() - t0
-    launches = read_counters()  # the main path ends here
-    routes = read_routes()
+    with GnRouteWatch() as watch:
+        reset_counters()  # the main path starts here
+        t0 = time.perf_counter()
+        decoded, mask = model.inference_tissue(single, None, seg, 7)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        per_roi = read_counters()
+        per_roi_gn_routes = read_routes()["groupnorm_silu"]
+        per_roi_gn_shapes = dict(watch.shapes)
+        out_dir = os.path.join(work, "masks")
+        t0 = time.perf_counter()
+        model.inference_tissue(rois, None, seg, 7, output_path=out_dir)
+        torch.cuda.synchronize()
+        folder_s = time.perf_counter() - t0
+        launches = read_counters()  # the main path ends here
+        routes = read_routes()
     peak = torch.cuda.max_memory_allocated()
     check_bf16_routes("full", routes)
+    watch.check("full", routes)
 
     from PIL import Image
 
@@ -709,6 +847,8 @@ def phase_full(work, seed):
            "single_s_per_roi": single_s, "folder_rois": 4, "folder_s": folder_s,
            "folder_s_per_roi": folder_s / 4, "max_memory_allocated": peak,
            "launches_per_roi": per_roi, "launches": launches, "launches_by_route": routes,
+           "groupnorm_routes_per_roi": per_roi_gn_routes,
+           "groupnorm_shapes_per_roi": per_roi_gn_shapes,
            "mask_classes": np.bincount(mask.ravel(), minlength=7).tolist(),
            "transformed_range": [lo, hi]}
     log("full", json.dumps(row))
@@ -871,6 +1011,7 @@ def phase_train(work, seed):
                             work_dir=os.path.join(work, "train_work"), diffusion_config=cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    gn_watch = GnRouteWatch().__enter__()  # closed where the training main path ends
     reset_counters()  # the training main path starts here
     saved = model.train(args, component="ldiffusion")["ldiffusion"]
     torch.cuda.synchronize()
@@ -913,12 +1054,17 @@ def phase_train(work, seed):
     torch.cuda.reset_peak_memory_stats()
     counts_before = read_counters()
     routes_before = read_routes()
+    shapes_before = dict(gn_watch.shapes)
     for _ in range(3):
         trainer.train_step(images, labels)
     torch.cuda.synchronize()
     total = read_counters()  # the training main path ends here
     routes = read_routes()
+    gn_watch.__exit__(None, None, None)
     check_bf16_routes("train", routes)
+    gn_watch.check("train", routes)
+    gn_shapes_512 = {k: (n - shapes_before.get(k, 0)) / 3 for k, n in gn_watch.shapes.items()
+                     if n > shapes_before.get(k, 0)}
     launches_512 = {k: total[k] - counts_before[k] for k in total}
     bwd_wgmma_512 = (routes["flash_attention_bwd"]["wgmma"]
                      - routes_before["flash_attention_bwd"]["wgmma"])
@@ -927,6 +1073,7 @@ def phase_train(work, seed):
              "peak_bytes": torch.cuda.max_memory_allocated(),
              **step_summary(trainer, launches_512),
              "launches_by_route_64_and_512": routes,
+             "groupnorm_shapes_per_step": gn_shapes_512,
              "params_moved": not torch.equal(trainer.master[0], w0)}
     row_b["profiled_step"] = device_profile(lambda: trainer.train_step(images, labels))
     log("train_512", json.dumps(row_b))
@@ -962,7 +1109,7 @@ def kernel_family(name: str) -> str:
         return "flash_attention_fwd (ours)"
     if "flash_bwd" in n:
         return "flash_attention_bwd (ours)"
-    if "gn_stats" in n or "gn_finalize" in n or "gn_apply" in n:
+    if any(k in n for k in ("gn_resident", "gn_stream", "gn_stats", "gn_finalize", "gn_apply")):
         return "groupnorm_silu (ours)"
     if any(k in n for k in ("conv", "cudnn", "implicit", "winograd", "dgrad", "fprop")):
         return "convolution (cuDNN)"
@@ -994,9 +1141,15 @@ def device_profile(fn):
     for name, ms in kernels.items():
         families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    ours = {}  # the port's kernels by name, template arguments dropped
+    for name, ms in kernels.items():
+        if kernel_family(name).endswith("(ours)"):
+            short = name.split("<")[0].split("::")[-1].replace("void ", "")
+            ours[short] = ours.get(short, 0.0) + ms
     return {"wall_s": wall, "device_busy_ms": busy,
             "device_idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
             "by_family_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
+            "ours_by_kernel_ms": dict(sorted(ours.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
@@ -1038,7 +1191,10 @@ KERNEL_META = {
         # launches of each path shape per ROI (UNet levels 0-2, VAE mid-block)
         "per_call": [5, 5, 5, 2]},
     "groupnorm_silu": {
-        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/groupnorm.cu",
+        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/groupnorm_sm90.cu",
+        # the resident and streamed routes; the first kernel, timed as "v1"
+        "sources": ["ldiffusion_tpu_torch/csrc/groupnorm_sm90.cu",
+                    "ldiffusion_tpu_torch/csrc/groupnorm.cu"],
         "replaces": "ldiffusion_tpu/ops/groupnorm.py:82 (_gn_kernel, K3); "
                     ":147 (_gn_stats_kernel, K4a); :168 (_gn_apply_kernel, K4b)",
         "per_call": None},
@@ -1074,11 +1230,19 @@ def kernel_summary(kernel_rows, launches, routes):
                     "ms": top["ms"], "plain_ms": top["plain_ms"],
                     "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                     "library_ms": top["library_ms"], "shape": top["shape"]})
-        for key in ("mma_ms", "mma_device_ms", "device_ms", "library_device_ms"):
+        for key in ("mma_ms", "mma_device_ms", "device_ms", "library_device_ms", "v1_ms",
+                    "v1_device_ms", "sources"):
+            if key in meta:
+                out[-1][key] = meta[key]
             if key in top:
                 out[-1][key] = top[key]
         if name in routes:
             out[-1]["launches_by_route"] = routes[name]
+        if name == "groupnorm_silu":  # each route at its largest map
+            out[-1]["largest_by_route"] = {
+                r["route"]: {k: r[k] for k in ("shape", "ms", "device_ms", "v1_device_ms",
+                                               "library_device_ms", "bound_ms")}
+                for r in sorted(rows, key=lambda r: math.prod(r["shape"]))}
     return out
 
 
@@ -1150,7 +1314,8 @@ def main(argv=None) -> int:
         if "full" in phases:  # the inference path's kernels: their launches there
             full = phase_full(work, args.seed)
             launches.update({k: full["launches"][k] for k in INFERENCE_KERNELS})
-            routes["flash_attention_fwd"] = full["launches_by_route"]["flash_attention_fwd"]
+            for name in INFERENCE_KERNELS:
+                routes[name] = full["launches_by_route"][name]
         if "train" in phases:  # the training path's kernels: their launches there
             train, train_routes = phase_train(work, args.seed)
             log("train_launches", json.dumps({"launches": train,

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_attention", "flash_attention_bwd",
-           "groupnorm")
+           "groupnorm", "groupnorm_sm90")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -133,8 +133,11 @@ def test_groupnorm_kernel_matches_plain_on_gpu(cuda, dtype, shape, groups, silu)
     scale = _normal(rng, (c,), torch.float32, cuda, loc=1.0, spread=0.1)
     bias = _normal(rng, (c,), torch.float32, cuda, spread=0.1)
     before = tgn.groupnorm_silu.launches
+    routes = dict(tgn.groupnorm_silu.launches_by_route)
     out = tgn.groupnorm_silu(x, scale, bias, groups, 1e-5, silu)
     assert tgn.groupnorm_silu.launches == before + 1
+    route = tgn.gn_route(shape[0], shape[1] * shape[2], c, groups, dtype, True)
+    assert tgn.groupnorm_silu.launches_by_route == {**routes, route: routes[route] + 1}
     assert out.dtype == dtype and out.shape == x.shape
     _assert_close(out, tgn.plain_groupnorm_silu(x, scale, bias, groups, 1e-5, silu),
                   GN_TOL[dtype])
@@ -418,3 +421,113 @@ def test_wgmma_bwd_config_matches_the_kernels_shared_memory(cuda):
         takes = tatt.bwd_route(d, torch.bfloat16, True) == "wgmma"
         assert takes == (d % 8 == 0 and 8 <= d <= tatt.BWD_MAX_HEAD_DIM), d
         assert fn(d) == (tatt.wgmma_bwd_config(d)["smem"] if takes else -1), d
+
+
+# The GroupNorm routes (csrc/groupnorm_sm90.cu): the resident route (one
+# cluster launch) and the streamed pair, each forced at maps of the 1024² ROI
+# and the 512² step (every resident map also streams), f32 and odd channel
+# counts, B > 1 and ragged rows; C·itemsize not a multiple of 16 (36 bf16)
+# and x off the 16-byte grid take the streamed route's scalar variant.
+GN_ROUTE_CASES = [
+    (torch.bfloat16, (1, 16, 16, 1280), 32), (torch.bfloat16, (1, 64, 64, 320), 32),
+    (torch.bfloat16, (1, 64, 64, 960), 32), (torch.bfloat16, (1, 128, 128, 320), 32),
+    (torch.bfloat16, (1, 128, 128, 960), 32), (torch.bfloat16, (1, 256, 256, 256), 32),
+    (torch.bfloat16, (3, 33, 31, 640), 32), (torch.bfloat16, (2, 300, 29, 128), 32),
+    (torch.float32, (2, 7, 9, 96), 8), (torch.float32, (1, 64, 64, 64), 32),
+    (torch.bfloat16, (2, 7, 9, 96), 8), (torch.bfloat16, (1, 9, 9, 36), 4)]
+
+
+def _gn_inputs(rng, shape, dtype, sdtype, device, loc=0.5, spread=2.0):
+    c = shape[-1]
+    x = _normal(rng, shape, dtype, device, loc=loc, spread=spread)
+    scale = _normal(rng, (c,), sdtype, device, loc=1.0, spread=0.1)
+    bias = _normal(rng, (c,), sdtype, device, spread=0.1)
+    return x, scale, bias
+
+
+def _gn_routes(shape, groups, dtype, aligned=True):
+    b, h, w, c = shape
+    takes_resident = tgn.vectorised(c, dtype, aligned) and \
+        tgn.gn_resident_config(b, h * w, c, groups, dtype) is not None
+    return ("resident", "stream") if takes_resident else ("stream",)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,groups", GN_ROUTE_CASES)
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_routes_match_plain_and_repeat_bitwise_on_gpu(cuda, dtype, shape, groups,
+                                                               sdtype):
+    x, scale, bias = _gn_inputs(np.random.default_rng(20), shape, dtype, sdtype, cuda)
+    for silu in (True, False):
+        ref = tgn.plain_groupnorm_silu(x, scale, bias, groups, 1e-5, silu)
+        for route in _gn_routes(shape, groups, dtype):
+            out, took = tgn._launch("gn", x, scale, bias, groups, 1e-5, silu, route=route)
+            assert took == route and out.dtype == dtype and out.shape == x.shape
+            _assert_close(out, ref, GN_TOL[dtype])
+            again, _ = tgn._launch("gn", x, scale, bias, groups, 1e-5, silu, route=route)
+            assert torch.equal(out, again), route  # fixed summation order, no atomics
+
+
+@pytest.mark.gpu
+def test_groupnorm_path_shapes_take_their_routes_and_count_one_launch(cuda):
+    """The UNet's maps go resident, the ROI's 128²×960 and the VAE's large
+    maps stream, odd C and unaligned x stream (scalar variant); each call
+    moves one route's count by exactly one."""
+    rng = np.random.default_rng(21)
+    cases = [((1, 16, 16, 1280), 32, 0, "resident"), ((1, 64, 64, 960), 32, 0, "resident"),
+             ((1, 128, 128, 320), 32, 0, "resident"), ((1, 128, 128, 960), 32, 0, "stream"),
+             ((1, 512, 512, 256), 32, 0, "stream"), ((1, 9, 9, 36), 4, 0, "stream"),
+             ((2, 7, 9, 96), 8, 1, "stream")]
+    counts = tgn.groupnorm_silu.launches_by_route
+    for shape, groups, offset, route in cases:
+        x, scale, bias = _gn_inputs(rng, shape, torch.bfloat16, torch.bfloat16, cuda)
+        if offset:  # the same values 2 bytes off the 16-byte grid
+            flat = torch.empty(x.numel() + offset, device=cuda, dtype=x.dtype)
+            x = flat[offset:].view(shape).copy_(x)
+        before = dict(counts)
+        out = tgn.groupnorm_silu(x, scale, bias, groups, 1e-6, True)
+        assert counts == {**before, route: before[route] + 1}, (shape, route)
+        _assert_close(out, tgn.plain_groupnorm_silu(x, scale, bias, groups, 1e-6, True),
+                      GN_TOL[torch.bfloat16])
+    x = torch.zeros((1, 9, 9, 36), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="resident"):  # TMA cannot take 72-byte rows
+        tgn._launch("gn", x, x[0, 0, 0], x[0, 0, 0], 4, 1e-5, True, route="resident")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 8, 8, 64), (1, 64, 64, 320)])
+def test_groupnorm_routes_clamp_the_variance(cuda, shape):
+    """mean ≫ std: the single-pass variance cancels and can come out below
+    zero; both routes clamp it at 0, so the output stays finite."""
+    x = _normal(np.random.default_rng(22), shape, torch.float32, cuda, loc=1000.0, spread=1e-3)
+    c = shape[-1]
+    ones, zeros = torch.ones(c, device=cuda), torch.zeros(c, device=cuda)
+    for route in ("resident", "stream"):
+        out, _ = tgn._launch("gn", x, ones, zeros, 32, 1e-6, True, route=route)
+        assert bool(torch.isfinite(out).all()), route
+
+
+@pytest.mark.gpu
+def test_gn_resident_config_matches_the_kernels_choice(cuda):
+    import ctypes
+
+    from ldiffusion_tpu_torch.ops import _build
+
+    fn = _build.library("groupnorm_sm90").ldt_groupnorm_resident_config
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    keys = ("groups", "cluster", "rows", "box_rows", "boxes", "smem")
+    out = (ctypes.c_int * 6)()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for b in (1, 2, 3):
+            for side in (1, 7, 8, 16, 31, 64, 128, 181, 256, 512):
+                for c, groups in ((64, 32), (96, 8), (128, 32), (256, 32), (320, 32),
+                                  (512, 32), (640, 32), (960, 32), (1280, 32), (1920, 32),
+                                  (2560, 32), (36, 4), (100, 4)):
+                    for min_slice in (32, tgn.MIN_SLICE_BYTES):
+                        cfg = tgn.gn_resident_config(b, side * side, c, groups, dtype,
+                                                     min_slice)
+                        got = fn(b, side * side, c, groups, code, min_slice, out)
+                        assert got == (cfg is not None), (b, side, c, dtype, min_slice)
+                        if cfg is not None:
+                            assert list(out) == [cfg[k] for k in keys], (b, side, c, dtype)
