@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's tissue inference and stage-1 training on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's tissue inference, stage-1 training and
+stage-2 segmentor training on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -44,6 +44,19 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               (a) and read after (b), every bf16 forward and backward launch
               on the wgmma route, every GroupNorm launch on its gn_route
               route; one step of each size is profiled.
+  6. seg:     one stage-2 step at a tiny plan in f32 on cuda against the same
+              step on the CPU (same weights and patches, DA off), and the
+              device DA stack on both with the same drawn parameters; then
+              SD-v1.5-width bf16 components from seeded random weights, their
+              UNet written by save_unet_dir, 6 synthetic 1024² ROI/label
+              pairs, and ``LDiffusionModel.train(component="segmentor")``:
+              the dataset build through the one-step transform (counters
+              reset before, read after: every forward launch on wgmma, every
+              GroupNorm launch on its gn_route route), the 1024²/7-class plan,
+              2 epochs × 4 iterations in bf16 (every crop and spatial
+              resample on the native route), validation; the written
+              segmentor read back by ``inference_tissue``; one iteration
+              profiled.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -60,6 +73,11 @@ import sys
 import tempfile
 import time
 import warnings
+
+# The port's package sits beside this script: find it whatever the working
+# directory, and under ``python -P`` (which leaves the script's directory off
+# sys.path).
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3.
 PEAK_BF16 = 989e12
@@ -1093,6 +1111,210 @@ def phase_train(work, seed):
     return total, routes
 
 
+# ---------------------------------------------------------------------------
+# stage-2 segmentor training
+# ---------------------------------------------------------------------------
+
+# The tiny stage-2 step, cuda vs CPU, both f32 with TF32 off: only the order
+# of sums differs (the CPU tests hold the port to the JAX package's step
+# within 5e-5 of each tensor's largest value). Loss relative; parameters and
+# momentum within a share of each tensor's largest value (both read 2.7e-6 on
+# an H100, so 1e-4 leaves about 40x); the device DA applied to the same drawn
+# parameters, absolute.
+SEG_TINY_TOL = {"loss": 1e-4, "params": 1e-4, "momentum": 1e-4, "augment": 1e-4}
+SEG_ROIS = 6  # 70/30 → 4 training ROIs (the 1024² plan's batch 2) and 2 held out
+PUMA_CODES = (0, 100, 150, 50, 200, 250, 255)  # class ids 0..6 as tissue PNG values
+
+
+def no_augment():
+    from ldiffusion_tpu_torch.data.augment import AugmentConfig
+
+    return AugmentConfig(p_rotation=0.0, p_scaling=0.0, p_noise=0.0, p_blur=0.0,
+                         p_brightness=0.0, p_contrast=0.0, p_lowres=0.0,
+                         p_gamma_invert=0.0, p_gamma=0.0, p_mirror=0.0)
+
+
+def seg_tensor_err(a: dict, b: dict) -> float:
+    """Largest |a - b| / max|b| over the DynUNet's named tensors. A conv bias
+    that feeds an InstanceNorm has a gradient of 0 in exact arithmetic (the
+    norm removes the mean), so its gradient and momentum are rounding noise
+    (≈ 1e-8) and its update ≈ lr times that: it is held absolutely (scale 1)."""
+    worst = 0.0
+    for k, ref in b.items():
+        scale = max(float(ref.abs().max()), 1.0 if k.endswith(".conv.bias") else 1e-30)
+        worst = max(worst, float((a[k].float().cpu() - ref.float().cpu()).abs().max()) / scale)
+    return worst
+
+
+def phase_seg_tiny(work, seed):
+    """One stage-2 step at a tiny plan, f32, on cuda and on the CPU from the
+    same weights and patches (DA off); and the device DA stack on both
+    devices with the same drawn parameters."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
+    from ldiffusion_tpu_torch.data.augment import (
+        AugmentConfig,
+        apply_augment,
+        draw_augment_params,
+    )
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+
+    rng = np.random.default_rng(seed + 5)
+    plan = seg_plan((32, 32), (8, 16, 32), (1, 2, 2))
+    cfg = SegmentorTrainConfig(compute_dtype="float32")
+    data = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    seg = np.stack([train_labels(rng, 32), train_labels(rng, 32)])
+    trainers, losses = {}, {}
+    for dev in ("cpu", "cuda"):  # the same seeded initialisation on both
+        tr = SegmentorTrainer(plan, cfg, output_dir=os.path.join(work, f"seg_tiny_{dev}"),
+                              augment=no_augment(), device=dev)
+        losses[dev] = float(tr.loss_and_grads(*tr._to_device(data, seg)))
+        tr.apply_update(lr=cfg.initial_lr)
+        trainers[dev] = tr
+    cpu, cuda = trainers["cpu"], trainers["cuda"]
+    errs = {"loss": abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"]),
+            "params": seg_tensor_err(dict(cuda.net.named_parameters()),
+                                     dict(cpu.net.named_parameters())),
+            "momentum": seg_tensor_err(cuda._momentum_state(), cpu._momentum_state())}
+    every = AugmentConfig(p_rotation=0.0, p_scaling=0.0, p_noise=1.0, p_blur=1.0,
+                          p_brightness=1.0, p_contrast=1.0, p_lowres=1.0,
+                          p_gamma_invert=1.0, p_gamma=1.0, p_mirror=1.0)
+    x = torch.from_numpy(data).permute(0, 3, 1, 2)
+    drawn = draw_augment_params(x.shape, every, torch.Generator().manual_seed(seed))
+    out_cpu = apply_augment(x, torch.from_numpy(seg), drawn, every)
+    out_cuda = apply_augment(x.cuda(), torch.from_numpy(seg).cuda(),
+                             {k: v.cuda() for k, v in drawn.items()}, every)
+    errs["augment"] = float((out_cuda[0].cpu() - out_cpu[0]).abs().max())
+    if not torch.equal(out_cuda[1].cpu(), out_cpu[1]):
+        raise AssertionError("seg tiny: the device DA moved the labels differently")
+    row = {"loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"], "errors": errs,
+           "tol": SEG_TINY_TOL}
+    log("seg_tiny", json.dumps(row))
+    bad = {k: v for k, v in errs.items() if not v <= SEG_TINY_TOL[k]}
+    if bad:
+        raise AssertionError(f"seg tiny: cuda vs cpu outside the tolerance: {bad}")
+    return row
+
+
+def seg_pairs(root, n, rng, size=1024):
+    """n synthetic size² ROI/label PNG pairs, labels in the tissue pixel code."""
+    import argparse as ap
+
+    import numpy as np
+    from PIL import Image
+
+    codes = np.array(PUMA_CODES, np.uint8)
+    images, labels = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    for i in range(n):
+        tissue_like(rng, size, size).save(os.path.join(images, f"roi_{i}.png"))
+        Image.fromarray(codes[train_labels(rng, size)]).save(os.path.join(labels, f"roi_{i}.png"))
+    # num_epochs 12 → max(1, 12 - 10) = 2 segmentor epochs
+    return ap.Namespace(image_dir=images, label_dir=labels, batch_size=1,
+                        num_inference_steps=25, num_classes=7, num_epochs=12)
+
+
+def phase_seg(work, seed):
+    """Stage-2 training at SD-v1.5 width and the 1024²/7-class plan through
+    ``LDiffusionModel.train(component="segmentor")``, 2 epochs × 4
+    iterations, bf16; the written segmentor read back by inference."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch import native
+    from ldiffusion_tpu_torch.api import LDiffusionModel
+    from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
+    from ldiffusion_tpu_torch.models.convert import save_unet_dir
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+
+    phase_seg_tiny(work, seed)
+    rng = np.random.default_rng(seed + 3)
+    args = seg_pairs(os.path.join(work, "seg_pairs"), SEG_ROIS, rng)
+    comps = sd15_components(seed, torch.bfloat16)
+    unet_dir = os.path.join(work, "seg_unet")
+    t0 = time.perf_counter()
+    save_unet_dir(unet_dir, comps.unet_config, comps.unet.state_dict(), comps.proj.state_dict())
+    save_s = time.perf_counter() - t0
+    unet_bytes = sum(os.path.getsize(os.path.join(unet_dir, f)) for f in os.listdir(unet_dir))
+    cfg = SegmentorTrainConfig(iters_per_epoch=4, val_iters_per_epoch=2)
+    model = LDiffusionModel("sd15-seeded-random", "tissue", components=comps,
+                            work_dir=os.path.join(work, "seg_work"), segmentor_config=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_routes()
+    with GnRouteWatch() as watch:
+        reset_counters()  # the stage-2 main path starts here
+        t0 = time.perf_counter()
+        seg_dir = model.train(args, component="segmentor", ldiffusion_weight=unet_dir)["segmentor"]
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_counters()  # the stage-2 main path ends here
+        routes = read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    native_routes = copy.deepcopy(native.launches_by_route)
+    check_bf16_routes("seg", routes)
+    watch.check("seg", routes)
+    if min(launches[k] for k in INFERENCE_KERNELS) == 0:
+        raise AssertionError(f"seg: a kernel was not launched on the stage-2 path: {launches}")
+    for name, by_route in native_routes.items():
+        if by_route["numpy"] or not by_route["native"]:
+            raise AssertionError(f"seg: {name} left the native route: {by_route}")
+    plan = SegPlan.load(os.path.join(seg_dir, "plans.json"))
+    if (tuple(plan.patch_size), tuple(plan.features_per_stage), tuple(plan.strides),
+            plan.batch_size, plan.num_classes) != (*FULL_PLAN, 2, 7):
+        raise AssertionError(f"seg: the plan is not the 1024²/7-class plan: {plan}")
+    fold = os.path.join(seg_dir, "fold_0")
+    for rel in ("checkpoint_best.pkl", "checkpoint_final.pkl", "validation/summary.json",
+                "postprocessing.json"):
+        if not os.path.exists(os.path.join(fold, rel)):
+            raise AssertionError(f"seg: fold_0/{rel} was not written")
+    with open(os.path.join(fold, "validation", "summary.json")) as f:
+        fg_dice = json.load(f)["foreground_mean"]["Dice"]
+    if not math.isfinite(fg_dice):
+        raise AssertionError(f"seg: the validation foreground Dice is {fg_dice}")
+    roi = os.path.join(args.image_dir, "roi_0.png")
+    _, mask = model.inference_tissue(roi, None, seg_dir, 7)  # the trained UNet is loaded
+    if mask.shape != (1024, 1024) or int(mask.max()) >= 7:
+        raise AssertionError(f"seg: inference from the trained segmentor: {mask.shape} "
+                             f"max {mask.max()}")
+
+    tr = model.seg_trainer
+    prep = model.prepare_seconds
+    batch = (rng.normal(size=(2, 1024, 1024, 3)).astype(np.float32),
+             np.stack([train_labels(rng, 1024), train_labels(rng, 1024)]))
+    prof = device_profile(lambda: tr.train_step(*batch, lr=1e-3))
+    row = {"plan": {"patch": list(plan.patch_size), "batch": plan.batch_size,
+                    "features": list(plan.features_per_stage)},
+           "rois": prep["rois"], "epochs": len(tr.epoch_log.data["epoch_time"]),
+           "iters_per_epoch": cfg.iters_per_epoch, "dtype": "bfloat16 compute, float32 params",
+           "unet_dir_write_s": save_s, "unet_dir_bytes": unet_bytes,
+           "unet_dir_load_s": prep["load_unet_s"],
+           "dataset_build_s_per_roi": prep["dataset_build_s"] / prep["rois"],
+           "plan_and_preprocess_s": prep["plan_and_preprocess_s"],
+           "s_per_iteration_median_after_first": float(np.median(tr.iter_seconds[1:])),
+           "iteration_s": tr.iter_seconds,
+           "s_per_epoch_without_checkpoints": tr.epoch_log.data["epoch_time"],
+           "checkpoint_write_s": tr.checkpoint_seconds,
+           "checkpoint_bytes": os.path.getsize(os.path.join(fold, "checkpoint_final.pkl")),
+           "validation_s_per_case": tr.val_case_seconds,
+           "host_ms_per_batch_sampling_and_spatial_da": float(
+               np.median(tr.host_batch_seconds[1:]) * 1e3),
+           "train_call_s": train_s, "max_memory_allocated": peak,
+           "train_losses": tr.epoch_log.data["train_loss"],
+           "val_foreground_dice": fg_dice,
+           "launches": launches, "launches_by_route": routes,
+           "launches_per_roi": {k: launches[k] / prep["rois"] for k in INFERENCE_KERNELS},
+           "groupnorm_shapes": dict(watch.shapes), "native_routes": native_routes,
+           "profiled_iteration": prof}
+    log("seg_train", json.dumps(row))
+    if not all(math.isfinite(v) for v in row["train_losses"]):
+        raise AssertionError(f"seg: non-finite training loss {row['train_losses']}")
+    return row
+
+
 def tr_batch(rng, size):
     """A (images, labels) batch of one synthetic size² ROI with 64² labels."""
     import numpy as np
@@ -1270,8 +1492,8 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full,train",
-                    help="comma-separated subset of kernels,tiny,full,train")
+    ap.add_argument("--phases", default="kernels,tiny,full,train,seg",
+                    help="comma-separated subset of kernels,tiny,full,train,seg")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1324,6 +1546,12 @@ def main(argv=None) -> int:
                                                    "flash_attention_bwd")})
             for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
                 routes[name] = train_routes[name]
+        if "seg" in phases:  # stage 2 runs the inference kernels in its dataset build
+            seg = phase_seg(work, args.seed)
+            for name in INFERENCE_KERNELS:
+                if name not in launches:
+                    launches[name] = seg["launches"][name]
+                    routes[name] = seg["launches_by_route"][name]
 
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

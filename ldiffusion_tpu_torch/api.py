@@ -1,14 +1,21 @@
-"""Public API (counterpart of ``ldiffusion_tpu/api.py``): stage-1 training
-and tissue inference.
+"""Public API (counterpart of ``ldiffusion_tpu/api.py``): stage-1 and
+stage-2 training and tissue inference.
 
     model = LDiffusionModel(diffusion_path, level="tissue")      # on cuda
-    weights = model.train(args, component="ldiffusion")          # {"ldiffusion": dir}
+    weights = model.train(args, component="all")   # {"ldiffusion": dir, "segmentor": dir}
     decoded, mask = model.inference(image_path, weights["ldiffusion"],
-                                    segmentor_weight, num_classes)
+                                    weights["segmentor"], num_classes)
 
-Training (``component="ldiffusion"``): a 70/30 split of the image/label
-pairs, then ``DiffusionWarmupTrainer`` on 64² images and labels; the UNet is
-saved in the JAX trainer's directory layout, which ``inference`` reads back.
+Training splits the image/label pairs 70/30. ``component="ldiffusion"``:
+``DiffusionWarmupTrainer`` on 64² images and labels; the UNet is saved in the
+JAX trainer's directory layout. ``component="segmentor"`` (given
+``ldiffusion_weight``) or ``"all"`` (after stage 1): every image goes through
+the one-step diffusion transform of that UNet into a ``DatasetXXX_Custom``
+directory, which is fingerprinted, planned and preprocessed; fold 0 of a
+5-fold split trains ``SegmentorTrainer`` for ``max(1, num_epochs - 10)``
+epochs, then validates on the held-out 30% (``summary.json``,
+``postprocessing.json``). The segmentor directory is readable by
+``inference`` and by the JAX package's predictor.
 
 Per ROI: CLIP text → projection, VAE ``encode_mean``, PNDM one step through
 the UNet, ``decode_latents``, z-score, sliding-window DynUNet with gaussian
@@ -17,21 +24,23 @@ blending and 4-way mirror TTA → uint8 mask. The ROI is 1024² unless
 the diffusion transform; in folder mode existing outputs are skipped unless
 ``overwrite``.
 
-Not ported yet (they raise ``NotImplementedError``): segmentor training
-(``component="all"`` or ``"segmentor"``, ROADMAP queue 1 item 10), the cell
-level (item 11), and reading a diffusers SD checkpoint directory (item 6) — a
+Not ported yet (they raise ``NotImplementedError``): the cell level (ROADMAP
+queue 1, *The cell path*), and reading a diffusers SD checkpoint directory
+(*Reading a diffusers checkpoint directory, and the tokenizer*) — a
 non-``random:`` path needs ``components=``.
 """
 from __future__ import annotations
 
 import os
+import time
+import traceback
 from typing import Optional
 
 import numpy as np
 import torch
 from PIL import Image
 
-from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig, SegmentorTrainConfig
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.data.dataset import (
     SegmentationDataset,
@@ -44,18 +53,24 @@ from ldiffusion_tpu_torch.data.dataset import (
 class LDiffusionModel:
     def __init__(self, diffusion_path: str, level: str, local_rank: int = -1,
                  components=None, device=None, work_dir: str = "train_save",
-                 diffusion_config: Optional[DiffusionTrainConfig] = None):
+                 diffusion_config: Optional[DiffusionTrainConfig] = None,
+                 segmentor_config: Optional[SegmentorTrainConfig] = None):
         """``device``: None → the GPU (raises when there is none); pass
         ``"cpu"`` to run on the CPU. ``components``: an ``SDComponents``
         bundle, moved to ``device``. ``diffusion_config``: the stage-1
-        hyperparameters (else built from ``train``'s args)."""
+        hyperparameters (else built from ``train``'s args);
+        ``segmentor_config``: the stage-2 ones (else the defaults with the
+        epochs ``train`` derives)."""
         del local_rank  # accepted for signature parity
         self.level = level
         self.diffusion_path = diffusion_path
         self.device = resolve_device(device)
         self.work_dir = work_dir
         self.diffusion_config = diffusion_config
+        self.segmentor_config = segmentor_config
         self.trainer = None  # the last stage-1 trainer, kept for inspection
+        self.seg_trainer = None  # the last stage-2 trainer, kept for inspection
+        self.prepare_seconds = {}  # _prepare_tissue's phases, host clock
         self._components = None if components is None else components.to(self.device)
 
     @property
@@ -74,7 +89,8 @@ class LDiffusionModel:
             if not self.diffusion_path.startswith("random:"):
                 raise NotImplementedError(
                     "reading a diffusers SD checkpoint directory is not ported yet "
-                    "(ROADMAP queue 1 item 6); pass components=")
+                    "(ROADMAP queue 1, *Reading a diffusers checkpoint directory, and the "
+                    "tokenizer*); pass components=")
             comps = SDComponents.random(device=self.device)
         if unet_override_dir:
             cfg, unet_sd, proj_sd = load_unet_dir(unet_override_dir)
@@ -99,17 +115,31 @@ class LDiffusionModel:
 
     # ------------------------------------------------------------------
     def train(self, args, component: str = "all", ldiffusion_weight: Optional[str] = None):
-        """``component="ldiffusion"``: stage-1 warm-up → {"ldiffusion": the
-        saved UNet directory}. ``args``: image_dir, label_dir, batch_size,
+        """component ∈ {all, ldiffusion, segmentor} (``ldiffusion_tpu/api.py:120-141``)
+        → the weight paths, {"ldiffusion": UNet dir, "segmentor": segmentor
+        dir}. ``args``: image_dir, label_dir, num_epochs, batch_size,
         num_inference_steps, num_classes (the CLI's names)."""
-        del ldiffusion_weight  # read by segmentor training, which is not ported yet
-        if component != "ldiffusion":
-            raise NotImplementedError(
-                f"component={component!r}: segmentor training is not ported yet (ROADMAP "
-                "queue 1 item 10); train component='ldiffusion'")
-        train_ds, _ = self.load_data(args.image_dir, args.label_dir)
-        print("Starting LDiffusion warming up...", flush=True)
-        return {"ldiffusion": self.train_ldiffusion(args, train_ds)}
+        if self.level == "cell":
+            raise NotImplementedError("the cell level is not ported yet "
+                                      "(ROADMAP queue 1, *The cell path*)")
+        if self.level != "tissue":
+            raise ValueError("Invalid level specified. Choose 'tissue' or 'cell'.")
+        if component not in ("all", "ldiffusion", "segmentor"):
+            raise ValueError(f"component={component!r}: choose all, ldiffusion or segmentor")
+        train_ds, val_ds = self.load_data(args.image_dir, args.label_dir)
+        out = {}
+        if component in ("all", "ldiffusion"):
+            print("Starting LDiffusion warming up...", flush=True)
+            ldiffusion_weight = self.train_ldiffusion(args, train_ds)
+            out["ldiffusion"] = ldiffusion_weight
+        if component in ("all", "segmentor"):
+            print("Starting Segmentor training...", flush=True)
+            if not ldiffusion_weight:
+                raise ValueError("segmentor training needs ldiffusion_weight")
+            seg_epochs = max(1, args.num_epochs - 10)  # reference ldiffusion.py:311
+            out["segmentor"] = self.train_tissue(seg_epochs, ldiffusion_weight,
+                                                 args.num_classes, train_ds, val_ds)
+        return out
 
     def train_ldiffusion(self, args, train_ds: SegmentationDataset) -> str:
         from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
@@ -124,6 +154,96 @@ class LDiffusionModel:
                                    label_size=cfg.latent_size)
         return self.trainer.train(it, steps_per_epoch=steps)
 
+    # -- stage 2: tissue -------------------------------------------------
+    def _prepare_tissue(self, ldiffusion_weight: str, num_classes: int,
+                        train_ds: SegmentationDataset, val_ds: SegmentationDataset) -> dict:
+        """The fold-independent set-up (``ldiffusion_tpu/api.py:160-200``):
+        diffusion-transform the dataset, check it, fingerprint, plan and
+        preprocess every training case once."""
+        from ldiffusion_tpu_torch.segmentor.dataset_builder import (
+            DiffusionTransform,
+            build_transformed_dataset,
+            load_transformed_dataset,
+        )
+        from ldiffusion_tpu_torch.segmentor.fingerprint import (
+            extract_fingerprint,
+            verify_dataset_integrity,
+        )
+        from ldiffusion_tpu_torch.segmentor.planner import plan_experiment
+        from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
+
+        t0 = time.perf_counter()
+        comps = self._load_components(unet_override_dir=ldiffusion_weight)
+        t1 = time.perf_counter()
+        print("\033[32m[LDiffusion] Preparing data by L-Diffusion...\033[0m", flush=True)
+        num, ds_path = build_transformed_dataset(
+            train_ds.image_paths, train_ds.label_paths, val_ds.image_paths,
+            val_ds.label_paths, num_classes, self.level, DiffusionTransform(comps),
+            os.path.join(self.work_dir, "seg_raw"), image_size=self.image_size)
+        t2 = time.perf_counter()
+        print("\033[32m[Segmentor] Data preprocessing and plan generation in "
+              "progress...\033[0m", flush=True)
+        images, labels = load_transformed_dataset(ds_path, "Tr")
+        problems = verify_dataset_integrity(images, labels, num_classes)
+        if problems:
+            raise ValueError(f"dataset integrity check failed: {problems}")
+        plan = plan_experiment(extract_fingerprint(images, labels), num_classes)
+        out_dir = os.path.join(self.work_dir, "segmentor", f"Dataset{num:03d}")
+        plan.save(os.path.join(out_dir, "plans.json"))
+        pp_all = PreprocessedDataset.build(images, labels, num_classes)
+        self.prepare_seconds = {"load_unet_s": t1 - t0, "dataset_build_s": t2 - t1,
+                                "rois": len(train_ds) + len(val_ds),
+                                "plan_and_preprocess_s": time.perf_counter() - t2}
+        return {"plan": plan, "out_dir": out_dir, "pp_all": pp_all, "ds_path": ds_path,
+                "num_classes": num_classes}
+
+    def _train_tissue_fold(self, prep: dict, epochs: int, fold) -> str:
+        """Train one cross-validation fold (``ldiffusion_tpu/api.py:202-237``):
+        ``splits_final.json`` beside ``plans.json``, checkpoints in
+        ``fold_<f>/``, then the final validation on the held-out split. A
+        failed validation is logged and the trained model kept, as in the JAX
+        package."""
+        from ldiffusion_tpu_torch.segmentor.dataset_builder import load_transformed_dataset
+        from ldiffusion_tpu_torch.segmentor.splits import do_split
+        from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+
+        plan, out_dir, pp_all = prep["plan"], prep["out_dir"], prep["pp_all"]
+        tr_keys, va_keys = do_split(pp_all.keys(), fold,
+                                    os.path.join(out_dir, "splits_final.json"))
+        print(f"\033[32m[Segmentor] Training fold {fold} ({len(tr_keys)} train / "
+              f"{len(va_keys)} val cases)...\033[0m", flush=True)
+        cfg = self.segmentor_config or SegmentorTrainConfig(num_epochs=epochs)
+        trainer = SegmentorTrainer(plan, cfg, output_dir=os.path.join(out_dir, f"fold_{fold}"),
+                                   device=self.device)
+        self.seg_trainer = trainer
+        trainer.run_training(pp_all.subset(tr_keys), pp_all.subset(va_keys), num_epochs=epochs)
+        val_images, val_labels = load_transformed_dataset(prep["ds_path"], "Ts")
+        if not val_images:  # no held-out cases: the validation fold
+            val_images = [pp_all[k].data for k in va_keys]
+            val_labels = [np.maximum(pp_all[k].seg, 0) for k in va_keys]
+        try:
+            trainer.perform_actual_validation(val_images, val_labels)
+        except Exception:  # validation must not lose the trained model
+            print(f"final validation failed:\n{traceback.format_exc()}", flush=True)
+        return out_dir
+
+    def train_tissue(self, epochs: int, ldiffusion_weight: str, num_classes: int,
+                     train_ds: SegmentationDataset, val_ds: SegmentationDataset,
+                     fold=0) -> str:
+        prep = self._prepare_tissue(ldiffusion_weight, num_classes, train_ds, val_ds)
+        return self._train_tissue_fold(prep, epochs, fold)
+
+    def train_tissue_all_folds(self, epochs: int, ldiffusion_weight: str, num_classes: int,
+                               train_ds: SegmentationDataset, val_ds: SegmentationDataset,
+                               folds=(0, 1, 2, 3, 4)) -> str:
+        """Every cross-validation fold; inference fold-ensembles their
+        checkpoints."""
+        prep = self._prepare_tissue(ldiffusion_weight, num_classes, train_ds, val_ds)
+        for f in folds:
+            self._train_tissue_fold(prep, epochs, f)
+        return prep["out_dir"]
+
+    # ------------------------------------------------------------------
     def inference(self, image_path: str, ldiffusion_weight: Optional[str],
                   segmentor_weight: str, num_classes: int):
         """Single-image inference → (diffusion-transformed PIL image, mask)."""
@@ -132,7 +252,7 @@ class LDiffusionModel:
                                          num_classes)
         if self.level == "cell":
             raise NotImplementedError("the cell level is not ported yet "
-                                      "(ROADMAP queue 1 item 11)")
+                                      "(ROADMAP queue 1, *The cell path*)")
         raise ValueError("Invalid level specified. Choose 'tissue' or 'cell'.")
 
     def _transform(self, img_norm: np.ndarray, emb):

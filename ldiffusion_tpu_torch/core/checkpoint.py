@@ -1,4 +1,5 @@
-"""Reading the JAX trainers' checkpoint pickles without JAX.
+"""The JAX trainers' checkpoint pickles: read without JAX, and written in
+the same layout (``save_pytree``).
 
 ``ldiffusion_tpu/core/checkpoint.py:save_pytree`` pickles a dict of numpy
 leaves, but the segmentor's checkpoint also holds its optax ``opt_state``
@@ -10,8 +11,11 @@ callers read ``params`` and ``plan`` and ignore the rest.
 """
 from __future__ import annotations
 
+import os
 import pickle
 from typing import Any, Dict, Tuple
+
+import torch
 
 _FOREIGN = ("jax", "jaxlib", "flax", "optax", "chex", "ldiffusion_tpu")
 _standins: Dict[Tuple[str, str], type] = {}
@@ -59,3 +63,27 @@ def load_pytree(path: str) -> Any:
     only files this project wrote: unpickling can run code."""
     with open(path, "rb") as f:
         return _Unpickler(f).load()
+
+
+def _to_host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_host(v) for v in x)
+    return x
+
+
+def save_pytree(path: str, tree: Any) -> None:
+    """Pickle a tree of dicts, lists, numpy arrays and Python scalars (tensors
+    become numpy arrays), as ``ldiffusion_tpu/core/checkpoint.py:32-41``
+    writes it: the JAX package's ``load_pytree`` reads it with a plain
+    ``pickle.load``. Written to a temporary file and renamed, so a crash
+    leaves no torn checkpoint."""
+    host = _to_host(tree)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(host, f, protocol=4)
+    os.replace(tmp, path)

@@ -1,7 +1,9 @@
 """Typed configuration (the port's own copy of what it needs from
-``ldiffusion_tpu/core/config.py``)."""
+``ldiffusion_tpu/core/config.py``: the stage-1 and stage-2 trainers')."""
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -27,3 +29,27 @@ class DiffusionTrainConfig:
     remat: bool = True                # recompute each timestep in the backward
     seed: int = 0
     num_classes: Optional[int] = None  # enables per-class anchor floor in InfoNCE
+
+
+@dataclass(frozen=True)
+class SegmentorTrainConfig:
+    """Stage-2 nnU-Net-style trainer hyperparameters (reference
+    ``nnUNetTrainer.py:140-160``); the same fields and defaults as
+    ``ldiffusion_tpu/core/config.py:90-107``."""
+
+    num_epochs: int = 90              # reference: args.num_epochs - 10 (:311)
+    iters_per_epoch: int = 250        # (:151)
+    val_iters_per_epoch: int = 50     # (:152)
+    initial_lr: float = 1e-2          # SGD nesterov (:145)
+    weight_decay: float = 3e-5        # (:146)
+    momentum: float = 0.99
+    oversample_fg: float = 0.33       # (:147)
+    grad_clip: float = 12.0           # (:910)
+    ema_decay: float = 0.9            # EMA pseudo-dice (logger :49-52)
+    save_every: int = 50              # checkpoint_latest cadence (:181)
+    compute_dtype: str = "bfloat16"   # the DynUNet's forward and backward
+    deep_supervision: bool = True
+    seed: int = 12345
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)

@@ -5,14 +5,19 @@ transpose-conv upsampling with skip concat, 1x1 segmentation heads at every
 decoder stage (deep supervision). Submodule names follow the flax tree
 (``enc_{s}_{c}``, ``up_{d}``, ``dec_{d}_{c}``, ``seg_{d}``).
 
-Only inference is ported: ``forward`` returns the full-resolution logits
-(the lower heads are carried for the checkpoints' sake and not evaluated).
-The residual encoder and BatchNorm variants wait (ROADMAP queue 1 item 7).
+``forward(x)`` (inference) returns the full-resolution logits only; with
+``train=True`` and deep supervision it returns every head's logits, highest
+resolution first, as ``ldiffusion_tpu/models/dynunet.py:198-217`` does.
+``compute_dtype`` (e.g. bfloat16) runs the convolutions and norms in that
+dtype over parameters kept in theirs (float32 masters), as flax's
+``dtype``/``param_dtype`` split does; None computes in the parameters' dtype.
+The residual encoder and BatchNorm variants wait (ROADMAP queue 1,
+*Long tail*).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +63,20 @@ class InstanceNorm(nn.Module):
         return y * self.weight.to(y.dtype)[:, None, None] + self.bias.to(y.dtype)[:, None, None]
 
 
+def _conv(conv: nn.Module, x):
+    """``conv(x)`` with the weights cast to x's dtype when they differ."""
+    if conv.weight.dtype == x.dtype:
+        return conv(x)
+    return conv._conv_forward(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))
+
+
+def _conv_transpose(conv: nn.ConvTranspose2d, x):
+    if conv.weight.dtype == x.dtype:
+        return conv(x)
+    return F.conv_transpose2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                              conv.stride, conv.padding)
+
+
 class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, stride: int, cfg: DynUNetConfig):
         super().__init__()
@@ -67,13 +86,15 @@ class ConvBlock(nn.Module):
         self.norm = InstanceNorm(features, cfg.norm_eps)
 
     def forward(self, x):
-        return F.leaky_relu(self.norm(self.conv(x)), self.negative_slope)
+        return F.leaky_relu(self.norm(_conv(self.conv, x)), self.negative_slope)
 
 
 class DynUNet(nn.Module):
-    def __init__(self, config: DynUNetConfig = DynUNetConfig()):
+    def __init__(self, config: DynUNetConfig = DynUNetConfig(),
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = cfg = config
+        self.compute_dtype = compute_dtype
         cin = cfg.in_channels
         for s, feats in enumerate(cfg.features_per_stage):
             for c in range(cfg.n_conv_per_stage):
@@ -91,17 +112,24 @@ class DynUNet(nn.Module):
             if cfg.deep_supervision or d == 0:
                 self.add_module(f"seg_{d}", nn.Conv2d(feats, cfg.num_classes, 1))
 
-    def forward(self, x):
-        """x: (B, C_in, H, W) → full-resolution logits (B, classes, H, W) float32."""
+    def forward(self, x, train: bool = False):
+        """x: (B, C_in, H, W) → full-resolution logits (B, classes, H, W)
+        float32; with ``train`` and deep supervision, the list of every
+        head's logits, highest resolution first."""
         cfg = self.config
-        x = x.to(self.seg_0.weight.dtype).contiguous(memory_format=torch.channels_last)
+        dtype = self.compute_dtype or self.seg_0.weight.dtype
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         skips = []
         for s in range(cfg.n_stages):
             for c in range(cfg.n_conv_per_stage):
                 x = getattr(self, f"enc_{s}_{c}")(x)
             skips.append(x)
+        heads = []
+        every_head = train and cfg.deep_supervision
         for d in range(cfg.n_stages - 2, -1, -1):
-            x = torch.cat([getattr(self, f"up_{d}")(x), skips[d]], dim=1)
+            x = torch.cat([_conv_transpose(getattr(self, f"up_{d}"), x), skips[d]], dim=1)
             for c in range(cfg.n_conv_per_stage):
                 x = getattr(self, f"dec_{d}_{c}")(x)
-        return self.seg_0(x).float()
+            if every_head or d == 0:
+                heads.append(_conv(getattr(self, f"seg_{d}"), x).float())
+        return heads[::-1] if every_head else heads[-1]

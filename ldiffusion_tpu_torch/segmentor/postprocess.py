@@ -1,14 +1,19 @@
-"""Connected-component postprocessing at inference (counterpart of
-``ldiffusion_tpu/segmentor/postprocess.py``): apply the keep-largest-component
-steps a trained segmentor chose. Determining them waits for the training
-slice."""
+"""Connected-component postprocessing (counterpart of
+``ldiffusion_tpu/segmentor/postprocess.py``; reference
+``remove_connected_components.py``): decide on the validation predictions
+which keep-largest-component steps raise the mean foreground Dice
+(``determine_postprocessing``, the whole foreground first, then each class),
+save them as ``postprocessing.json``, and apply them at inference."""
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict, List, Sequence
 
 import numpy as np
 from scipy import ndimage
+
+from ldiffusion_tpu_torch.evaluate import confusion_matrix, metrics_from_cm
 
 
 def remove_all_but_largest_component(seg: np.ndarray, labels) -> np.ndarray:
@@ -26,6 +31,43 @@ def remove_all_but_largest_component(seg: np.ndarray, labels) -> np.ndarray:
     out = seg.copy()
     out[mask & (comp != keep)] = 0
     return out
+
+
+def _mean_fg_dice(preds: Sequence[np.ndarray], gts: Sequence[np.ndarray],
+                  num_classes: int) -> float:
+    """Mean foreground Dice of one confusion matrix over every case."""
+    cm = np.zeros((num_classes, num_classes), np.int64)
+    for p, g in zip(preds, gts):
+        cm += confusion_matrix(p, g, num_classes)
+    return float(np.mean(metrics_from_cm(cm)["dice_per_class"][1:]))
+
+
+def determine_postprocessing(preds: Sequence[np.ndarray], gts: Sequence[np.ndarray],
+                             num_classes: int) -> List[Dict]:
+    """The keep-largest-component steps that improve the mean foreground Dice
+    (``ldiffusion_tpu/segmentor/postprocess.py:57-82``)."""
+    steps: List[Dict] = []
+    cur = [p.copy() for p in preds]
+    base = _mean_fg_dice(cur, gts, num_classes)
+    fg_labels = list(range(1, num_classes))
+    cand = [remove_all_but_largest_component(p, fg_labels) for p in cur]
+    score = _mean_fg_dice(cand, gts, num_classes)
+    if score > base:
+        steps.append({"fn": "remove_all_but_largest_component", "labels": fg_labels})
+        cur, base = cand, score
+    for c in range(1, num_classes):
+        cand = [remove_all_but_largest_component(p, c) for p in cur]
+        score = _mean_fg_dice(cand, gts, num_classes)
+        if score > base:
+            steps.append({"fn": "remove_all_but_largest_component", "labels": [c]})
+            cur, base = cand, score
+    return steps
+
+
+def save_postprocessing(steps: Sequence[Dict], path: str):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(list(steps), f, indent=2)
 
 
 def apply_postprocessing(seg: np.ndarray, steps: Sequence[Dict]) -> np.ndarray:

@@ -88,7 +88,7 @@ class SlidingWindowPredictor:
         """``state_dicts``: one DynUNet state dict per fold (logits averaged)."""
         if len(plan.patch_size) != 2:
             raise NotImplementedError("the 3D pathway is not ported yet "
-                                      "(ROADMAP queue 1 item 13)")
+                                      "(ROADMAP queue 1, *Long tail*)")
         self.plan = plan
         self.device = resolve_device(device)
         if isinstance(state_dicts, dict):
@@ -111,7 +111,7 @@ class SlidingWindowPredictor:
             ck = load_pytree(p)
             if ck.get("batch_stats"):
                 raise NotImplementedError(f"{p}: BatchNorm DynUNet checkpoints are not "
-                                          "ported yet (ROADMAP queue 1 item 7)")
+                                          "ported yet (ROADMAP queue 1, *Long tail*)")
             sds.append(dynunet_from_flax(ck["params"], cfg))
         return cls(plan, sds, **kw)
 

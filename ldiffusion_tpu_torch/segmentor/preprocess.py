@@ -1,0 +1,133 @@
+"""Preprocessing, 2D (counterpart of ``ldiffusion_tpu/segmentor/preprocess.py:
+31-118, 159-170, 210-290``; reference ``default_preprocessor.py:33-296``):
+crop to nonzero (the bbox is kept), per-channel z-score (the one
+normalisation scheme ``plan_experiment`` emits), and at most 10k
+sampled locations per foreground class for oversampling. PNG cases have unit
+spacing, so resampling is the identity. ``PreprocessedDataset`` stores the
+cases in memory or as ``<case>.npz`` + ``<case>.json`` in the JAX package's
+layout. The other normalisation schemes, the preprocessor plugin point, the
+3D path and the resampler wait (ROADMAP queue 1, *Long tail*).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ldiffusion_tpu_torch.segmentor.fingerprint import crop_to_nonzero_bbox
+
+FG_LOCS_PER_CLASS = 10_000
+
+
+@dataclasses.dataclass
+class PreprocessedCase:
+    data: np.ndarray          # (H, W, C) float32, normalised
+    seg: np.ndarray           # (H, W) int16
+    properties: Dict          # bbox, original shape, class locations
+
+
+def zscore_normalize(image: np.ndarray) -> np.ndarray:
+    """Per-image, per-channel z-score (``ZScoreNormalization``)."""
+    mean = image.mean(axis=(0, 1), keepdims=True)
+    std = image.std(axis=(0, 1), keepdims=True)
+    return ((image - mean) / np.maximum(std, 1e-8)).astype(np.float32)
+
+
+def sample_fg_locations(seg: np.ndarray, num_classes: int, seed: int = 1234,
+                        per_class: int = FG_LOCS_PER_CLASS) -> Dict[int, np.ndarray]:
+    """At most ``per_class`` (y, x) locations of each present foreground class."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for c in range(1, num_classes):
+        coords = np.argwhere(seg == c)
+        if coords.shape[0] == 0:
+            continue
+        if coords.shape[0] > per_class:
+            coords = coords[rng.choice(coords.shape[0], per_class, replace=False)]
+        out[c] = coords.astype(np.int32)
+    return out
+
+
+def preprocess_case(image: np.ndarray, seg: np.ndarray, num_classes: int,
+                    seed: int = 1234) -> PreprocessedCase:
+    """image: (H, W, C) float32; seg: (H, W) int."""
+    orig_shape = image.shape[:2]
+    ys, xs = crop_to_nonzero_bbox(image)
+    image = image[ys, xs]
+    seg = seg[ys, xs].astype(np.int16)
+    props = {
+        "original_shape": list(orig_shape),
+        "bbox": [[ys.start, ys.stop], [xs.start, xs.stop]],
+        "class_locations": sample_fg_locations(seg, num_classes, seed),
+    }
+    return PreprocessedCase(data=zscore_normalize(image), seg=seg, properties=props)
+
+
+class PreprocessedDataset:
+    """Case-keyed preprocessed store (reference ``nnunet_dataset.py:11-111``):
+    in memory, or npz-backed in a directory."""
+
+    def __init__(self, cases: Optional[Dict[str, PreprocessedCase]] = None,
+                 directory: Optional[str] = None):
+        self.cases = cases or {}
+        self.directory = directory
+
+    @classmethod
+    def build(cls, images: Sequence[np.ndarray], segs: Sequence[np.ndarray],
+              num_classes: int, case_ids: Optional[Sequence[str]] = None,
+              directory: Optional[str] = None) -> "PreprocessedDataset":
+        case_ids = case_ids or [f"case_{i:03d}" for i in range(len(images))]
+        ds = cls(directory=directory)
+        for cid, img, seg in zip(case_ids, images, segs):
+            ds.cases[cid] = preprocess_case(img, seg, num_classes)
+        if directory:
+            ds.save(directory)
+        return ds
+
+    def save(self, directory: str) -> str:
+        os.makedirs(directory, exist_ok=True)
+        for cid, pc in self.cases.items():
+            np.savez(os.path.join(directory, f"{cid}.npz"), data=pc.data, seg=pc.seg)
+            props = dict(pc.properties)
+            props["class_locations"] = {
+                str(k): np.asarray(v).tolist()
+                for k, v in props.get("class_locations", {}).items()}
+            with open(os.path.join(directory, f"{cid}.json"), "w") as f:
+                json.dump(props, f)
+        return directory
+
+    @classmethod
+    def load(cls, directory: str) -> "PreprocessedDataset":
+        ds = cls(directory=directory)
+        for fn in sorted(os.listdir(directory)):
+            if not fn.endswith(".npz"):
+                continue
+            cid = fn[:-4]
+            with np.load(os.path.join(directory, fn)) as z:
+                data, seg = z["data"], z["seg"]
+            with open(os.path.join(directory, f"{cid}.json")) as f:
+                props = json.load(f)
+            props["class_locations"] = {
+                int(k): np.asarray(v, np.int32) for k, v in props["class_locations"].items()}
+            ds.cases[cid] = PreprocessedCase(data=data, seg=seg, properties=props)
+        return ds
+
+    def keys(self) -> List[str]:
+        return list(self.cases.keys())
+
+    def subset(self, keys: Sequence[str]) -> "PreprocessedDataset":
+        """The cases of one fold (``nnUNetDataset(keys)``)."""
+        missing = [k for k in keys if k not in self.cases]
+        if missing:
+            raise KeyError(f"unknown case ids: {missing}")
+        return PreprocessedDataset(cases={k: self.cases[k] for k in keys},
+                                   directory=self.directory)
+
+    def __len__(self) -> int:
+        return len(self.cases)
+
+    def __getitem__(self, cid: str) -> PreprocessedCase:
+        return self.cases[cid]

@@ -186,12 +186,16 @@ from ldiffusion_tpu_torch.api import LDiffusionModel
 model = LDiffusionModel("random:tiny", "tissue", device="cpu")
 decoded, mask = model.inference(sys.argv[1], None, sys.argv[2], 7)
 assert mask.shape == (64, 64), mask.shape
-# every module of the package, the training slice's included
+# every module of the package, both training slices' included
 names = [m.name for m in pkgutil.walk_packages(ldiffusion_tpu_torch.__path__,
                                                "ldiffusion_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "ldiffusion_tpu_torch.train.ldiffusion" in names, names
+for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
+             "segmentor.fingerprint", "segmentor.splits", "segmentor.dataset_builder",
+             "data.augment", "data.patches", "data.prefetch", "losses.dice", "native",
+             "evaluate"):
+    assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu"))
 print("FOREIGN", bad)

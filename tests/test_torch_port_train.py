@@ -287,8 +287,8 @@ def test_api_trains_ldiffusion_and_saves_a_readable_unet(jc, tmp_path):
                                compute_dtype="float32")
     model = LDiffusionModel("random:tiny", "tissue", components=comps, device="cpu",
                             work_dir=str(tmp_path / "work"), diffusion_config=cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        model.train(args, component="all")
+    with pytest.raises(ValueError, match="ldiffusion_weight"):
+        model.train(args, component="segmentor")  # stage 2 alone needs a UNet
     assert not (tmp_path / "work").exists()  # refused before any training
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the random-VGG warning
