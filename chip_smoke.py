@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's tissue inference, stage-1 training and
-stage-2 segmentor training on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's tissue inference, stage-1 training,
+stage-2 segmentor training and the cell level on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -57,6 +57,22 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               resample on the native route), validation; the written
               segmentor read back by ``inference_tissue``; one iteration
               profiled.
+  7. cell:    11 classes. SD-v1.5-width bf16 components from seeded random
+              weights written as a diffusers-layout safetensors directory
+              (own writer, tokenizer files), read back by
+              ``LDiffusionModel(<dir>, "cell")`` without ``components=``: its
+              one-step transform of a 1024² ROI equals the in-memory bundle's
+              bit for bit (the text projection carried over). Then
+              ``train(component="segmentor")`` on 6 synthetic 1024² nuclei
+              ROIs (2 epochs; ResNet-152) and ``inference`` on a square and a
+              non-square ROI (counters reset before the training, read after
+              the inference: every forward on wgmma, every GroupNorm on its
+              gn_route route); one inference profiled. Then the ResNet-152
+              classifier on an untransformed ROI of >= 300 instances, classes
+              on the card (TF32 off) against the CPU (>= 99% equal), timed
+              with TF32 as shipped; and the committed "transformed" flow
+              proposer at 1024², card against CPU (PQ >= 0.99), with
+              follow_flows timed by method.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -1315,6 +1331,360 @@ def phase_seg(work, seed):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the cell level
+# ---------------------------------------------------------------------------
+
+CELL_CLASSES = 11
+CELL_ROIS = 6  # 70/30 → 4 training ROIs and 2 validation ROIs
+# Classes of the same ROI's instances on the card (f32, TF32 off) and on the
+# CPU, same encoder and head: only the order of sums differs in the f32
+# ResNet-152, so a class flips only where two logits tie to rounding.
+CELL_CLASS_AGREEMENT = 0.99
+CELL_MIN_INSTANCES = 300  # PUMA ROIs hold ~300-1100 nuclei
+# The flow proposer's instance maps, card vs CPU: the same f32 net and
+# integration in another summation order; a sink may round the other way.
+CELL_PQ_AGREEMENT = 0.99
+_ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float32": "F32", "torch.int64": "I64"}
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file: u64 header length, a JSON header padded to 8 bytes,
+    then each tensor's raw little-endian bytes."""
+    import struct
+
+    import torch
+
+    header, offset, host = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        host.append(t.reshape(-1).view(torch.uint8).numpy())
+        offset += n
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for raw in host:
+            f.write(raw.data)
+
+
+def write_sd_dir(root, comps):
+    """``comps`` as a diffusers-layout SD directory in its dtype: unet/, vae/,
+    text_encoder/ (safetensors + config.json, the text encoder with
+    transformers' ``position_ids`` buffer) and a tokenizer/ whose BPE maps
+    "A pathological slide" to CLIP's ids."""
+    import torch
+
+    u, v, t = comps.unet_config, comps.vae_config, comps.text_config
+    configs = {
+        "unet": {"in_channels": u.in_channels, "out_channels": u.out_channels,
+                 "block_out_channels": list(u.block_out_channels),
+                 "layers_per_block": u.layers_per_block,
+                 "cross_attention_dim": u.cross_attention_dim,
+                 "attention_head_dim": u.attention_head_dim, "norm_num_groups": u.norm_num_groups,
+                 "down_block_types": list(u.down_block_types),
+                 "up_block_types": list(u.up_block_types)},
+        "vae": {"block_out_channels": list(v.block_out_channels),
+                "layers_per_block": v.layers_per_block, "latent_channels": v.latent_channels,
+                "norm_num_groups": v.norm_num_groups, "scaling_factor": v.scaling_factor},
+        "text_encoder": {"vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
+                         "num_hidden_layers": t.num_layers,
+                         "num_attention_heads": t.num_heads, "intermediate_size": t.mlp_dim,
+                         "max_position_embeddings": t.max_positions}}
+    text_sd = dict(comps.text.state_dict())
+    text_sd["text_model.embeddings.position_ids"] = torch.arange(t.max_positions)[None]
+    weights = {"unet": ("diffusion_pytorch_model.safetensors", comps.unet.state_dict()),
+               "vae": ("diffusion_pytorch_model.safetensors", comps.vae.state_dict()),
+               "text_encoder": ("model.safetensors", text_sd)}
+    for sub, cfg in configs.items():
+        os.makedirs(os.path.join(root, sub))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        write_safetensors(os.path.join(root, sub, weights[sub][0]), weights[sub][1])
+    vocab = {"<|startoftext|>": 49406, "<|endoftext|>": 49407, "a</w>": 320,
+             "pathological</w>": 29018, "slide</w>": 10556}
+    merges = []
+    for word in ("pathological", "slide"):
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        cur = parts[0]
+        for nxt in parts[1:]:
+            merges.append(f"{cur} {nxt}")
+            cur += nxt
+            vocab.setdefault(cur, 1000 + len(vocab))
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def nuclei_roi(rng, size=1024, spacing=34, keep=0.75):
+    """A PUMA-like ROI: pink stroma and dark purple nuclei (ellipses, semi-axes
+    4-10 px) on a jittered grid. Returns ((H, W, 3) float32 in [0, 1],
+    (H, W) int32 nucleus ids)."""
+    import numpy as np
+
+    img = np.empty((size, size, 3), np.float32)
+    img[:] = (0.92, 0.72, 0.84)
+    img += rng.normal(0, 0.03, img.shape).astype(np.float32)
+    inst = np.zeros((size, size), np.int32)
+    k = 0
+    half = spacing // 2
+    for gy in range(half, size - half, spacing):
+        for gx in range(half, size - half, spacing):
+            if rng.random() > keep:
+                continue
+            cy, cx = gy + rng.uniform(-6, 6), gx + rng.uniform(-6, 6)
+            a, b, th = rng.uniform(5, 10), rng.uniform(4, 7), rng.uniform(0, np.pi)
+            y0, x0 = int(cy) - 11, int(cx) - 11
+            yy, xx = np.mgrid[y0:y0 + 23, x0:x0 + 23]
+            u = (yy - cy) * np.cos(th) + (xx - cx) * np.sin(th)
+            v = -(yy - cy) * np.sin(th) + (xx - cx) * np.cos(th)
+            m = (u / a) ** 2 + (v / b) ** 2 <= 1
+            k += 1
+            inst[y0:y0 + 23, x0:x0 + 23][m] = k
+            img[y0:y0 + 23, x0:x0 + 23][m] = (np.array((0.35, 0.18, 0.45))
+                                              + rng.normal(0, 0.03, 3))
+    return np.clip(img, 0, 1), inst
+
+
+def crowded_roi(rng, size=1024, tile=64):
+    """Bright touching cells on a dark ground, the flow nets' training scenes
+    (chains of 2-3 disks of radius 3-7.5 px, neighbours touching) tiled over
+    size²: (H, W, 3) float32 in [0, 1]."""
+    import numpy as np
+
+    img = np.full((size, size), 0.1, np.float32)
+    yy, xx = np.mgrid[:tile, :tile].astype(np.float32)
+    for ty in range(0, size, tile):
+        for tx in range(0, size, tile):
+            for _ in range(int(rng.integers(2, 4))):
+                cy, cx = rng.uniform(12, tile - 12, 2)
+                prev = None
+                for _ in range(int(rng.integers(2, 4))):
+                    r = float(rng.uniform(3.0, 7.5))
+                    if prev is not None:
+                        ang = rng.uniform(0, 2 * np.pi)
+                        cy = float(np.clip(cy + 0.95 * (prev + r) * np.sin(ang), 6, tile - 6))
+                        cx = float(np.clip(cx + 0.95 * (prev + r) * np.cos(ang), 6, tile - 6))
+                    m = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+                    img[ty:ty + tile, tx:tx + tile][m] = rng.uniform(0.55, 0.9)
+                    prev = r
+    img += rng.normal(0, 0.03, img.shape).astype(np.float32)
+    return np.clip(np.stack([img] * 3, -1), 0, 1)
+
+
+def cell_pairs(root, n, rng, size=1024):
+    """n synthetic size² nuclei ROIs and their 11-class cell label PNGs (PUMA
+    cell pixel codes 25·class)."""
+    import argparse as ap
+
+    import numpy as np
+    from PIL import Image
+
+    images, labels = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    for i in range(n):
+        img, inst = nuclei_roi(rng, size)
+        classes = rng.integers(1, CELL_CLASSES, inst.max() + 1)
+        classes[0] = 0
+        Image.fromarray((img * 255).astype(np.uint8)).save(os.path.join(images, f"roi_{i}.png"))
+        Image.fromarray((classes[inst] * 25).astype(np.uint8)).save(
+            os.path.join(labels, f"roi_{i}.png"))
+    # num_epochs 12 → max(1, 12 - 10) = 2 cell epochs
+    return ap.Namespace(image_dir=images, label_dir=labels, batch_size=1,
+                        num_inference_steps=25, num_classes=CELL_CLASSES, num_epochs=12)
+
+
+def follow_flows_ms(prop, image):
+    """follow_flows alone on the card, by method, at this image's flows
+    (CUDA events over 5 calls after one warm-up)."""
+    import torch
+
+    from ldiffusion_tpu_torch.cell.instance import follow_flows
+
+    with torch.inference_mode():
+        out = prop._forward(image)
+        flows, prob = out[..., :2] / 5.0, torch.sigmoid(out[..., 2])
+        return {m: cuda_ms(lambda m=m: follow_flows(flows, prob, prop.n_iter,
+                                                    prop.prob_threshold, m), 5)
+                for m in ("squaring", "euler")}
+
+
+def phase_cell(work, seed):
+    """The cell level at SD-v1.5 + ResNet-152 width, 11 classes: (1) the
+    diffusers-directory loader, bit-equal to the in-memory bundle; (2)
+    ``train(component="segmentor")`` and ``inference`` through the API; (3)
+    the classifier at PUMA density, card vs CPU; (4) the flow proposer at
+    1024², card vs CPU."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ldiffusion_tpu_torch.api import LDiffusionModel
+    from ldiffusion_tpu_torch.cell.classifier import (
+        CellSegClassifier,
+        extract_instance_boxes,
+        roi_resize_64,
+    )
+    from ldiffusion_tpu_torch.cell.instance import FlowNetProposer
+    from ldiffusion_tpu_torch.data.dataset import load_image
+    from ldiffusion_tpu_torch.diffusion.pipeline import (
+        DEFAULT_PROMPT_IDS,
+        one_step_transform,
+        trajectory_text_emb,
+    )
+    from ldiffusion_tpu_torch.evaluate import panoptic_quality
+    from ldiffusion_tpu_torch.models.convert import save_unet_dir
+
+    rng = np.random.default_rng(seed + 7)
+    row = {"classes": CELL_CLASSES, "rois": CELL_ROIS, "dtype": "bfloat16 SD, float32 ResNet-152"}
+
+    # (1) the loader at full width: write the bundle as a diffusers directory
+    comps = sd15_components(seed, torch.bfloat16)
+    sd_dir = os.path.join(work, "sd15_dir")
+    t0 = time.perf_counter()
+    write_sd_dir(sd_dir, comps)
+    row["sd_dir_write_s"] = time.perf_counter() - t0
+    row["sd_dir_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                              for d, _, fs in os.walk(sd_dir) for f in fs)
+    model = LDiffusionModel(sd_dir, "cell", work_dir=os.path.join(work, "cell_work"))
+    t0 = time.perf_counter()
+    loaded = model._load_components()  # no components=: the directory, bf16
+    torch.cuda.synchronize()
+    row["sd_dir_load_s"] = time.perf_counter() - t0
+    if loaded.prompt_ids != DEFAULT_PROMPT_IDS:
+        raise AssertionError(f"cell: the tokenizer gave {loaded.prompt_ids}")
+    # the projection is not in a diffusers directory: carried over (the load
+    # draws its own from a seed)
+    loaded.proj.load_state_dict(comps.proj.state_dict())
+    roi = os.path.join(work, "cell_loader_roi.png")
+    Image.fromarray((nuclei_roi(rng)[0] * 255).astype(np.uint8)).save(roi)
+    with torch.inference_mode():
+        x = torch.from_numpy(load_image(roi, (1024, 1024)))[None].cuda()
+        outs = [one_step_transform(c, x, trajectory_text_emb(c, 1)) for c in (comps, loaded)]
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("cell: the directory's transform differs from the in-memory "
+                             f"bundle's by {float((outs[0] - outs[1]).abs().max())}")
+    row["loader_transform_bit_equal"] = True
+    del comps, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) training and inference through the API
+    args = cell_pairs(os.path.join(work, "cell_pairs"), CELL_ROIS, rng)
+    unet_dir = os.path.join(work, "cell_unet")
+    save_unet_dir(unet_dir, loaded.unet_config, loaded.unet.state_dict(),
+                  loaded.proj.state_dict())
+    wide = os.path.join(work, "cell_wide.png")
+    Image.fromarray((nuclei_roi(rng)[0][:768] * 255).astype(np.uint8)).save(wide)
+    square = os.path.join(args.image_dir, "roi_0.png")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with GnRouteWatch() as watch:
+        reset_counters()  # the cell path starts here
+        t0 = time.perf_counter()
+        ckpt = model.train(args, component="segmentor", ldiffusion_weight=unet_dir)["segmentor"]
+        torch.cuda.synchronize()
+        row["train_call_s"] = time.perf_counter() - t0
+        per_roi = {}
+        for name, path in (("square", square), ("non_square", wide)):
+            t0 = time.perf_counter()
+            decoded, mask = model.inference(path, None, os.path.dirname(ckpt), CELL_CLASSES)
+            torch.cuda.synchronize()
+            with Image.open(path) as f:
+                size = f.size
+            if decoded.size != size or mask.shape != size[::-1] or int(mask.max()) >= CELL_CLASSES:
+                raise AssertionError(f"cell: inference on {name}: decoded {decoded.size}, mask "
+                                     f"{mask.shape} max {mask.max()}, image {size}")
+            per_roi[name] = {"s": time.perf_counter() - t0, **model.cell_seconds}
+        launches = read_counters()  # the cell path ends here
+        routes = read_routes()
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    check_bf16_routes("cell", routes)
+    watch.check("cell", routes)
+    if min(launches[k] for k in INFERENCE_KERNELS) == 0:
+        raise AssertionError(f"cell: a kernel was not launched on the cell path: {launches}")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"cell: no checkpoint at {ckpt}")
+    tr = model.cell_trainer
+    transforms = CELL_ROIS + len(per_roi)  # every train/validation ROI, then each inference
+    row.update({"checkpoint": os.path.relpath(ckpt, work), "inference": per_roi,
+                "feature_cache_s": tr.feature_cache_seconds, "s_per_epoch": tr.epoch_seconds,
+                "launches": launches, "launches_by_route": routes,
+                "launches_per_roi": {k: launches[k] / transforms for k in INFERENCE_KERNELS},
+                "groupnorm_shapes": dict(watch.shapes)})
+    row["profiled_inference"] = device_profile(
+        lambda: model.inference(square, None, os.path.dirname(ckpt), CELL_CLASSES))
+    del model, loaded, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the classifier at PUMA density, untransformed ROI, ResNet-152
+    image, _ = nuclei_roi(rng)
+    clf = {dev: CellSegClassifier(CELL_CLASSES, device=dev) for dev in ("cuda", "cpu")}
+    for c in clf.values():
+        c.load(ckpt)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN: as shipped
+    clf["cuda"].predict_mask(image)  # warm-up
+    shipped = []
+    for _ in range(3):
+        clf["cuda"].predict_mask(image)
+        shipped.append(dict(clf["cuda"].last_predict))
+    torch.backends.cudnn.allow_tf32 = False
+    instances = clf["cuda"].proposer.propose(image)
+    ids, boxes = extract_instance_boxes(instances)
+    classes = {dev: c.classify_rois(image, boxes) for dev, c in clf.items()}
+    agree = float(np.mean(classes["cuda"] == classes["cpu"]))
+    bucket = CellSegClassifier._bucket(len(ids))
+    bb = torch.from_numpy(clf["cuda"].pad_boxes(boxes)).cuda()
+    img_t = torch.from_numpy(image).cuda()
+    with torch.inference_mode():
+        patches = (roi_resize_64(img_t, bb) - clf["cuda"]._norm[0]) / clf["cuda"]._norm[1]
+        enc_ms = cuda_ms(lambda: clf["cuda"].encode(patches), 3)
+        torch.backends.cudnn.allow_tf32 = True
+        enc_tf32_ms = cuda_ms(lambda: clf["cuda"].encode(patches), 3)
+        torch.backends.cudnn.allow_tf32 = False
+        resize_ms = cuda_ms(lambda: roi_resize_64(img_t, bb), 10)
+    row["classifier_puma_density"] = {
+        "instances": len(ids), "bucket": bucket, "class_agreement_cuda_cpu": agree,
+        "min_agreement": CELL_CLASS_AGREEMENT, "predict_mask_tf32_as_shipped": shipped,
+        "resnet152_ms_per_bucket_f32": enc_ms, "resnet152_ms_per_bucket_tf32": enc_tf32_ms,
+        "roi_resize_64_ms": resize_ms}
+    if len(ids) < CELL_MIN_INSTANCES:
+        raise AssertionError(f"cell: {len(ids)} instances, fewer than {CELL_MIN_INSTANCES}")
+    if agree < CELL_CLASS_AGREEMENT:
+        raise AssertionError(f"cell: card and CPU classes agree on only {agree:.4%}")
+    del clf, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the flow proposer at 1024², card vs CPU
+    crowded = crowded_roi(rng)
+    props = {dev: FlowNetProposer.load_pretrained("transformed", device=dev)
+             for dev in ("cuda", "cpu")}
+    maps = {dev: p.propose(crowded) for dev, p in props.items()}
+    t0 = time.perf_counter()
+    props["cuda"].propose(crowded)
+    propose_s = time.perf_counter() - t0
+    pq = panoptic_quality(maps["cuda"], maps["cpu"])["pq"]
+    row["flow_proposer"] = {"instances_cuda": int(maps["cuda"].max()),
+                            "instances_cpu": int(maps["cpu"].max()), "pq_cuda_vs_cpu": pq,
+                            "min_pq": CELL_PQ_AGREEMENT, "propose_s": propose_s,
+                            "n_iter": props["cuda"].n_iter,
+                            "follow_flows_ms": follow_flows_ms(props["cuda"], crowded)}
+    log("cell", json.dumps(row))
+    if pq < CELL_PQ_AGREEMENT or not maps["cuda"].max():
+        raise AssertionError(f"cell: flow proposer card vs CPU PQ {pq}, "
+                             f"{maps['cuda'].max()} instances")
+    return row
+
+
 def tr_batch(rng, size):
     """A (images, labels) batch of one synthetic size² ROI with 64² labels."""
     import numpy as np
@@ -1433,11 +1803,12 @@ KERNEL_META = {
 }
 
 
-def kernel_summary(kernel_rows, launches, routes):
+def kernel_summary(kernel_rows, launches, routes, by_path):
     """One entry per kernel, timed at its heaviest path shape (attention: the
     largest ms x launches per ROI or train step; GroupNorm: the largest map);
     the attention kernels also with their launches by route and the mma.sync
-    kernels' time."""
+    kernels' time; the inference kernels with their launches on each main
+    path that ran (``launches_by_path``)."""
     out = []
     for name, rows in kernel_rows.items():
         meta = KERNEL_META[name]
@@ -1460,6 +1831,9 @@ def kernel_summary(kernel_rows, launches, routes):
                 out[-1][key] = top[key]
         if name in routes:
             out[-1]["launches_by_route"] = routes[name]
+        paths = {p: n[name] for p, n in by_path.items() if name in n}
+        if paths:
+            out[-1]["launches_by_path"] = paths
         if name == "groupnorm_silu":  # each route at its largest map
             out[-1]["largest_by_route"] = {
                 r["route"]: {k: r[k] for k in ("shape", "ms", "device_ms", "v1_device_ms",
@@ -1492,8 +1866,8 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full,train,seg",
-                    help="comma-separated subset of kernels,tiny,full,train,seg")
+    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell",
+                    help="comma-separated subset of kernels,tiny,full,train,seg,cell")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1528,6 +1902,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: no Hopper instructions in its SASS: {sass}")
 
     kernel_rows, launches, routes = {}, {}, {}
+    by_path = {}  # each main path's launches, counted from 0 just before it
     if "kernels" in phases:
         kernel_rows = phase_kernels(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -1535,11 +1910,13 @@ def main(argv=None) -> int:
             phase_tiny(work, args.seed)
         if "full" in phases:  # the inference path's kernels: their launches there
             full = phase_full(work, args.seed)
+            by_path["full"] = full["launches"]
             launches.update({k: full["launches"][k] for k in INFERENCE_KERNELS})
             for name in INFERENCE_KERNELS:
                 routes[name] = full["launches_by_route"][name]
         if "train" in phases:  # the training path's kernels: their launches there
             train, train_routes = phase_train(work, args.seed)
+            by_path["train"] = train
             log("train_launches", json.dumps({"launches": train,
                                               "launches_by_route": train_routes}))
             launches.update({k: train[k] for k in ("flash_attention_fwd_lse",
@@ -1548,12 +1925,20 @@ def main(argv=None) -> int:
                 routes[name] = train_routes[name]
         if "seg" in phases:  # stage 2 runs the inference kernels in its dataset build
             seg = phase_seg(work, args.seed)
+            by_path["seg"] = seg["launches"]
             for name in INFERENCE_KERNELS:
                 if name not in launches:
                     launches[name] = seg["launches"][name]
                     routes[name] = seg["launches_by_route"][name]
+        if "cell" in phases:  # the cell level transforms every ROI it sees
+            cell = phase_cell(work, args.seed)
+            by_path["cell"] = cell["launches"]
+            for name in INFERENCE_KERNELS:
+                if name not in launches:
+                    launches[name] = cell["launches"][name]
+                    routes[name] = cell["launches_by_route"][name]
 
-    log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes)}))
+    log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes, by_path)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

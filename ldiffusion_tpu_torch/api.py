@@ -1,33 +1,41 @@
 """Public API (counterpart of ``ldiffusion_tpu/api.py``): stage-1 and
-stage-2 training and tissue inference.
+stage-2 training and inference, at the tissue and the cell level.
 
     model = LDiffusionModel(diffusion_path, level="tissue")      # on cuda
-    weights = model.train(args, component="all")   # {"ldiffusion": dir, "segmentor": dir}
+    weights = model.train(args, component="all")   # {"ldiffusion": dir, "segmentor": path}
     decoded, mask = model.inference(image_path, weights["ldiffusion"],
                                     weights["segmentor"], num_classes)
+
+``diffusion_path`` is a diffusers SD checkpoint directory (``unet/``,
+``vae/``, ``text_encoder/``, optional ``tokenizer/``; safetensors or
+``.bin``), read in bf16; ``random:<name>`` builds seeded random tiny
+components; ``components=`` (an ``SDComponents`` bundle) wins over both.
 
 Training splits the image/label pairs 70/30. ``component="ldiffusion"``:
 ``DiffusionWarmupTrainer`` on 64² images and labels; the UNet is saved in the
 JAX trainer's directory layout. ``component="segmentor"`` (given
-``ldiffusion_weight``) or ``"all"`` (after stage 1): every image goes through
-the one-step diffusion transform of that UNet into a ``DatasetXXX_Custom``
-directory, which is fingerprinted, planned and preprocessed; fold 0 of a
-5-fold split trains ``SegmentorTrainer`` for ``max(1, num_epochs - 10)``
-epochs, then validates on the held-out 30% (``summary.json``,
-``postprocessing.json``). The segmentor directory is readable by
-``inference`` and by the JAX package's predictor.
+``ldiffusion_weight``) or ``"all"`` (after stage 1) trains the level's head
+for ``max(1, num_epochs - 10)`` epochs on images passed through the one-step
+diffusion transform of that UNet:
+- tissue: the transformed images go into a ``DatasetXXX_Custom`` directory,
+  which is fingerprinted, planned and preprocessed; fold 0 of a 5-fold split
+  trains ``SegmentorTrainer``, then validates on the held-out 30%
+  (``summary.json``, ``postprocessing.json``). The segmentor directory is
+  readable by ``inference`` and by the JAX package's predictor.
+- cell: ``CellSegClassifier`` (watershed proposer, frozen ResNet-152,
+  trainable head) trains with ``CellTrainer``; the best validation micro-Dice
+  head goes to ``work_dir/cellclassifier/<yy_mm_dd>/cellclassifier.pkl``,
+  readable by the JAX package.
 
-Per ROI: CLIP text → projection, VAE ``encode_mean``, PNDM one step through
-the UNet, ``decode_latents``, z-score, sliding-window DynUNet with gaussian
-blending and 4-way mirror TTA → uint8 mask. The ROI is 1024² unless
-``diffusion_path`` starts with ``random:`` (then 64²); non-square images skip
-the diffusion transform; in folder mode existing outputs are skipped unless
-``overwrite``.
-
-Not ported yet (they raise ``NotImplementedError``): the cell level (ROADMAP
-queue 1, *The cell path*), and reading a diffusers SD checkpoint directory
-(*Reading a diffusers checkpoint directory, and the tokenizer*) — a
-non-``random:`` path needs ``components=``.
+Tissue inference per ROI: CLIP text → projection, VAE ``encode_mean``, PNDM
+one step through the UNet, ``decode_latents``, z-score, sliding-window
+DynUNet with gaussian blending and 4-way mirror TTA → uint8 mask; non-square
+images skip the diffusion transform; in folder mode existing outputs are
+skipped unless ``overwrite``. Cell inference: the image is resized to the
+square ROI and transformed, its instances proposed and classified, and the
+mask (NEAREST) and the decoded image (BILINEAR) resized back to the image's
+size. The ROI is 1024² unless ``diffusion_path`` starts with ``random:``
+(then 64²).
 """
 from __future__ import annotations
 
@@ -70,6 +78,8 @@ class LDiffusionModel:
         self.segmentor_config = segmentor_config
         self.trainer = None  # the last stage-1 trainer, kept for inspection
         self.seg_trainer = None  # the last stage-2 trainer, kept for inspection
+        self.cell_trainer = None  # the last cell trainer, kept for inspection
+        self.cell_seconds = {}  # inference_cell's stages and counts, host clock
         self.prepare_seconds = {}  # _prepare_tissue's phases, host clock
         self._components = None if components is None else components.to(self.device)
 
@@ -78,30 +88,22 @@ class LDiffusionModel:
         return 64 if self.diffusion_path.startswith("random:") else 1024
 
     def _load_components(self, unet_override_dir: Optional[str] = None):
-        """The SD bundle; ``unet_override_dir`` (a fine-tuned UNet written by
-        the JAX trainer) replaces its UNet and text projection."""
+        """The SD bundle: ``components=`` when given, else seeded random tiny
+        weights for a ``random:`` path, else the diffusers checkpoint directory
+        ``diffusion_path`` in bf16. ``unet_override_dir`` (a fine-tuned UNet
+        written by the JAX trainer or ``save_unet_dir``) replaces its UNet and
+        text projection."""
         from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
-        from ldiffusion_tpu_torch.models.convert import load_unet_dir
-        from ldiffusion_tpu_torch.models.unet import UNet2DCondition
 
         comps = self._components
         if comps is None:
-            if not self.diffusion_path.startswith("random:"):
-                raise NotImplementedError(
-                    "reading a diffusers SD checkpoint directory is not ported yet "
-                    "(ROADMAP queue 1, *Reading a diffusers checkpoint directory, and the "
-                    "tokenizer*); pass components=")
-            comps = SDComponents.random(device=self.device)
+            if self.diffusion_path.startswith("random:"):
+                comps = SDComponents.random(device=self.device)
+            else:
+                comps = SDComponents.load(self.diffusion_path, dtype=torch.bfloat16,
+                                          device=self.device)
         if unet_override_dir:
-            cfg, unet_sd, proj_sd = load_unet_dir(unet_override_dir)
-            dtype = comps.unet.conv_in.weight.dtype
-            with torch.device("meta"):
-                unet = UNet2DCondition(cfg)
-            unet.to_empty(device=self.device).load_state_dict(unet_sd)
-            comps.unet = unet.to(dtype=dtype, memory_format=torch.channels_last).eval()
-            comps.unet_config = cfg
-            if proj_sd is not None:
-                comps.proj.load_state_dict(proj_sd)
+            comps.load_unet_override(unet_override_dir)
         self._components = comps
         return comps
 
@@ -119,10 +121,7 @@ class LDiffusionModel:
         → the weight paths, {"ldiffusion": UNet dir, "segmentor": segmentor
         dir}. ``args``: image_dir, label_dir, num_epochs, batch_size,
         num_inference_steps, num_classes (the CLI's names)."""
-        if self.level == "cell":
-            raise NotImplementedError("the cell level is not ported yet "
-                                      "(ROADMAP queue 1, *The cell path*)")
-        if self.level != "tissue":
+        if self.level not in ("tissue", "cell"):
             raise ValueError("Invalid level specified. Choose 'tissue' or 'cell'.")
         if component not in ("all", "ldiffusion", "segmentor"):
             raise ValueError(f"component={component!r}: choose all, ldiffusion or segmentor")
@@ -137,8 +136,9 @@ class LDiffusionModel:
             if not ldiffusion_weight:
                 raise ValueError("segmentor training needs ldiffusion_weight")
             seg_epochs = max(1, args.num_epochs - 10)  # reference ldiffusion.py:311
-            out["segmentor"] = self.train_tissue(seg_epochs, ldiffusion_weight,
-                                                 args.num_classes, train_ds, val_ds)
+            train_head = self.train_tissue if self.level == "tissue" else self.train_cell
+            out["segmentor"] = train_head(seg_epochs, ldiffusion_weight, args.num_classes,
+                                          train_ds, val_ds)
         return out
 
     def train_ldiffusion(self, args, train_ds: SegmentationDataset) -> str:
@@ -243,6 +243,28 @@ class LDiffusionModel:
             self._train_tissue_fold(prep, epochs, f)
         return prep["out_dir"]
 
+    # -- stage 2: cell ----------------------------------------------------
+    def train_cell(self, epochs: int, ldiffusion_weight: str, num_classes: int,
+                   train_ds: SegmentationDataset, val_ds: SegmentationDataset) -> str:
+        """Transform every train and validation ROI once, then ``CellTrainer``
+        (``ldiffusion_tpu/api.py:260-281``). Returns the checkpoint path."""
+        from ldiffusion_tpu_torch.cell.classifier import CellSegClassifier, CellTrainer
+        from ldiffusion_tpu_torch.segmentor.dataset_builder import DiffusionTransform
+
+        transform = DiffusionTransform(self._load_components(unet_override_dir=ldiffusion_weight))
+
+        def pairs(ds):
+            out = []
+            for i in range(len(ds)):
+                img, lab = ds.get(i, image_size=self.image_size)
+                out.append((transform(img[None])[0], lab.astype(np.int32)))
+            return out
+
+        print("Cache L-Diffusion Augmented Inputs...", flush=True)
+        self.cell_trainer = CellTrainer(CellSegClassifier(num_classes, device=self.device))
+        return self.cell_trainer.train(pairs(train_ds), pairs(val_ds), epochs,
+                                       save_dir=os.path.join(self.work_dir, "cellclassifier"))
+
     # ------------------------------------------------------------------
     def inference(self, image_path: str, ldiffusion_weight: Optional[str],
                   segmentor_weight: str, num_classes: int):
@@ -251,8 +273,8 @@ class LDiffusionModel:
             return self.inference_tissue(image_path, ldiffusion_weight, segmentor_weight,
                                          num_classes)
         if self.level == "cell":
-            raise NotImplementedError("the cell level is not ported yet "
-                                      "(ROADMAP queue 1, *The cell path*)")
+            return self.inference_cell(image_path, ldiffusion_weight, segmentor_weight,
+                                       num_classes)
         raise ValueError("Invalid level specified. Choose 'tissue' or 'cell'.")
 
     def _transform(self, img_norm: np.ndarray, emb):
@@ -328,6 +350,37 @@ class LDiffusionModel:
                 decoded, arr = _plain_rgb(image_path)
                 mask = predictor.predict(arr)
             return decoded, finish(mask)
+
+    def inference_cell(self, image_path, ldiffusion_weight, segmentor_weight, num_classes):
+        """One ROI at the cell level (``ldiffusion_tpu/api.py:438-455``) →
+        (decoded PIL image, (H, W) uint8 class mask), both at the image's
+        size. ``segmentor_weight``: a checkpoint, or a directory holding
+        ``cellclassifier.pkl``. Host seconds of each stage go to
+        ``cell_seconds``."""
+        from ldiffusion_tpu_torch.cell.classifier import CellSegClassifier
+        from ldiffusion_tpu_torch.diffusion.pipeline import trajectory_text_emb
+
+        print("Running inference on cell-level model...", flush=True)
+        self._load_components(unet_override_dir=ldiffusion_weight)
+        model = CellSegClassifier(num_classes, device=self.device)
+        ckpt = segmentor_weight
+        if os.path.isdir(ckpt):
+            ckpt = os.path.join(ckpt, "cellclassifier.pkl")
+        model.load(ckpt)
+        with Image.open(image_path) as probe:
+            w, h = probe.size
+        size = self.image_size
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            t = self._transform(load_image(image_path, (size, size)),
+                                trajectory_text_emb(self._components, 1))
+            arr = t.float().cpu().numpy()
+        t1 = time.perf_counter()
+        mask = model.predict_mask(arr)
+        self.cell_seconds = {"transform_s": t1 - t0, **model.last_predict}
+        decoded = Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8))
+        mask = np.asarray(Image.fromarray(mask).resize((w, h), Image.NEAREST))
+        return decoded.resize((w, h), Image.BILINEAR), mask
 
 
 def _plain_rgb(path: str):

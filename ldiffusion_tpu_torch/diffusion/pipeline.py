@@ -32,17 +32,22 @@ from ldiffusion_tpu_torch.diffusion.schedulers import PNDMScheduler
 from ldiffusion_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from ldiffusion_tpu_torch.models.convert import (
     clip_text_from_flax,
+    load_sd_component,
+    load_unet_dir,
     proj_from_flax,
     unet_from_flax,
     vae_from_flax,
 )
 from ldiffusion_tpu_torch.models.layers import init_random_
+from ldiffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from ldiffusion_tpu_torch.models.unet import UNet2DCondition, UNet2DConditionConfig
 from ldiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ldiffusion_tpu_torch.ops.resize import resize_bilinear, rgb_to_gray
 
-# Fixed conditioning prompt "A pathological slide" under the CLIP vocab:
-# [bos, a, pathological, slide, eos] (no tokenizer files needed).
+# The fixed conditioning prompt (reference ldiffusion.py:211, segmentor.py:93),
+# and its ids under the CLIP vocab, [bos, a, pathological, slide, eos], used
+# when a checkpoint directory has no tokenizer files.
+DEFAULT_PROMPT = "A pathological slide"
 DEFAULT_PROMPT_IDS = (49406, 320, 29018, 10556, 49407)
 
 
@@ -108,6 +113,61 @@ class SDComponents:
                                              comps.unet_config.cross_attention_dim,
                                              device).state_dict())
         return comps.to(dtype=dtype)
+
+    @classmethod
+    def load(cls, model_dir: str, dtype=torch.bfloat16, device=None,
+             unet_override_dir: Optional[str] = None) -> "SDComponents":
+        """From a diffusers SD checkpoint directory (``unet/``, ``vae/``,
+        ``text_encoder/``, optional ``tokenizer/``), on ``device`` (None → the
+        GPU, raises when there is none), in ``dtype``. Every module loads with
+        ``strict=True``: a missing or unknown key raises. The prompt ids come
+        from ``tokenizer/`` when it exists, else ``DEFAULT_PROMPT_IDS``.
+
+        ``unet_override_dir`` (a fine-tuned UNet in the JAX trainer's layout)
+        replaces the UNet and, when it holds one, the text projection.
+        Without one the projection is drawn from a ``torch.Generator`` seeded
+        with 0; the JAX package draws it from ``jax.random.key(0)``
+        (``ldiffusion_tpu/diffusion/pipeline.py:95-96``), which torch cannot
+        reproduce, so the two packages agree on a directory only when the
+        projection is carried (an override directory with
+        ``proj_weights.npz``)."""
+        device = resolve_device(device)
+        loaded = {c: load_sd_component(model_dir, c) for c in ("unet", "vae", "text_encoder")}
+        comps = cls._build(loaded["unet"][0], loaded["vae"][0], loaded["text_encoder"][0],
+                           device)
+        for module, component in ((comps.unet, "unet"), (comps.vae, "vae"),
+                                  (comps.text, "text_encoder")):
+            module.load_state_dict(loaded[component][1])
+        del loaded
+        gen = torch.Generator(device=device).manual_seed(0)
+        comps.proj.load_state_dict(init_proj(gen, comps.text_config.hidden_size,
+                                             comps.unet_config.cross_attention_dim,
+                                             device).state_dict())
+        try:
+            tokenizer = CLIPTokenizer.from_pretrained(model_dir)
+        except FileNotFoundError:  # no tokenizer files: DEFAULT_PROMPT_IDS
+            pass
+        else:
+            comps.prompt_ids = tuple(tokenizer([DEFAULT_PROMPT])["input_ids"][0])
+        comps.to(dtype=dtype)
+        if unet_override_dir is not None:
+            comps.load_unet_override(unet_override_dir)
+        return comps
+
+    def load_unet_override(self, path: str) -> "SDComponents":
+        """Replace the UNet (and the text projection, when the directory holds
+        one) with a fine-tuned UNet in the JAX trainer's layout, in the UNet's
+        current dtype and device (reference ``segmentor.py:76-84``)."""
+        cfg, unet_sd, proj_sd = load_unet_dir(path)
+        dtype = self.unet.conv_in.weight.dtype
+        with torch.device("meta"):
+            unet = UNet2DCondition(cfg)
+        unet.to_empty(device=self.device).load_state_dict(unet_sd)
+        self.unet = unet.to(dtype=dtype, memory_format=torch.channels_last).eval()
+        self.unet_config = cfg
+        if proj_sd is not None:
+            self.proj.load_state_dict(proj_sd)
+        return self
 
     @classmethod
     def from_flax(cls, params: dict, unet_config=None, vae_config=None, text_config=None,

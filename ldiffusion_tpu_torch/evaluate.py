@@ -1,14 +1,20 @@
-"""Segmentation metrics, the labels regime (counterpart of
-``ldiffusion_tpu/evaluate.py:26-60, 264-335``): a confusion matrix per
-image, Dice/IoU/pixel accuracy/FWIoU from it, and the nnU-Net-format
-validation ``summary.json`` (reference ``evaluate_predictions.py:77-264``).
-The folder-report CLI, the regions regime and the instance metrics (PQ, AJI)
-wait (ROADMAP queue 1, *The cell path* and *Long tail*)."""
+"""Segmentation metrics (counterpart of ``ldiffusion_tpu/evaluate.py``,
+labels regime): a confusion matrix per image, Dice/IoU/pixel
+accuracy/FWIoU from it, the folder report and its CLI (reference
+``evaluate.py:1-139``), the instance metrics PQ and AJI, and the
+nnU-Net-format validation ``summary.json`` (reference
+``evaluate_predictions.py:77-264``). The regions regime waits (ROADMAP
+queue 1, *Long tail*).
+
+    python -m ldiffusion_tpu_torch.evaluate --pred-dir P --gt-dir G --num-classes 11 --level cell
+"""
 from __future__ import annotations
 
+import argparse
 import json
 import os
-from typing import Dict, Optional
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 from PIL import Image
@@ -47,6 +53,58 @@ def _load_mask(path: str, level: Optional[str]) -> np.ndarray:
     with Image.open(path) as f:
         arr = np.asarray(f.convert("L"), np.uint8)
     return convert_labels(arr, level) if level else arr
+
+
+def evaluate(pred_dir: str, gt_dir: str, num_classes: int, level: Optional[str] = "tissue",
+             output_dir: str = "eval_report") -> Dict:
+    """The folder report (reference ``evaluate.py:48-126``): PNGs paired by
+    sorted name; ground truth in the PUMA pixel code (converted with
+    ``level``), predictions as class ids; a prediction of another size is resized to the ground truth's with NEAREST.
+    Per-image and mean Dice/IoU/pixel accuracy/FWIoU, pooled per-class
+    metrics, written to ``output_dir/metrics_<timestamp>.txt``."""
+    preds = sorted(f for f in os.listdir(pred_dir) if f.lower().endswith(".png"))
+    gts = sorted(f for f in os.listdir(gt_dir) if f.lower().endswith(".png"))
+    if len(preds) != len(gts):
+        raise ValueError(f"{len(preds)} predictions vs {len(gts)} references")
+    per_image: List[Dict] = []
+    total_cm = np.zeros((num_classes, num_classes), np.int64)
+    for pf, gf in zip(preds, gts):
+        pred = _load_mask(os.path.join(pred_dir, pf), None)
+        gt = _load_mask(os.path.join(gt_dir, gf), level)
+        if pred.shape != gt.shape:
+            pred = np.asarray(
+                Image.fromarray(pred).resize((gt.shape[1], gt.shape[0]), Image.NEAREST))
+        cm = confusion_matrix(np.clip(pred, 0, num_classes - 1),
+                              np.clip(gt, 0, num_classes - 1), num_classes)
+        total_cm += cm
+        per_image.append({"file": pf, **metrics_from_cm(cm)})
+    mean = {
+        "mean_dice": float(np.mean([m["mean_dice"] for m in per_image])),
+        "mean_iou": float(np.mean([m["mean_iou"] for m in per_image])),
+        "mean_pixel_accuracy": float(np.mean([m["pixel_accuracy"] for m in per_image])),
+        "mean_fwiou": float(np.mean([m["fwiou"] for m in per_image])),
+    }
+    pooled = metrics_from_cm(total_cm)
+    report = {"per_image": per_image, "mean": mean, "pooled": pooled,
+              "num_images": len(per_image)}
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, f"metrics_{time.strftime('%Y%m%d_%H%M%S')}.txt")
+    with open(path, "w") as f:
+        f.write(f"Evaluation report ({len(per_image)} images)\n")
+        f.write(f"pred: {pred_dir}\ngt:   {gt_dir}\n\n")
+        for k, v in mean.items():
+            f.write(f"{k}: {v:.4f}\n")
+        f.write("\nPer-class (pooled):\n")
+        for c in range(num_classes):
+            iou = pooled["iou_per_class"][c]
+            f.write(f"  class {c}: dice={pooled['dice_per_class'][c]:.4f} "
+                    f"iou={'n/a' if np.isnan(iou) else f'{iou:.4f}'}\n")
+        f.write("\nPer-image:\n")
+        for m in per_image:
+            f.write(f"  {m['file']}: dice={m['mean_dice']:.4f} iou={m['mean_iou']:.4f} "
+                    f"pa={m['pixel_accuracy']:.4f} fwiou={m['fwiou']:.4f}\n")
+    report["report_path"] = path
+    return report
 
 
 def compute_metrics_on_folder(pred_dir: str, gt_dir: str, num_classes: int,
@@ -101,3 +159,115 @@ def compute_metrics_on_folder(pred_dir: str, gt_dir: str, num_classes: int,
         with open(output_file, "w") as f:
             json.dump(summary, f, indent=2)
     return summary
+
+
+# ---------------------------------------------------------------------------
+# instance metrics (PQ, AJI)
+# ---------------------------------------------------------------------------
+
+def _pairwise_intersections(pred: np.ndarray, gt: np.ndarray):
+    """(inter (n_gt, n_pred) pixel overlaps, pred areas, gt areas, pred ids,
+    gt ids) of two instance maps (0 = background), from one bincount over
+    the joint densified ids."""
+    pred_ids = np.unique(pred)
+    pred_ids = pred_ids[pred_ids != 0]
+    gt_ids = np.unique(gt)
+    gt_ids = gt_ids[gt_ids != 0]
+    pred_map = np.zeros(int(pred.max()) + 1, np.int64)
+    pred_map[pred_ids] = np.arange(1, len(pred_ids) + 1)
+    gt_map = np.zeros(int(gt.max()) + 1, np.int64)
+    gt_map[gt_ids] = np.arange(1, len(gt_ids) + 1)
+    p = pred_map[pred.astype(np.int64)]
+    g = gt_map[gt.astype(np.int64)]
+    n_pred, n_gt = len(pred_ids), len(gt_ids)
+    counts = np.bincount(g.reshape(-1) * (n_pred + 1) + p.reshape(-1),
+                         minlength=(n_gt + 1) * (n_pred + 1))
+    table = counts.reshape(n_gt + 1, n_pred + 1)
+    return table[1:, 1:], table[:, 1:].sum(axis=0), table[1:, :].sum(axis=1), pred_ids, gt_ids
+
+
+def panoptic_quality(pred: np.ndarray, gt: np.ndarray) -> Dict:
+    """Panoptic Quality (Kirillov et al. 2019): PQ = SQ · RQ, with the raw
+    counts. Matches at IoU > 0.5 are unique, so no assignment is solved."""
+    inter, pred_areas, gt_areas, _, _ = _pairwise_intersections(pred, gt)
+    n_gt, n_pred = inter.shape
+    if n_gt == 0 and n_pred == 0:
+        return {"pq": 1.0, "sq": 1.0, "rq": 1.0, "tp": 0, "fp": 0, "fn": 0, "iou_sum": 0.0}
+    union = gt_areas[:, None] + pred_areas[None, :] - inter
+    iou = inter / np.maximum(union, 1)
+    matched = iou > 0.5
+    tp = int(matched.sum())
+    fp = int(n_pred - matched.any(axis=0).sum())
+    fn = int(n_gt - matched.any(axis=1).sum())
+    iou_sum = float(iou[matched].sum())
+    denom = tp + 0.5 * fp + 0.5 * fn
+    return {"pq": float(iou_sum / denom) if denom > 0 else 0.0,
+            "sq": float(iou_sum / tp) if tp > 0 else 0.0,
+            "rq": float(tp / denom) if denom > 0 else 0.0,
+            "tp": tp, "fp": fp, "fn": fn, "iou_sum": iou_sum}
+
+
+def aggregated_jaccard_index(pred: np.ndarray, gt: np.ndarray) -> float:
+    """AJI (Kumar et al. 2017): each ground-truth instance claims its best-IoU
+    prediction; aggregate intersection over aggregate union, unclaimed
+    predictions added to the union. A prediction may be claimed by several
+    ground-truth instances, as in the MoNuSeg / HoVer-Net implementation."""
+    inter, pred_areas, gt_areas, _, _ = _pairwise_intersections(pred, gt)
+    n_gt, n_pred = inter.shape
+    if n_gt == 0:
+        return 1.0 if n_pred == 0 else 0.0
+    union = gt_areas[:, None] + pred_areas[None, :] - inter
+    iou = inter / np.maximum(union, 1)
+    used = np.zeros(n_pred, bool)
+    c = u = 0.0
+    for i in range(n_gt):
+        j = int(np.argmax(iou[i])) if n_pred else -1
+        if n_pred and inter[i, j] > 0:
+            c += inter[i, j]
+            u += union[i, j]
+            used[j] = True
+        else:
+            u += gt_areas[i]
+    u += pred_areas[~used].sum()
+    return float(c / u) if u > 0 else 0.0
+
+
+def evaluate_instances(preds, gts) -> Dict:
+    """PQ pooled over the images (TP/FP/FN/IoU sums, as COCO panoptic) and
+    the mean AJI."""
+    tp = fp = fn = 0
+    iou_sum = 0.0
+    ajis = []
+    for p, g in zip(preds, gts):
+        m = panoptic_quality(p, g)
+        tp, fp, fn = tp + m["tp"], fp + m["fp"], fn + m["fn"]
+        iou_sum += m["iou_sum"]
+        ajis.append(aggregated_jaccard_index(p, g))
+    denom = tp + 0.5 * fp + 0.5 * fn
+    return {"pq": float(iou_sum / denom) if denom > 0 else 1.0,
+            "sq": float(iou_sum / tp) if tp > 0 else 0.0,
+            "rq": float(tp / denom) if denom > 0 else 0.0,
+            "tp": tp, "fp": fp, "fn": fn,
+            "mean_aji": float(np.mean(ajis)) if ajis else 1.0}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Offline segmentation metrics "
+                                            "(Dice/IoU/mPA/FWIoU)")
+    p.add_argument("--pred-dir", required=True)
+    p.add_argument("--gt-dir", required=True)
+    p.add_argument("--num-classes", type=int, required=True)
+    p.add_argument("--level", default="tissue", choices=["tissue", "cell"])
+    p.add_argument("--output-dir", default="eval_report")
+    args = p.parse_args(argv)
+    report = evaluate(args.pred_dir, args.gt_dir, args.num_classes, args.level,
+                      output_dir=args.output_dir)
+    print(f"mean dice {report['mean']['mean_dice']:.4f}  "
+          f"mean IoU {report['mean']['mean_iou']:.4f}  "
+          f"mPA {report['mean']['mean_pixel_accuracy']:.4f}  "
+          f"FWIoU {report['mean']['mean_fwiou']:.4f}")
+    print(f"report: {report['report_path']}")
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@
 ``training/loss/{dice,robust_ce_loss,compound_losses,deep_supervision}.py``):
 soft Dice over (batch and) spatial axes without the background class, robust
 cross-entropy, their sum, and the deep-supervision weighting (1/2^i, the
-lowest scale zeroed, normalised).
+lowest scale zeroed, normalised); and the cell level's evaluation metric,
+``micro_dice`` (``ldiffusion_tpu/losses/dice.py:179-194``).
 
 Layout: logits (B, C, *spatial), channels first; targets (B, *spatial) int.
 Computed in float32 whatever the logits' dtype. The loss mask of an ignore
@@ -79,3 +80,20 @@ def deep_supervision_loss(logits_list: Sequence, targets_list: Sequence, loss_fn
     for i, (lg, tg) in enumerate(zip(logits_list, targets_list)):
         total = total + w[i].to(lg.device) * loss_fn(lg, tg)
     return total
+
+
+def micro_dice(pred_labels, true_labels, num_classes: int):
+    """Evaluation micro-Dice over every pixel of the batch, with the
+    empty-class = 1 convention (reference ``segmentor.py:114-142``,
+    ``utils.py:55-82``). ``pred_labels``: (B, H, W) labels or (B, C, H, W)
+    logits (argmax over C). Returns (per-class (C,) float32, their mean)."""
+    if pred_labels.dim() == 4:
+        pred_labels = pred_labels.argmax(dim=1)
+    p = _one_hot(pred_labels.reshape(1, -1), num_classes)[0]
+    t = _one_hot(true_labels.reshape(1, -1), num_classes)[0]
+    tp = (p * t).sum(dim=1)
+    fp = (p * (1 - t)).sum(dim=1)
+    fn = ((1 - p) * t).sum(dim=1)
+    dice = torch.where(tp + fp + fn == 0, torch.ones_like(tp),
+                       2 * tp / torch.clamp(2 * tp + fp + fn, min=1e-8))
+    return dice, dice.mean()

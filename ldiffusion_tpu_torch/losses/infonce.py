@@ -24,6 +24,7 @@ import torch
 
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.models.layers import init_random_
+from ldiffusion_tpu_torch.models.safetensors_io import load_state_dict
 from ldiffusion_tpu_torch.models.vgg import VGG19Features, convert_vgg19
 from ldiffusion_tpu_torch.ops.resize import resize_bilinear
 
@@ -112,7 +113,7 @@ class InfoNceLoss:
     def create(cls, seed: int = 7, vgg_weights_path: Optional[str] = None, device=None,
                **kw) -> "InfoNceLoss":
         """``vgg_weights_path``: a torchvision vgg19 state dict saved with
-        ``torch.save``, or unset to use the ``LDIFFUSION_VGG19_WEIGHTS``
+        ``torch.save`` or as ``.safetensors``, or unset to use the ``LDIFFUSION_VGG19_WEIGHTS``
         environment variable. Without weights the content loss runs on a
         seeded random frozen VGG — a deterministic multiscale feature MSE, but
         NOT the reference's pretrained-VGG19 semantics — and warns so.
@@ -123,8 +124,7 @@ class InfoNceLoss:
         vgg = vgg.to_empty(device=device)
         vgg_weights_path = vgg_weights_path or os.environ.get("LDIFFUSION_VGG19_WEIGHTS")
         if vgg_weights_path:
-            sd = torch.load(vgg_weights_path, map_location="cpu", weights_only=True)
-            vgg.load_state_dict(convert_vgg19(sd))
+            vgg.load_state_dict(convert_vgg19(load_state_dict(vgg_weights_path)))
             pretrained = True
         else:
             warnings.warn(

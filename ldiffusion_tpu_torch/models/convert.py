@@ -15,17 +15,27 @@ directory (``unet_params.npz`` + ``unet_config.json`` + ``proj_weights.npz``)
 and, through ``core/checkpoint.py``, the segmentor's pickles; and writes the
 first (``save_unet_dir``) in the same layout, readable by the JAX package's
 ``load_unet_dir`` and by this one's.
+
+``load_sd_component`` reads one component of a diffusers SD checkpoint
+directory (``ldiffusion_tpu/models/convert.py:220-279``): the port's modules
+carry the diffusers names, so it only renames the legacy VAE attention keys
+and drops CLIP's ``position_ids`` buffer; the caller loads the result with
+``load_state_dict(strict=True)``, so a missing key raises.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ldiffusion_tpu_torch.models.clip_text import CLIPTextConfig
 from ldiffusion_tpu_torch.models.dynunet import DynUNetConfig
+from ldiffusion_tpu_torch.models.resnet import ResNetConfig
+from ldiffusion_tpu_torch.models.safetensors_io import load_state_dict
 from ldiffusion_tpu_torch.models.unet import UNet2DConditionConfig
 from ldiffusion_tpu_torch.models.vae import VAEConfig
 
@@ -232,6 +242,27 @@ def dynunet_rows(config: DynUNetConfig) -> List[Row]:
     return rows
 
 
+def resnet_rows(config: ResNetConfig) -> List[Row]:
+    """torchvision's names ↔ ``ldiffusion_tpu/models/resnet.py``'s; the first
+    block of every stage has the projection shortcut."""
+    rows: List[Row] = [("conv1", "conv1", "conv"), ("bn1", "bn1", "norm")]
+    for i, n_blocks in enumerate(config.stage_sizes):
+        for j in range(n_blocks):
+            t, f = f"layer{i + 1}.{j}", f"layer{i + 1}_{j}"
+            for c in (1, 2, 3):
+                rows += [(f"{t}.conv{c}", f"{f}/conv{c}", "conv"),
+                         (f"{t}.bn{c}", f"{f}/bn{c}", "norm")]
+            if j == 0:
+                rows += [(f"{t}.downsample.0", f"{f}/downsample_conv", "conv"),
+                         (f"{t}.downsample.1", f"{f}/downsample_bn", "norm")]
+    return rows
+
+
+# the cell classifier's head: {"adapter": 3×3 conv, "classifier": dense}
+CELL_HEAD_ROWS: List[Row] = [("adapter", "adapter", "conv"),
+                             ("classifier", "classifier", "linear")]
+
+
 def unet_from_flax(params, config: UNet2DConditionConfig):
     return from_flax(unet_rows(config), params)
 
@@ -264,6 +295,30 @@ def dynunet_to_flax(state_dict, config: DynUNetConfig):
     return to_flax(dynunet_rows(config), state_dict)
 
 
+def resnet_from_flax(variables: dict, config: ResNetConfig) -> Dict[str, torch.Tensor]:
+    """The JAX encoder's ``{"params", "batch_stats"}`` → the port's state dict
+    (BatchNorm running statistics from ``batch_stats``)."""
+    rows = resnet_rows(config)
+    sd = from_flax(rows, variables["params"])
+    for tp, fp, kind in rows:
+        if kind == "norm":
+            node = _node(variables["batch_stats"], fp)
+            sd[f"{tp}.running_mean"] = torch.tensor(np.asarray(node["mean"], np.float32))
+            sd[f"{tp}.running_var"] = torch.tensor(np.asarray(node["var"], np.float32))
+            sd[f"{tp}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def resnet_to_flax(state_dict, config: ResNetConfig) -> dict:
+    rows = resnet_rows(config)
+    stats: dict = {}
+    for tp, fp, kind in rows:
+        if kind == "norm":
+            for t, f in (("running_mean", "mean"), ("running_var", "var")):
+                _set(stats, f"{fp}/{f}", state_dict[f"{tp}.{t}"].detach().float().cpu().numpy())
+    return {"params": to_flax(rows, state_dict), "batch_stats": stats}
+
+
 def proj_from_flax(params) -> Dict[str, torch.Tensor]:
     """The text projection {"kernel": (in, out), "bias"} → nn.Linear's state dict."""
     return {"weight": torch.tensor(np.asarray(params["kernel"], np.float32).T),
@@ -279,18 +334,18 @@ def proj_to_flax(state_dict) -> dict:
 # the JAX trainer's fine-tuned UNet directory
 # ---------------------------------------------------------------------------
 
-def _flatten(node, prefix: str = "", out=None) -> Dict[str, np.ndarray]:
+def flatten_tree(node, prefix: str = "", out=None) -> Dict[str, np.ndarray]:
     """A nested dict → {"a/b/c": array}, the npz keys of the JAX package."""
     out = {} if out is None else out
     if isinstance(node, dict):
         for k, v in node.items():
-            _flatten(v, f"{prefix}/{k}" if prefix else k, out)
+            flatten_tree(v, f"{prefix}/{k}" if prefix else k, out)
     else:
         out[prefix] = np.asarray(node)
     return out
 
 
-def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
+def unflatten_tree(flat: Dict[str, np.ndarray]) -> dict:
     tree: dict = {}
     for k, v in flat.items():
         _set(tree, k, v)
@@ -306,12 +361,12 @@ def load_unet_dir(path: str):
         cfg[k] = tuple(cfg[k])
     config = UNet2DConditionConfig(**cfg)
     with np.load(os.path.join(path, "unet_params.npz")) as z:
-        params = _unflatten({k: z[k] for k in z.files})
+        params = unflatten_tree({k: z[k] for k in z.files})
     proj: Optional[dict] = None
     proj_path = os.path.join(path, "proj_weights.npz")
     if os.path.exists(proj_path):
         with np.load(proj_path) as z:
-            proj = proj_from_flax(_unflatten({k: z[k] for k in z.files}))
+            proj = proj_from_flax(unflatten_tree({k: z[k] for k in z.files}))
     return config, unet_from_flax(params, config), proj
 
 
@@ -322,8 +377,81 @@ def save_unet_dir(path: str, config: UNet2DConditionConfig, unet_state_dict,
     ``proj_weights.npz`` (``{"kernel", "bias"}``)."""
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "unet_params.npz"),
-             **_flatten(unet_to_flax(unet_state_dict, config)))
+             **flatten_tree(unet_to_flax(unet_state_dict, config)))
     with open(os.path.join(path, "unet_config.json"), "w") as f:
         json.dump(config.__dict__, f, default=list, indent=2)
     if proj_state_dict is not None:
-        np.savez(os.path.join(path, "proj_weights.npz"), **_flatten(proj_to_flax(proj_state_dict)))
+        np.savez(os.path.join(path, "proj_weights.npz"), **flatten_tree(proj_to_flax(proj_state_dict)))
+
+
+# ---------------------------------------------------------------------------
+# a diffusers SD checkpoint directory
+# ---------------------------------------------------------------------------
+
+_LEGACY_VAE_ATTN = re.compile(r"^(.*mid_block\.attentions\.0)\.(query|key|value|proj_attn)\.")
+_LEGACY_VAE_NAMES = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+
+
+def _find_weights(subdir: str) -> str:
+    for name in ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                 "diffusion_pytorch_model.bin", "pytorch_model.bin"):
+        p = os.path.join(subdir, name)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"no weight file in {subdir}")
+
+
+def load_sd_component(model_dir: str, component: str):
+    """One component (``"unet"`` | ``"vae"`` | ``"text_encoder"``) of an SD
+    checkpoint directory (or ``model_dir`` is the component's own directory)
+    → (config, state dict with the port's names, tensors in their stored
+    dtype). Config fields and defaults as in the JAX package."""
+    sub = os.path.join(model_dir, component)
+    if not os.path.isdir(sub):
+        sub = model_dir
+    sd = load_state_dict(_find_weights(sub))
+    cfg_path = os.path.join(sub, "config.json")
+    cfg = {}
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+    if component == "unet":
+        base = UNet2DConditionConfig()
+        config = UNet2DConditionConfig(
+            in_channels=cfg.get("in_channels", 4),
+            out_channels=cfg.get("out_channels", 4),
+            block_out_channels=tuple(cfg.get("block_out_channels", (320, 640, 1280, 1280))),
+            layers_per_block=cfg.get("layers_per_block", 2),
+            cross_attention_dim=cfg.get("cross_attention_dim", 768),
+            attention_head_dim=cfg.get("attention_head_dim", 8),
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            down_block_types=tuple(cfg.get("down_block_types", base.down_block_types)),
+            up_block_types=tuple(cfg.get("up_block_types", base.up_block_types)))
+        return config, sd
+    if component == "vae":
+        config = VAEConfig(
+            block_out_channels=tuple(cfg.get("block_out_channels", (128, 256, 512, 512))),
+            layers_per_block=cfg.get("layers_per_block", 2),
+            latent_channels=cfg.get("latent_channels", 4),
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            scaling_factor=cfg.get("scaling_factor", 0.18215))
+        renamed = {}
+        for k, v in sd.items():
+            m = _LEGACY_VAE_ATTN.match(k)
+            if m:  # legacy query/key/value/proj_attn (diffusers < 0.18)
+                k = f"{m.group(1)}.{_LEGACY_VAE_NAMES[m.group(2)]}.{k[m.end():]}"
+            renamed[k] = v
+        return config, renamed
+    if component == "text_encoder":
+        config = CLIPTextConfig(
+            vocab_size=cfg.get("vocab_size", 49408),
+            hidden_size=cfg.get("hidden_size", 768),
+            num_layers=cfg.get("num_hidden_layers", 12),
+            num_heads=cfg.get("num_attention_heads", 12),
+            mlp_dim=cfg.get("intermediate_size", 3072),
+            max_positions=cfg.get("max_position_embeddings", 77))
+        prefix = "" if any(k.startswith("text_model.") for k in sd) else "text_model."
+        # transformers' position_ids buffer is arange(77): nothing to load
+        return config, {prefix + k: v for k, v in sd.items()
+                        if not k.endswith("embeddings.position_ids")}
+    raise ValueError(f"unknown SD component {component!r}")

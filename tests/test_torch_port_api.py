@@ -35,9 +35,11 @@ from ldiffusion_tpu.models.dynunet import DynUNet as JDynUNet
 from ldiffusion_tpu.segmentor.planner import SegPlan as JSegPlan
 from ldiffusion_tpu.segmentor.predictor import SlidingWindowPredictor as JPredictor
 from ldiffusion_tpu_torch.api import LDiffusionModel
+from ldiffusion_tpu_torch.cell import CellSegClassifier, FlowNetProposer
 from ldiffusion_tpu_torch.core.checkpoint import Inert, load_pytree
 from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
 from ldiffusion_tpu_torch.models.convert import load_unet_dir, proj_from_flax, unet_from_flax
+from ldiffusion_tpu_torch.models.resnet import ResNetConfig
 from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor as TPredictor
 from torch_port_common import jax_random_components
 
@@ -172,11 +174,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         LDiffusionModel("random:tiny", "tissue")
     with pytest.raises(RuntimeError, match="CUDA"):
         SDComponents.random()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LDiffusionModel("random:tiny", "cell")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CellSegClassifier(3, encoder_cfg=ResNetConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FlowNetProposer.create(features=(8, 16))
     model = LDiffusionModel("random:tiny", "cell", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.inference("x.png", None, "seg", 7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train(None)
+    assert model.device == torch.device("cpu")
+    with pytest.raises(FileNotFoundError):  # a diffusers directory is read, not refused
+        LDiffusionModel("no/such/sd15", "cell", device="cpu")._load_components()
 
 
 _HYGIENE = r"""
@@ -186,6 +193,13 @@ from ldiffusion_tpu_torch.api import LDiffusionModel
 model = LDiffusionModel("random:tiny", "tissue", device="cpu")
 decoded, mask = model.inference(sys.argv[1], None, sys.argv[2], 7)
 assert mask.shape == (64, 64), mask.shape
+# the cell level's runtime paths: both proposers and the classifier
+import numpy as np
+from ldiffusion_tpu_torch.cell import CellSegClassifier, FlowNetProposer
+from ldiffusion_tpu_torch.models.resnet import ResNetConfig
+image = np.random.default_rng(0).random((64, 64, 3)).astype(np.float32)
+FlowNetProposer.load_pretrained("transformed", n_iter=20, device="cpu").propose(image)
+CellSegClassifier(3, encoder_cfg=ResNetConfig.tiny(), device="cpu").predict_mask(image)
 # every module of the package, both training slices' included
 names = [m.name for m in pkgutil.walk_packages(ldiffusion_tpu_torch.__path__,
                                                "ldiffusion_tpu_torch.")]
@@ -194,10 +208,12 @@ for name in names:
 for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
              "segmentor.fingerprint", "segmentor.splits", "segmentor.dataset_builder",
              "data.augment", "data.patches", "data.prefetch", "losses.dice", "native",
-             "evaluate"):
+             "evaluate", "cell", "cell.instance", "cell.classifier", "models.resnet",
+             "models.tokenizer", "models.safetensors_io"):
     assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu",
+                                    "safetensors"))
 print("FOREIGN", bad)
 sys.exit(1 if bad else 0)
 """

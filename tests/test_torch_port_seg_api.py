@@ -136,5 +136,5 @@ def test_api_trains_all_components(slice_world, tmp_path):
     assert set(out) == {"ldiffusion", "segmentor"}
     assert model.trainer.steps_done == 4  # int(6 * 0.7) = 4 training pairs, batch 1
     assert os.path.exists(os.path.join(out["segmentor"], "fold_0", "checkpoint_final.pkl"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LDiffusionModel("random:tiny", "cell", device="cpu").train(slice_world["args"])
+    with pytest.raises(ValueError, match="Invalid level"):
+        LDiffusionModel("random:tiny", "organ", device="cpu").train(slice_world["args"])
