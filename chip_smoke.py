@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tissue inference, stage-1 training,
-stage-2 segmentor training and the cell level on one NVIDIA GPU.
+stage-2 segmentor training, the cell level and the segmentor command line
+on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -73,6 +74,31 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               with TF32 as shipped; and the committed "transformed" flow
               proposer at 1024², card against CPU (PQ >= 0.99), with
               follow_flows timed by method.
+  8. cli:     the pieces the segmentor CLI adds, tiny and f32 on cuda against
+              the CPU (a BatchNorm ResEnc DynUNet's forward, backward and
+              running statistics, Adan, the regions loss, DA5 with fixed
+              draws; 1e-4). Then 6 + 2 synthetic 1024² PUMA pairs through
+              the one-step transform of seeded random SD-v1.5-width bf16
+              components (``build_transformed_dataset``; counters reset
+              before, read after: 17 flash-forward and 113 GroupNorm launches
+              a ROI, on wgmma and their gn_route routes), as two datasets:
+              Dataset001 the 7 labels with ``"ignore": 7`` on a band,
+              Dataset002 nested regions. Run A (Dataset001, the 1024²/7-class
+              plan, nnUNetTrainerDA5) through ``python -m
+              ldiffusion_tpu_torch.segmentor`` processes: plan_and_preprocess
+              --verify_dataset_integrity, train --epochs 2 --iters 4 --npz,
+              predict --save_probabilities, evaluate_folder -djfile. Runs B
+              (Dataset002, nnUNetPlannerResEncM: 512², batch 2, ResEnc-M,
+              nnUNetTrainerAdanCosAnneal) and C (Dataset001, nnUNetTrainerBN:
+              train, train --val, predict -chk, determine/apply
+              postprocessing) through ``cli.main`` in this process with
+              cuDNN's TF32 as shipped. Gates: every command, the native crop
+              and resample only, the ResEnc-M parameter count, run C's moved
+              batch_stats, the npz probabilities, run C's f32 masks card vs
+              CPU (>= 99.5%). Figures (``cli`` line): each command's wall
+              seconds, s/iteration, peak memory, host ms a batch, validation
+              s/case, predict s/ROI (from each run's ``timing`` log lines),
+              DA5 device ms a batch, and one profiled iteration of A and B.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -80,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -93,7 +120,8 @@ import warnings
 # The port's package sits beside this script: find it whatever the working
 # directory, and under ``python -P`` (which leaves the script's directory off
 # sys.path).
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3.
 PEAK_BF16 = 989e12
@@ -1152,12 +1180,16 @@ def no_augment():
 
 def seg_tensor_err(a: dict, b: dict) -> float:
     """Largest |a - b| / max|b| over the DynUNet's named tensors. A conv bias
-    that feeds an InstanceNorm has a gradient of 0 in exact arithmetic (the
-    norm removes the mean), so its gradient and momentum are rounding noise
+    that feeds a norm (InstanceNorm or BatchNorm: every conv of a block,
+    plain or residual) has a gradient of 0 in exact arithmetic (the norm
+    removes the mean), so its gradient and momentum are rounding noise
     (≈ 1e-8) and its update ≈ lr times that: it is held absolutely (scale 1)."""
+    import re
+
     worst = 0.0
     for k, ref in b.items():
-        scale = max(float(ref.abs().max()), 1.0 if k.endswith(".conv.bias") else 1e-30)
+        feeds_norm = re.search(r"\.(conv\d?|downsample_conv)\.bias$", k)
+        scale = max(float(ref.abs().max()), 1.0 if feeds_norm else 1e-30)
         worst = max(worst, float((a[k].float().cpu() - ref.float().cpu()).abs().max()) / scale)
     return worst
 
@@ -1685,6 +1717,446 @@ def phase_cell(work, seed):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the segmentor command line
+# ---------------------------------------------------------------------------
+
+CLI_ROIS = 6        # training cases of both datasets (fold 0: 4 train, 2 validation)
+CLI_TEST_ROIS = 2   # imagesTs, predicted by each run
+CLI_IGNORE = 7      # the ignore label of dataset 1, painted on a band of each label map
+CLI_REGIONS = {"background": 0, "tissue": [1, 2, 3, 4, 5, 6], "c12": [1, 2], "c1": [1]}
+CLI_REGIONS_ORDER = [6, 2, 1]
+RESENC_M_PLAN = ((512, 512), 2, (32, 64, 128, 256, 512, 512, 512), (1, 3, 4, 6, 6, 6, 6))
+# A mask of the same f32 net and checkpoint on the card (TF32 off) and on the
+# CPU: only the order of sums differs, so a pixel flips only where two logits
+# tie to rounding (the tiny phase's image-level tolerance).
+CLI_MASK_AGREEMENT = 0.995
+# float16 probabilities: 7 values each within 2^-11 relative, so a softmax
+# row sums to 1 within 7·2^-12.
+NPZ_SUM_TOL = 4e-3
+
+
+def cli_tiny(seed):
+    """The pieces this slice adds, tiny, f32, on cuda against the CPU from the
+    same values: a BatchNorm ResEnc DynUNet's training forward, backward and
+    running statistics; two Adan steps; the regions loss with an ignore mask
+    and its gradient; the DA5 stack with fixed draws."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.optim import Adan
+    from ldiffusion_tpu_torch.data.augment import apply_augment, draw_augment_params
+    from ldiffusion_tpu_torch.losses.dice import dc_and_focal_sigmoid_loss
+    from ldiffusion_tpu_torch.models.dynunet import DynUNet, DynUNetConfig
+    from ldiffusion_tpu_torch.models.layers import init_random_
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant
+
+    rng = np.random.default_rng(seed + 8)
+    errs = {}
+    cfg = DynUNetConfig(in_channels=3, num_classes=3, features_per_stage=(8, 16, 32),
+                        strides=(1, 2, 2), norm="batch", block_type="residual",
+                        n_blocks_per_stage=(1, 2, 2))
+    cpu = init_random_(DynUNet(cfg), torch.Generator().manual_seed(seed))
+    gpu = copy.deepcopy(cpu).cuda()
+    x = torch.from_numpy(rng.normal(size=(2, 3, 32, 32)).astype(np.float32))
+    outs = {}
+    for name, net in (("cpu", cpu), ("cuda", gpu)):
+        heads = net(x.to(next(net.parameters()).device), train=True)
+        sum(h.square().mean() for h in heads).backward()
+        outs[name] = heads
+    errs["batchnorm_resenc_forward"] = per_tensor_err([h.detach() for h in outs["cuda"]],
+                                                      [h.detach() for h in outs["cpu"]])
+    errs["batchnorm_resenc_grads"] = seg_tensor_err(
+        {k: p.grad for k, p in gpu.named_parameters()},
+        {k: p.grad for k, p in cpu.named_parameters()})
+    errs["batchnorm_running_stats"] = per_tensor_err(
+        [b for k, b in gpu.named_buffers() if "running" in k],
+        [b for k, b in cpu.named_buffers() if "running" in k])
+    params = {"cpu": [p.detach().clone() for p in cpu.parameters()]}
+    params["cuda"] = [p.cuda() for p in params["cpu"]]
+    grads = [[torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(np.float32))
+              for p in params["cpu"]] for _ in range(2)]
+    for name, ps in params.items():
+        ps = [torch.nn.Parameter(p) for p in ps]
+        opt = Adan(ps, lr=1e-2, weight_decay=3e-5)
+        for step in grads:
+            for p, g in zip(ps, step):
+                p.grad = g.to(p.device)
+            opt.step()
+        params[name] = ps
+    errs["adan"] = per_tensor_err([p.detach() for p in params["cuda"]],
+                                  [p.detach() for p in params["cpu"]])
+    logits = torch.from_numpy(rng.normal(size=(2, 3, 16, 16)).astype(np.float32))
+    regions = torch.from_numpy((rng.random((2, 3, 16, 16)) < 0.4).astype(np.float32))
+    mask = torch.from_numpy((rng.random((2, 16, 16)) < 0.8).astype(np.float32))
+    loss = {}
+    for name in ("cpu", "cuda"):
+        lg = logits.to(name).clone().requires_grad_(True)  # a leaf on each device
+        val = dc_and_focal_sigmoid_loss(lg, regions.to(name), loss_mask=mask.to(name))
+        val.backward()
+        loss[name] = (val.detach(), lg.grad)
+    errs["regions_loss"] = per_tensor_err([loss["cuda"][0].reshape(1), loss["cuda"][1]],
+                                          [loss["cpu"][0].reshape(1), loss["cpu"][1]])
+    da5 = dataclasses.replace(get_variant("nnUNetTrainerDA5").augment, p_rotation=0.0,
+                              p_scaling=0.0)
+    da5 = dataclasses.replace(da5, **{k: 1.0 for k in (
+        "p_rot90", "p_transpose", "p_median", "p_noise", "p_blur", "p_brightness",
+        "p_contrast", "p_gamma_invert", "p_gamma", "p_mirror", "p_blank_rect",
+        "p_brightness_gradient", "p_local_gamma", "p_sharpen")})
+    data = torch.from_numpy(rng.normal(size=(2, 3, 32, 32)).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(0, 4, (2, 32, 32)))
+    drawn = draw_augment_params(data.shape, da5, torch.Generator().manual_seed(seed))
+    d_cpu, s_cpu = apply_augment(data, seg, drawn, da5)
+    d_gpu, s_gpu = apply_augment(data.cuda(), seg.cuda(),
+                                 {k: v.cuda() for k, v in drawn.items()}, da5)
+    errs["da5"] = per_tensor_err([d_gpu], [d_cpu])
+    if not torch.equal(s_gpu.cpu(), s_cpu):
+        raise AssertionError("cli tiny: the DA5 stack moved the labels differently")
+    row = {"errors": errs, "tol": CLI_TINY_TOL}
+    log("cli_tiny", json.dumps(row))
+    bad = {k: v for k, v in errs.items() if not v <= CLI_TINY_TOL}
+    if bad:
+        raise AssertionError(f"cli tiny: cuda vs cpu outside {CLI_TINY_TOL}: {bad}")
+    return row
+
+
+# the new pieces' tiny cuda-vs-CPU checks, relative to each tensor's scale:
+# f32 on both sides, only the order of sums differs (the seg phase's bound)
+CLI_TINY_TOL = 1e-4
+
+
+def cli_datasets(work, seed):
+    """Six synthetic 1024² PUMA training pairs and two test pairs through the
+    one-step transform of seeded random SD-v1.5-width bf16 components
+    (``build_transformed_dataset``), then two dataset.json regimes over the
+    same images: Dataset001 the seven labels with ``"ignore": 7`` painted on a
+    band of each label map, Dataset002 nested regions. Returns the raw root
+    and the build's launches, routes and seconds."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ldiffusion_tpu_torch.segmentor.dataset_builder import (
+        DiffusionTransform,
+        build_transformed_dataset,
+    )
+
+    rng = np.random.default_rng(seed + 9)
+    pairs = seg_pairs(os.path.join(work, "cli_pairs"), CLI_ROIS + CLI_TEST_ROIS, rng)
+    imgs = sorted(os.path.join(pairs.image_dir, f) for f in os.listdir(pairs.image_dir))
+    labs = sorted(os.path.join(pairs.label_dir, f) for f in os.listdir(pairs.label_dir))
+    comps = sd15_components(seed, torch.bfloat16)
+    build_root = os.path.join(work, "cli_build")
+    with GnRouteWatch() as watch:
+        reset_counters()  # the cli path's device part starts here
+        t0 = time.perf_counter()
+        _, built = build_transformed_dataset(
+            imgs[:CLI_ROIS], labs[:CLI_ROIS], imgs[CLI_ROIS:], labs[CLI_ROIS:], 7, "tissue",
+            DiffusionTransform(comps), build_root, image_size=1024)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches = read_counters()  # ... and ends here: the CLI runs no kernel
+        routes = read_routes()
+    del comps
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_bf16_routes("cli", routes)
+    watch.check("cli", routes)
+    n = CLI_ROIS + CLI_TEST_ROIS
+    want = {"flash_attention_fwd": 17 * n, "groupnorm_silu": 113 * n}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"cli: the dataset build launched {launches}, expected {want}")
+    raw = os.path.join(work, "cli_raw")
+    ignore = os.path.join(raw, "Dataset001_Ignore")
+    shutil.copytree(built, ignore)
+    shutil.copytree(built, os.path.join(raw, "Dataset002_Regions"))
+    for split in ("labelsTr", "labelsTs"):
+        for f in os.listdir(os.path.join(ignore, split)):
+            path = os.path.join(ignore, split, f)
+            with Image.open(path) as im:
+                lab = np.asarray(im, np.uint8).copy()
+            lab[:, 448:576] = CLI_IGNORE  # a band through every class
+            Image.fromarray(lab).save(path)
+    with open(os.path.join(built, "dataset.json")) as f:
+        dj = json.load(f)
+    with open(os.path.join(ignore, "dataset.json"), "w") as f:
+        json.dump({**dj, "labels": {**dj["labels"], "ignore": CLI_IGNORE}}, f, indent=2)
+    with open(os.path.join(raw, "Dataset002_Regions", "dataset.json"), "w") as f:
+        json.dump({**dj, "labels": CLI_REGIONS, "regions_class_order": CLI_REGIONS_ORDER}, f,
+                  indent=2)
+    return raw, {"launches": launches, "launches_by_route": routes,
+                 "launches_per_roi": {k: launches[k] / n for k in INFERENCE_KERNELS},
+                 "groupnorm_shapes": dict(watch.shapes), "rois": n,
+                 "dataset_build_s_per_roi": build_s / n}
+
+
+def cli_timing(fold_dir):
+    """The trainer's ``timing`` lines of ``training_log.txt``, by name."""
+    out = {}
+    with open(os.path.join(fold_dir, "training_log.txt")) as f:
+        for line in f:
+            if ": timing " in line:
+                what, payload = line.split(": timing ", 1)[1].split(" ", 1)
+                out[what] = json.loads(payload)
+    return out
+
+
+def cli_run_figures(fold_dir, commands):
+    """s/iteration (median after the first), host ms a batch, validation
+    s/case, peak memory and the native routes of one run, from its log."""
+    import numpy as np
+
+    timing = cli_timing(fold_dir)
+    train = timing["training"]
+    routes = train["native_routes"]
+    for name, by_route in routes.items():
+        if by_route["numpy"] or not by_route["native"]:
+            raise AssertionError(f"cli: {name} left the native route in {fold_dir}: {by_route}")
+    return {"commands_s": commands,
+            "s_per_iteration_median_after_first": float(np.median(train["iteration_s"][1:])),
+            "iteration_s": train["iteration_s"],
+            "host_ms_per_batch_median_after_first": float(
+                np.median(train["host_batch_s"][1:]) * 1e3),
+            "validation_s_per_case": timing["validation"]["validation_case_s"],
+            "checkpoint_s": train["checkpoint_s"],
+            "max_memory_allocated": max((t["max_memory_allocated"] for t in timing.values()
+                                         if t["max_memory_allocated"] is not None),
+                                        default=None),
+            "native_routes": routes}
+
+
+def cli_check_npz(out_dir, regions: bool):
+    import numpy as np
+
+    n = 0
+    for f in sorted(os.listdir(out_dir)):
+        if not f.endswith(".npz"):
+            continue
+        with np.load(os.path.join(out_dir, f)) as z:
+            p = z["probabilities"]
+        if p.dtype != np.float16 or p.shape[:2] != (1024, 1024) or p.shape[2] not in (3, 7):
+            raise AssertionError(f"cli: {f} holds {p.dtype} {p.shape}")
+        p = p.astype(np.float32)
+        if regions and not (p.min() >= 0 and p.max() <= 1):
+            raise AssertionError(f"cli: {f} region probabilities outside [0, 1]")
+        if not regions and np.abs(p.sum(-1) - 1).max() > NPZ_SUM_TOL:
+            raise AssertionError(f"cli: {f} softmax rows do not sum to 1")
+        n += 1
+    if n != CLI_TEST_ROIS:
+        raise AssertionError(f"cli: {n} npz files in {out_dir}")
+
+
+def cli_profile_iteration(plan_path, variant_name, dataset_json, seed):
+    """One profiled training iteration of a run's recipe, plan and label
+    regime (after one warm-up iteration), on a synthetic batch."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.segmentor.cli import _read_dataset_json
+    from ldiffusion_tpu_torch.segmentor.label_manager import label_manager_from_dataset_json
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant
+
+    plan = SegPlan.load(plan_path)
+    variant = get_variant(variant_name)
+    lm = label_manager_from_dataset_json(_read_dataset_json(dataset_json))
+    with tempfile.TemporaryDirectory() as out:
+        tr = SegmentorTrainer(plan, variant.config, output_dir=out, variant=variant,
+                              label_manager=lm, device="cuda")
+        rng = np.random.default_rng(seed)
+        shape = (plan.batch_size, *plan.patch_size)
+        batch = (rng.normal(size=(*shape, 3)).astype(np.float32),
+                 np.stack([train_labels(rng, plan.patch_size[0]) for _ in range(shape[0])]))
+        tr.train_step(*batch, lr=1e-3)
+        prof = device_profile(lambda: tr.train_step(*batch, lr=1e-3))
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
+def phase_cli(work, seed):
+    """The 2D nnU-Net command line on the card at full width (module
+    docstring, phase 8)."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch import native
+    from ldiffusion_tpu_torch.core.checkpoint import load_pytree
+    from ldiffusion_tpu_torch.data.augment import augment_batch
+    from ldiffusion_tpu_torch.models.convert import flatten_tree
+    from ldiffusion_tpu_torch.models.dynunet import DynUNet
+    from ldiffusion_tpu_torch.segmentor import cli
+    from ldiffusion_tpu_torch.segmentor.label_manager import label_manager_from_dataset_json
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant
+
+    tiny = cli_tiny(seed)
+    raw, build = cli_datasets(work, seed)
+    pp, res = os.path.join(work, "cli_pp"), os.path.join(work, "cli_res")
+    d1, d2 = os.path.join(raw, "Dataset001_Ignore"), os.path.join(raw, "Dataset002_Regions")
+    env = {**os.environ, "LDIFFUSION_RAW": raw, "LDIFFUSION_PREPROCESSED": pp,
+           "LDIFFUSION_RESULTS": res, "PYTHONPATH": HERE}
+
+    def user(*argv):  # the command as users call it: a process of its own
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ldiffusion_tpu_torch.segmentor", *argv],
+                              env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"cli: {' '.join(argv)} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        return wall
+
+    roots = {"plan_and_preprocess": ["--raw", raw, "--preprocessed", pp],
+             "train": ["--raw", raw, "--preprocessed", pp, "--results", res],
+             "predict": ["--raw", raw, "--results", res]}
+
+    def inproc(*argv):  # cli.main(argv) in this process, on the card
+        if argv[0] == "train":
+            native.reset_routes()  # each run's own crop/resample calls
+        t0 = time.perf_counter()
+        out = cli.main(list(argv) + roots.get(argv[0], []), device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    # ---- run A: ignore label, the 1024²/7-class plan, DA5, as users run it
+    a = {"plan_and_preprocess": user("plan_and_preprocess", "-d", "1",
+                                     "--verify_dataset_integrity")}
+    a["train"] = user("train", "-d", "1", "-c", "2d", "-f", "0", "-tr", "nnUNetTrainerDA5",
+                      "--epochs", "2", "--iters", "4", "--npz")
+    out_a = os.path.join(work, "cli_pred_a")
+    a["predict"] = user("predict", "-i", os.path.join(d1, "imagesTs"), "-o", out_a, "-d", "1",
+                        "-f", "0", "-tr", "nnUNetTrainerDA5", "--save_probabilities")
+    a["evaluate_folder"] = user("evaluate_folder", os.path.join(d1, "labelsTs"), out_a,
+                                "-djfile", os.path.join(d1, "dataset.json"))
+    plan_a = SegPlan.load(os.path.join(pp, "Dataset001_Ignore", "plans.json"))
+    if (tuple(plan_a.patch_size), tuple(plan_a.features_per_stage), plan_a.batch_size,
+            plan_a.num_classes) != (FULL_PLAN[0], FULL_PLAN[1], 2, 7):
+        raise AssertionError(f"cli: run A's plan is not the 1024²/7-class plan: {plan_a}")
+    fold_a = os.path.join(res, "Dataset001_Ignore", "nnUNetTrainerDA5__ldPlans__2d", "fold_0")
+    cli_check_npz(out_a, regions=False)
+    cli_check_npz(os.path.join(fold_a, "validation"), regions=False)
+
+    # ---- runs B and C in this process, cuDNN's TF32 as users have it
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        b = {}
+        b["plan_and_preprocess"], _ = inproc(
+            "plan_and_preprocess", "-d", "2", "-pl", "nnUNetPlannerResEncM",
+            "-overwrite_plans_name", "nnUNetResEncUNetMPlans")
+        rb = ("-tr", "nnUNetTrainerAdanCosAnneal", "-p", "nnUNetResEncUNetMPlans")
+        torch.cuda.reset_peak_memory_stats()
+        b["train"], fold_b = inproc("train", "-d", "2", "-c", "2d", "-f", "0", *rb,
+                                    "--epochs", "2", "--iters", "4")
+        out_b = os.path.join(work, "cli_pred_b")
+        b["predict"], _ = inproc("predict", "-i", os.path.join(d2, "imagesTs"), "-o", out_b,
+                                 "-d", "2", "-f", "0", *rb, "--save_probabilities")
+        b["evaluate_folder"], _ = inproc("evaluate_folder", os.path.join(d2, "labelsTs"), out_b,
+                                         "-djfile", os.path.join(d2, "dataset.json"))
+        c = {}
+        torch.cuda.reset_peak_memory_stats()
+        rc = ("-tr", "nnUNetTrainerBN")
+        c["train"], fold_c = inproc("train", "-d", "1", "-c", "2d", "-f", "0", *rc,
+                                    "--epochs", "2", "--iters", "4")
+        c["train_val"], _ = inproc("train", "-d", "1", "-c", "2d", "-f", "0", *rc, "--val")
+        out_c = os.path.join(work, "cli_pred_c")
+        c["predict"], _ = inproc("predict", "-i", os.path.join(d1, "imagesTs"), "-o", out_c,
+                                 "-d", "1", "-f", "0", *rc, "-chk", "checkpoint_final.pkl")
+        c["determine_postprocessing"], _ = inproc(
+            "determine_postprocessing", "-i", os.path.join(fold_c, "validation"),
+            "-ref", os.path.join(fold_c, "validation_gt"),
+            "-o", os.path.join(work, "cli_pp_c.json"))
+        c["apply_postprocessing"], _ = inproc(
+            "apply_postprocessing", "-i", out_c, "-o", os.path.join(work, "cli_pp_out_c"),
+            "-pp_pkl_file", os.path.join(work, "cli_pp_c.json"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+    # ---- gates
+    plan_b = SegPlan.load(os.path.join(pp, "Dataset002_Regions", "nnUNetResEncUNetMPlans.json"))
+    got = (tuple(plan_b.patch_size), plan_b.batch_size, tuple(plan_b.features_per_stage),
+           tuple(plan_b.n_blocks_per_stage))
+    if got != RESENC_M_PLAN or plan_b.block_type != "residual":
+        raise AssertionError(f"cli: run B's plan is not ResEnc-M: {got}")
+    ck_b = load_pytree(os.path.join(fold_b, "checkpoint_final.pkl"))
+    with torch.device("meta"):
+        meta_count = sum(p.numel() for p in DynUNet(plan_b.network_config()).parameters())
+    flat = flatten_tree(ck_b["params"])
+    resenc_count = sum(int(np.prod(v.shape)) for v in flat.values())
+    if resenc_count != meta_count:
+        raise AssertionError(f"cli: ResEnc-M holds {resenc_count} parameters, the plan "
+                             f"{meta_count}")
+    cli_check_npz(out_b, regions=True)
+    ck_c = load_pytree(os.path.join(fold_c, "checkpoint_final.pkl"))
+    stats = flatten_tree(ck_c["batch_stats"])
+    if not stats or not all(np.isfinite(v).all() for v in stats.values()):
+        raise AssertionError("cli: run C's checkpoint has no finite batch_stats")
+    moved = max(float(np.abs(v - (1.0 if k.endswith("var") else 0.0)).max())
+                for k, v in stats.items())
+    if not moved > 0:
+        raise AssertionError("cli: run C's running statistics never moved")
+    dj1 = os.path.join(d1, "dataset.json")
+    lm1 = label_manager_from_dataset_json(cli._read_dataset_json(dj1))
+    plan_c = SegPlan.load(os.path.join(os.path.dirname(fold_c), "plans.json"))
+    case = sorted(os.listdir(os.path.join(d1, "imagesTs")))[0]
+    image = cli._load_png_channels([os.path.join(d1, "imagesTs", case)])
+    masks = {}
+    mirror = get_variant("nnUNetTrainerBN").mirror_tta
+    for name in ("cuda", "cpu"):
+        pred = SlidingWindowPredictor.from_checkpoints(
+            plan_c, [os.path.join(fold_c, "checkpoint_final.pkl")], dtype=torch.float32,
+            device=name, label_manager=lm1, use_mirroring=mirror)
+        masks[name] = lm1.convert_logits_to_segmentation(pred.predict_logits(image))
+        del pred
+    agreement = float((masks["cuda"] == masks["cpu"]).mean())
+    if agreement < CLI_MASK_AGREEMENT:
+        raise AssertionError(f"cli: run C's f32 masks card vs CPU agree on {agreement:.4f}")
+
+    # ---- figures
+    da5 = dataclasses.replace(get_variant("nnUNetTrainerDA5").augment, p_rotation=0.0,
+                              p_scaling=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2, 3, 1024, 1024, device="cuda")
+    s = torch.zeros(2, 1024, 1024, dtype=torch.long, device="cuda")
+    da5_ms = profiled_device_ms(lambda: augment_batch(x, s, da5, gen), 10)
+    da5_every = dataclasses.replace(da5, p_median=1.0, p_rot90=1.0, p_blank_rect=1.0,
+                                    p_brightness_gradient=1.0, p_local_gamma=1.0,
+                                    p_sharpen=1.0)
+    da5_every_ms = profiled_device_ms(lambda: augment_batch(x, s, da5_every, gen), 3)
+    del x, s
+    prof_a = cli_profile_iteration(os.path.join(pp, "Dataset001_Ignore", "plans.json"),
+                                   "nnUNetTrainerDA5", dj1, seed)
+    prof_b = cli_profile_iteration(
+        os.path.join(pp, "Dataset002_Regions", "nnUNetResEncUNetMPlans.json"),
+        "nnUNetTrainerAdanCosAnneal", os.path.join(d2, "dataset.json"), seed)
+    runs = {"A": cli_run_figures(fold_a, a), "B": cli_run_figures(fold_b, b),
+            "C": cli_run_figures(fold_c, c)}
+    for name, run in runs.items():
+        out = {"A": out_a, "B": out_b, "C": out_c}[name]
+        run["predict_s_per_roi_command_wall"] = run["commands_s"]["predict"] / CLI_TEST_ROIS
+        with open(os.path.join(out, "summary.json")) if name != "C" else \
+                open(os.path.join(fold_c, "validation", "summary.json")) as f:
+            run["foreground_dice"] = json.load(f)["foreground_mean"]["Dice"]
+    runs["A"]["profiled_iteration"] = prof_a
+    runs["B"]["profiled_iteration"] = prof_b
+    row = {"gpu": gpu_line(), "runs": runs, "build": build, "tiny": tiny["errors"],
+           "resenc_m_parameters": resenc_count, "bn_stats_moved_max": moved,
+           "c_mask_agreement_card_vs_cpu": agreement,
+           "da5_device_ms_per_batch": da5_ms, "da5_every_transform_device_ms": da5_every_ms,
+           "plans": {"A": [list(plan_a.patch_size), plan_a.batch_size],
+                     "B": [list(plan_b.patch_size), plan_b.batch_size,
+                           list(plan_b.n_blocks_per_stage)]},
+           "command_s_total": sum(sum(r["commands_s"].values()) for r in runs.values())}
+    log("cli", json.dumps(row))
+    return {"launches": build["launches"], "launches_by_route": build["launches_by_route"],
+            "row": row}
+
+
 def tr_batch(rng, size):
     """A (images, labels) batch of one synthetic size² ROI with 64² labels."""
     import numpy as np
@@ -1866,8 +2338,8 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell",
-                    help="comma-separated subset of kernels,tiny,full,train,seg,cell")
+    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli",
+                    help="comma-separated subset of kernels,tiny,full,train,seg,cell,cli")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1937,6 +2409,13 @@ def main(argv=None) -> int:
                 if name not in launches:
                     launches[name] = cell["launches"][name]
                     routes[name] = cell["launches_by_route"][name]
+        if "cli" in phases:  # the segmentor CLI's dataset is built by the transform
+            cli_out = phase_cli(work, args.seed)
+            by_path["cli"] = cli_out["launches"]
+            for name in INFERENCE_KERNELS:
+                if name not in launches:
+                    launches[name] = cli_out["launches"][name]
+                    routes[name] = cli_out["launches_by_route"][name]
 
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes, by_path)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -36,9 +36,19 @@ square ROI and transformed, its instances proposed and classified, and the
 mask (NEAREST) and the decoded image (BILINEAR) resized back to the image's
 size. The ROI is 1024² unless ``diffusion_path`` starts with ``random:``
 (then 64²).
+
+The training command (``ldiffusion_tpu/api.py:51-66, 458-465``; reference
+``ldiffusion.py:19-29, 326-331``), ``parse_args`` and ``main(argv,
+device=None)``:
+
+    python -m ldiffusion_tpu_torch.ldiffusion --diffusion-path P --image-dir I \
+        --label-dir L --num-epochs N --batch-size B --num-inference-steps S --num-classes C
+
+``--local_rank`` is read and kept for *Distribution* (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import argparse
 import os
 import time
 import traceback
@@ -56,6 +66,24 @@ from ldiffusion_tpu_torch.data.dataset import (
     load_image,
     split_dataset,
 )
+
+
+def parse_args(argv=None):
+    """The JAX package's flags and defaults (reference ``ldiffusion.py:19-29``)."""
+    p = argparse.ArgumentParser(description="Diffusion model training parameters")
+    p.add_argument("--local_rank", type=int, default=int(os.environ.get("LOCAL_RANK", -1)))
+    p.add_argument("--diffusion-path", type=str, required=True,
+                   help="stable diffusion base model path")
+    p.add_argument("--image-dir", type=str, required=True)
+    p.add_argument("--label-dir", type=str, required=True)
+    p.add_argument("--num-epochs", type=int, required=True)
+    p.add_argument("--batch-size", type=int, required=True)
+    p.add_argument("--num-inference-steps", type=int, required=True)
+    p.add_argument("--num-classes", type=int, required=True)
+    p.add_argument("--level", type=str, default="tissue", choices=["tissue", "cell"])
+    p.add_argument("--component", type=str, default="all",
+                   choices=["all", "ldiffusion", "segmentor"])
+    return p.parse_args(argv)
 
 
 class LDiffusionModel:
@@ -388,3 +416,15 @@ def _plain_rgb(path: str):
     with Image.open(path) as f:
         pil = f.convert("RGB")
     return pil, np.asarray(pil, np.float32) / 255.0
+
+
+def main(argv=None, device=None):
+    """The training command: ``LDiffusionModel(...).train(args,
+    component=args.component)`` on ``device`` (None: the card). Returns the
+    weight paths."""
+    args = parse_args(argv)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print("\033[35m" + str(vars(args)) + "\033[0m")
+    model = LDiffusionModel(args.diffusion_path, level=args.level, local_rank=args.local_rank,
+                            device=device)
+    return model.train(args, component=args.component)

@@ -11,19 +11,27 @@ reference ``nnUNetTrainer.py:673-795`` via batchgenerators).
   (p 0.15), simulated low resolution by 2× or 4× mean pooling (p 0.25),
   inverted and plain gamma 0.7-1.5 (p 0.1, 0.3), mirroring (p 0.5 an axis),
   as torch ops on the batch's device.
+* The DA5 recipe's additions (``ldiffusion_tpu/data/augment.py:321-530``;
+  reference ``nnUNetTrainerDA5.py:106-264``): rot90 and transpose of square
+  patches; OneOf(median 3/5/7 | blur); additive per-channel brightness;
+  contrast clipped half the time to the channel's range; the second gamma
+  inverted; then, after mirroring, blank rectangles (1-5, filled with their
+  mean), an additive brightness gradient and a local gamma (Gaussian bumps
+  centred anywhere in [-0.5, 1.5]·size), and Laplacian sharpening clipped to
+  the channel's range.
 
 Each transform's random draws are split from its application:
 ``draw_augment_params`` draws every per-sample parameter from an explicit
 ``torch.Generator`` (on the batch's device, so a step needs no host sync)
 and ``apply_augment`` applies them, so a test can fix the parameters. As in
 the JAX package, a transform whose p is 0 is skipped, and an enabled one is
-computed for the whole batch and selected per sample.
+computed for the whole batch and selected per sample; the median filters,
+the stack's costliest, run only when a sample picked one (one host read of
+the flags).
 
-Layout: data (B, C, H, W) float32, seg (B, H, W) int. The DA5 transforms
-(rot90/transpose, median, blank rectangles, brightness gradient, local gamma,
-sharpening, additive brightness, the clipped contrast and the second
-inverted gamma), device-side rotation/scaling and 3D raise
-``NotImplementedError`` when enabled (ROADMAP queue 1, *Long tail*).
+Layout: data (B, C, H, W) float32, seg (B, H, W) int. Rotation/scaling run
+on the host only; 3D raises ``NotImplementedError`` (ROADMAP queue 1, *The
+3D / cascade pathway*).
 """
 from __future__ import annotations
 
@@ -60,7 +68,7 @@ class AugmentConfig:
     gamma_range: tuple = (0.7, 1.5)
     p_mirror: float = 0.5
     mirror_axes: tuple = (0, 1, 2)
-    # the DA5 modes and transforms (not ported: raise when enabled)
+    # the DA5 modes and transforms
     brightness_additive_sigma: float = 0.0
     contrast_clip_half: bool = False
     gamma2_invert: bool = False
@@ -74,18 +82,6 @@ class AugmentConfig:
     sharpen_strength: tuple = (0.1, 1.0)
     rotation_max_3d: float = 0.5235987755982988  # pi/6
     initial_scale_range: tuple = None
-
-
-_DA5 = ("brightness_additive_sigma", "contrast_clip_half", "gamma2_invert", "p_rot90",
-        "p_transpose", "p_median", "p_blank_rect", "p_brightness_gradient", "p_local_gamma",
-        "p_sharpen")
-
-
-def check_supported(cfg: AugmentConfig) -> None:
-    on = [name for name in _DA5 if getattr(cfg, name)]
-    if on:
-        raise NotImplementedError(f"the DA5 augmentations {on} are not ported yet "
-                                  "(ROADMAP queue 1, *Long tail*)")
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +115,7 @@ def get_initial_patch_size(final_patch_size, rot_x, rot_y, rot_z, scale_range) -
     coords = np.asarray(final_patch_size, np.float64)
     if len(coords) != 2:
         raise NotImplementedError("3D spatial augmentation is not ported yet "
-                                  "(ROADMAP queue 1, *Long tail*)")
+                                  "(ROADMAP queue 1, *The 3D / cascade pathway*)")
     rx = _max_abs(rot_x)
     c, s = np.cos(rx), np.sin(rx)
     final = np.maximum(coords, np.abs(coords @ np.array([[c, -s], [s, c]])))
@@ -133,7 +129,7 @@ def configure_spatial_da(patch_size, initial_scale_range=None) -> SpatialDAPlan:
     patch_size = tuple(int(p) for p in patch_size)
     if len(patch_size) != 2:
         raise NotImplementedError("3D spatial augmentation is not ported yet "
-                                  "(ROADMAP queue 1, *Long tail*)")
+                                  "(ROADMAP queue 1, *The 3D / cascade pathway*)")
     scale = tuple(initial_scale_range or (0.85, 1.25))
     rot = np.pi / 12 if max(patch_size) / min(patch_size) > 1.5 else np.pi
     rotation = (rot, 0.0, 0.0)
@@ -157,15 +153,18 @@ def center_crop_batch(data, seg, final_patch):
 
 class HostSpatialAugmenter:
     """Host rotation + scale through the native resample, in the prefetch
-    thread (``ldiffusion_tpu/data/augment.py:568-635``), bilinear data and
-    nearest labels (the nearest-data variant is not ported). numpy draws from
+    thread (``ldiffusion_tpu/data/augment.py:568-635``), bilinear
+    (``data_order=1``) or nearest (0, the DAOrd0 variants) data and nearest
+    labels. numpy draws from
     ``default_rng(seed)``, as the JAX package's. ``out_size``: the final
     patch; inputs are then initial-size patches and only the centred window
     is computed. Returns (data (B, *out, C) float32, seg (B, *out) of seg's
     dtype)."""
 
-    def __init__(self, cfg: AugmentConfig, seed: int = 0, out_size=None):
+    def __init__(self, cfg: AugmentConfig, seed: int = 0, data_order: int = 1,
+                 out_size=None):
         self.cfg = cfg
+        self.data_order = data_order
         self.rng = np.random.default_rng(seed)
         self.out_size = tuple(out_size) if out_size is not None else None
 
@@ -184,7 +183,7 @@ class HostSpatialAugmenter:
         scales = np.where(sc, self.rng.uniform(cfg.scale_range[0], cfg.scale_range[1], B), 1.0)
         d, s = affine_augment_batch_native(
             np.ascontiguousarray(data, np.float32), np.ascontiguousarray(seg, np.int16),
-            angles, scales, apply, out_size=self.out_size)
+            angles, scales, apply, data_order=self.data_order, out_size=self.out_size)
         return d, s.astype(seg.dtype)
 
 
@@ -193,6 +192,7 @@ class HostSpatialAugmenter:
 # ---------------------------------------------------------------------------
 
 def _uniform(lo, hi, n, generator, device):
+    """U(lo, hi) of shape ``n`` (an int or a tuple)."""
     return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
 
 
@@ -217,7 +217,8 @@ def draw_augment_params(shape: Sequence[int], cfg: AugmentConfig,
         p["blur_sigma"] = _uniform(*cfg.blur_sigma, B, g, device)
     if cfg.p_brightness > 0:
         p["brightness_on"] = flag(2, cfg.p_brightness)
-        p["brightness"] = _uniform(*cfg.brightness_range, B, g, device)
+        if not cfg.brightness_additive_sigma:  # DA5's additive shift: _draw_da5
+            p["brightness"] = _uniform(*cfg.brightness_range, B, g, device)
     if cfg.p_contrast > 0:
         p["contrast_on"] = flag(3, cfg.p_contrast)
         p["contrast"] = _uniform(*cfg.contrast_range, B, g, device)
@@ -235,6 +236,73 @@ def draw_augment_params(shape: Sequence[int], cfg: AugmentConfig,
             p["mirror_h"] = flag(7, cfg.p_mirror)
         if 1 in cfg.mirror_axes:
             p["mirror_w"] = flag(8, cfg.p_mirror)
+    p.update(_draw_da5(shape, cfg, g, device))
+    return p
+
+
+def _draw_da5(shape, cfg: AugmentConfig, g, device) -> Dict[str, torch.Tensor]:
+    """The DA5 draws, from their own flags so the default stack's stream is
+    unchanged (as the JAX package keeps them in a key block of their own)."""
+    B, C, h, w = shape
+    p: Dict[str, torch.Tensor] = {}
+    if not any(getattr(cfg, f) for f in ("p_rot90", "p_transpose", "p_median",
+                                         "brightness_additive_sigma", "contrast_clip_half",
+                                         "p_blank_rect", "p_brightness_gradient",
+                                         "p_local_gamma", "p_sharpen")):
+        return p
+    u5 = torch.rand((B, 7), generator=g, device=device)
+
+    def coin(size=(B,)):
+        return torch.rand(size, generator=g, device=device) < 0.5
+
+    def randint(lo, hi, size=(B,)):
+        return torch.randint(lo, hi, size, generator=g, device=device)
+
+    def bump():  # (sy, sx, my, mx) of a Gaussian bump, per sample
+        lh, lw = np.log(max(h / 6.0, 1.0)), np.log(max(w / 6.0, 1.0))
+        return torch.stack([_uniform(lh, np.log(float(h)), B, g, device).exp(),
+                            _uniform(lw, np.log(float(w)), B, g, device).exp(),
+                            _uniform(-0.5, 1.5, B, g, device) * h,
+                            _uniform(-0.5, 1.5, B, g, device) * w], dim=1)
+
+    if cfg.p_rot90 > 0 and h == w:
+        p["rot90_on"] = u5[:, 0] < cfg.p_rot90
+        p["rot90_k"] = randint(0, 4)
+    if cfg.p_transpose > 0 and h == w:
+        p["transpose_on"] = u5[:, 1] < cfg.p_transpose
+    if cfg.p_median > 0:
+        p["median_pick"] = coin()
+        p["median_on"] = u5[:, 2] < cfg.p_median
+        p["median_size"] = randint(0, 3)  # 3, 5 or 7
+    if cfg.p_brightness > 0 and cfg.brightness_additive_sigma > 0:
+        on = coin((B, C))
+        p["brightness_shift"] = torch.randn((B, C), generator=g, device=device) \
+            * cfg.brightness_additive_sigma * on
+    if cfg.p_contrast > 0 and cfg.contrast_clip_half:
+        p["contrast_clip"] = coin()
+    if cfg.p_blank_rect > 0:
+        p["blank_on"] = u5[:, 3] < cfg.p_blank_rect
+        p["blank_n"] = randint(1, 6)
+        p["blank_channels"] = coin((B, C))
+        rh = randint(max(1, h // 10), max(2, h // 3 + 1), (B, 5))
+        rw = randint(max(1, w // 10), max(2, w // 3 + 1), (B, 5))
+        y0 = torch.minimum(randint(0, h, (B, 5)), h - rh)
+        x0 = torch.minimum(randint(0, w, (B, 5)), w - rw)
+        p["blank_rects"] = torch.stack([y0, x0, rh, rw], dim=2)
+    if cfg.p_brightness_gradient > 0:
+        p["gradient_on"] = u5[:, 4] < cfg.p_brightness_gradient
+        p["gradient_bump"] = bump()
+        sign = torch.where(coin((B, C)), 1.0, -1.0)
+        p["gradient_strength"] = _uniform(1.0, 5.0, (B, C), g, device) * sign * coin((B, C))
+    if cfg.p_local_gamma > 0:
+        p["local_gamma_on"] = u5[:, 5] < cfg.p_local_gamma
+        p["local_gamma_bump"] = bump()
+        p["local_gamma"] = torch.where(coin((B, C)), _uniform(0.01, 0.8, (B, C), g, device),
+                                       _uniform(1.5, 4.0, (B, C), g, device))
+        p["local_gamma_channels"] = coin((B, C))
+    if cfg.p_sharpen > 0:
+        p["sharpen_on"] = u5[:, 6] < cfg.p_sharpen
+        p["sharpen_strength"] = _uniform(*cfg.sharpen_strength, B, g, device)
     return p
 
 
@@ -296,31 +364,132 @@ def lowres(x, factor: int):
     return pooled.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
 
 
+def median_filter(x, size: int):
+    """k×k median of each channel with edge replication (``_median_filter``)."""
+    r = size // 2
+    xp = F.pad(x, (r, r, r, r), mode="replicate")
+    win = xp.unfold(2, size, 1).unfold(3, size, 1)  # (B, C, H, W, k, k)
+    return win.reshape(*win.shape[:4], size * size).median(dim=-1).values
+
+
+def _channel_range(x):
+    """Per-sample, per-channel (min, max) over the spatial axes, (B, C, 1, 1)."""
+    flat = x.flatten(2)
+    return flat.min(dim=2).values[..., None, None], flat.max(dim=2).values[..., None, None]
+
+
+def laplacian(x):
+    """4-neighbour Laplacian with edge replication (``_laplacian``)."""
+    xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    return 4.0 * x - xp[..., :-2, 1:-1] - xp[..., 2:, 1:-1] - xp[..., 1:-1, :-2] \
+        - xp[..., 1:-1, 2:]
+
+
+def gaussian_bump(params, h: int, w: int):
+    """(B, 4) (sy, sx, my, mx) → (B, 1, H, W) separable Gaussian bumps,
+    normalised by their maximum (``_local_gaussian_kernel``)."""
+    yy = torch.arange(h, dtype=torch.float32, device=params.device)
+    xx = torch.arange(w, dtype=torch.float32, device=params.device)
+    sy, sx, my, mx = (params[:, i, None] for i in range(4))
+    ky = torch.exp(-0.5 * ((yy[None] - my) / sy) ** 2)
+    kx = torch.exp(-0.5 * ((xx[None] - mx) / sx) ** 2)
+    k = ky[:, :, None] * kx[:, None, :]
+    return (k / (k.flatten(1).max(dim=1).values[:, None, None] + 1e-8))[:, None]
+
+
+def blank_rectangles(x, rects, n, channels):
+    """Up to 5 rectangles (B, 5, 4) = (y0, x0, rh, rw), the first ``n`` (B,)
+    of each sample on, each filled on the ``channels`` picked with its mean
+    over the data as the previous rectangles left it."""
+    h, w = x.shape[-2:]
+    yy = torch.arange(h, device=x.device)[None, :, None]
+    xx = torch.arange(w, device=x.device)[None, None, :]
+    for slot in range(rects.shape[1]):
+        y0, x0, rh, rw = (rects[:, slot, i, None, None] for i in range(4))
+        mask = ((yy >= y0) & (yy < y0 + rh) & (xx >= x0) & (xx < x0 + rw)).to(x.dtype)[:, None]
+        fill = (mask * x).sum(dim=(2, 3), keepdim=True) / (mask.sum(dim=(2, 3), keepdim=True)
+                                                           + 1e-8)
+        on = (slot < n).to(x.dtype)[:, None, None, None]
+        sel = mask * channels.to(x.dtype)[..., None, None] * on
+        x = x * (1 - sel) + fill * sel
+    return x
+
+
+def local_gamma(x, bump, g, channels):
+    """The exponent goes from 1 to ``g`` (B, C) along the bump, on the
+    ``channels`` picked, over each channel's range."""
+    mn, mx = _channel_range(x)
+    xn = (x - mn) / (mx - mn + 1e-7)
+    expnt = bump * ((g - 1.0) * channels.to(x.dtype))[..., None, None] + 1.0
+    return torch.pow(xn.clamp_min(1e-7), expnt) * (mx - mn) + mn
+
+
 def apply_augment(data, seg, p: Dict[str, torch.Tensor], cfg: AugmentConfig):
-    """Apply drawn parameters in the JAX stack's order: noise, blur,
-    brightness, contrast, low resolution, inverted gamma, gamma, mirroring."""
+    """Apply drawn parameters in the JAX stack's order: (DA5) rot90 and
+    transpose; noise, blur (or DA5's median), brightness, contrast, low
+    resolution, inverted gamma, gamma, mirroring; (DA5) blank rectangles,
+    brightness gradient, local gamma, sharpening."""
     h, w = data.shape[-2:]
+    if "rot90_on" in p:
+        rd, rs = data, seg
+        for k in (1, 2, 3):
+            on = p["rot90_on"] & (p["rot90_k"] == k)
+            rd = _sel(on, torch.rot90(data, k, dims=(2, 3)), rd)
+            rs = _sel(on, torch.rot90(seg, k, dims=(1, 2)), rs)
+        data, seg = rd, rs
+    if "transpose_on" in p:
+        data = _sel(p["transpose_on"], data.transpose(2, 3), data)
+        seg = _sel(p["transpose_on"], seg.transpose(1, 2), seg)
     if "noise_on" in p:
         data = _sel(p["noise_on"], data + p["noise"] * _col(p["noise_var"], data).sqrt(), data)
     if "blur_on" in p:
-        data = _sel(p["blur_on"], blur(data, p["blur_sigma"]), data)
+        on = p["blur_on"] & ~p["median_pick"] if "median_pick" in p else p["blur_on"]
+        data = _sel(on, blur(data, p["blur_sigma"]), data)
+    if "median_pick" in p:
+        on = p["median_pick"] & p["median_on"]
+        if bool(on.any()):  # the filters are the stack's costliest: only when picked
+            med = data
+            for i, size in enumerate((3, 5, 7)):
+                med = _sel(p["median_size"] == i, median_filter(data, size), med)
+            data = _sel(on, med, data)
     if "brightness_on" in p:
-        data = _sel(p["brightness_on"], data * _col(p["brightness"], data), data)
+        if "brightness_shift" in p:  # DA5: additive, per channel
+            data = _sel(p["brightness_on"], data + p["brightness_shift"][..., None, None], data)
+        else:
+            data = _sel(p["brightness_on"], data * _col(p["brightness"], data), data)
     if "contrast_on" in p:
-        data = _sel(p["contrast_on"], contrast(data, p["contrast"]), data)
+        res = contrast(data, p["contrast"])
+        if "contrast_clip" in p:
+            mn, mx = _channel_range(data)
+            res = _sel(p["contrast_clip"], torch.minimum(torch.maximum(res, mn), mx), res)
+        data = _sel(p["contrast_on"], res, data)
     if "lowres_on" in p and h % 4 == 0 and w % 4 == 0:
         low = _sel(p["lowres_factor4"], lowres(data, 4), lowres(data, 2))
         data = _sel(p["lowres_on"], low, data)
     if "gamma_invert_on" in p:
         data = _sel(p["gamma_invert_on"], gamma(data, p["gamma_invert"], True), data)
     if "gamma_on" in p:
-        data = _sel(p["gamma_on"], gamma(data, p["gamma"], False), data)
+        data = _sel(p["gamma_on"], gamma(data, p["gamma"], cfg.gamma2_invert), data)
     if "mirror_h" in p:
         data = _sel(p["mirror_h"], data.flip(2), data)
         seg = _sel(p["mirror_h"], seg.flip(1), seg)
     if "mirror_w" in p:
         data = _sel(p["mirror_w"], data.flip(3), data)
         seg = _sel(p["mirror_w"], seg.flip(2), seg)
+    if "blank_on" in p:
+        n = torch.where(p["blank_on"], p["blank_n"], torch.zeros_like(p["blank_n"]))
+        data = blank_rectangles(data, p["blank_rects"], n, p["blank_channels"])
+    if "gradient_on" in p:
+        add = gaussian_bump(p["gradient_bump"], h, w) * p["gradient_strength"][..., None, None]
+        data = _sel(p["gradient_on"], data + add, data)
+    if "local_gamma_on" in p:
+        res = local_gamma(data, gaussian_bump(p["local_gamma_bump"], h, w), p["local_gamma"],
+                          p["local_gamma_channels"])
+        data = _sel(p["local_gamma_on"], res, data)
+    if "sharpen_on" in p:
+        mn, mx = _channel_range(data)
+        sharp = data + _col(p["sharpen_strength"], data) * laplacian(data)
+        data = _sel(p["sharpen_on"], torch.minimum(torch.maximum(sharp, mn), mx), data)
     return data, seg
 
 
@@ -328,7 +497,6 @@ def augment_batch(data, seg, cfg: AugmentConfig = AugmentConfig(),
                   generator: Optional[torch.Generator] = None):
     """The device stack on (B, C, H, W) data and (B, H, W) labels; the
     spatial transform runs on the host (``HostSpatialAugmenter``)."""
-    check_supported(cfg)
     if cfg.p_rotation > 0 or cfg.p_scaling > 0:
         raise NotImplementedError("device-side rotation/scaling is not ported; the "
                                   "trainer runs them on the host (HostSpatialAugmenter)")

@@ -3,8 +3,11 @@
 and ``data_loader_2d.py``): endless batches of random patches; the last
 ``round(batch * oversample)`` of each batch are centred on a sampled location
 of a randomly chosen present foreground class; crops leaving the case are
-padded with 0 (data) and -1 (labels). The numpy generator is seeded as the
-JAX package's, so both samplers give the same batches.
+padded with 0 (data) and -1 (labels). ``probabilistic_oversampling`` (the
+nnUNetTrainer_probabilisticOversampling family) draws each sample's
+foreground flag from the sampler's generator at ``oversample_fg`` instead, in
+the same place of the stream as the JAX package's draw. The numpy generator
+is seeded as the JAX package's, so both samplers give the same batches.
 
 The batch is assembled by the native crop (``ldiffusion_tpu_torch.native``);
 ``use_native=False`` takes the numpy crop, the oracle.
@@ -24,16 +27,26 @@ if TYPE_CHECKING:
 class PatchSampler:
     def __init__(self, dataset: "PreprocessedDataset", patch_size: Sequence[int],
                  batch_size: int, oversample_fg: float = 0.33, seed: int = 0,
-                 use_native: bool = True):
+                 use_native: bool = True, probabilistic_oversampling: bool = False):
         self.ds = dataset
         self.keys = dataset.keys()
         self.patch = tuple(patch_size)
         self.batch = batch_size
         self.oversample = oversample_fg
         self.use_native = use_native
+        self.probabilistic = probabilistic_oversampling
         self.rng = np.random.default_rng(seed)
 
+    @staticmethod
+    def effective_oversample_percent(batch_size: int, oversample_fg: float) -> float:
+        """The positional rule's foreground share over a batch (reference
+        ``nnUNetTrainer_probabilisticOversampling.__init__``): bs 2, 0.33 → 0.5."""
+        return float(np.mean([not i < round(batch_size * (1.0 - oversample_fg))
+                              for i in range(batch_size)]))
+
     def _must_be_fg(self, idx_in_batch: int) -> bool:
+        if self.probabilistic:
+            return bool(self.rng.random() < self.oversample)
         # reference base_data_loader.py:45-53
         return idx_in_batch >= round(self.batch * (1.0 - self.oversample))
 

@@ -2,7 +2,7 @@
 ``ldiffusion_tpu/diffusion/schedulers.py``. PyTorch runs eagerly, so the
 state's counter is a Python int and the branch on it is a Python ``if``; the
 per-step scalars are float32 as in the JAX package. DDIM and LMS wait
-(ROADMAP queue 1, *Long tail*).
+(ROADMAP queue 1, *The generation tail*).
 
 Quirk kept: with one inference step PNDM visits t=1 with prev_t=-999, whose
 alpha_bar is ``final_alpha_cumprod`` (alpha_bar[0] in the SD v1.5 config).

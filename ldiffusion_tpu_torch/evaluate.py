@@ -3,8 +3,8 @@ labels regime): a confusion matrix per image, Dice/IoU/pixel
 accuracy/FWIoU from it, the folder report and its CLI (reference
 ``evaluate.py:1-139``), the instance metrics PQ and AJI, and the
 nnU-Net-format validation ``summary.json`` (reference
-``evaluate_predictions.py:77-264``). The regions regime waits (ROADMAP
-queue 1, *Long tail*).
+``evaluate_predictions.py:77-264``), label- or region-keyed with the ground
+truth's ignore pixels left out (``ldiffusion_tpu/evaluate.py:257-382``).
 
     python -m ldiffusion_tpu_torch.evaluate --pred-dir P --gt-dir G --num-classes 11 --level cell
 """
@@ -107,16 +107,70 @@ def evaluate(pred_dir: str, gt_dir: str, num_classes: int, level: Optional[str] 
     return report
 
 
+def _region_mask(seg: np.ndarray, region_or_label) -> np.ndarray:
+    """reference ``evaluate_predictions.py:region_or_label_to_mask``."""
+    if isinstance(region_or_label, (tuple, list)):
+        return np.isin(seg, np.asarray(region_or_label))
+    return seg == region_or_label
+
+
+def _entry(tp, fp, fn, tn) -> Dict:
+    denom = 2 * tp + fp + fn
+    return {"Dice": float(2 * tp / denom) if denom > 0 else float("nan"),
+            "IoU": float(tp / (tp + fp + fn)) if (tp + fp + fn) > 0 else float("nan"),
+            "TP": float(tp), "FP": float(fp), "FN": float(fn), "TN": float(tn),
+            "n_pred": float(tp + fp), "n_ref": float(tp + fn)}
+
+
+def _summary(metric_per_case, keys, fg_keys, output_file) -> Dict:
+    """Case means of Dice and IoU per key (NaN-aware) and the foreground mean."""
+    mean: Dict[str, Dict[str, float]] = {}
+    for k in keys:
+        mean[k] = {}
+        for key in ("Dice", "IoU"):
+            vals = [m["metrics"][k][key] for m in metric_per_case]
+            vals = [v for v in vals if not np.isnan(v)]
+            mean[k][key] = float(np.mean(vals)) if vals else float("nan")
+    fg = [mean[k]["Dice"] for k in fg_keys if not np.isnan(mean[k]["Dice"])]
+    summary = {"metric_per_case": metric_per_case, "mean": mean,
+               "foreground_mean": {"Dice": float(np.mean(fg)) if fg else float("nan")}}
+    if output_file:
+        os.makedirs(os.path.dirname(output_file) or ".", exist_ok=True)
+        with open(output_file, "w") as f:
+            json.dump(summary, f, indent=2)
+    return summary
+
+
 def compute_metrics_on_folder(pred_dir: str, gt_dir: str, num_classes: int,
                               level: Optional[str] = None,
-                              output_file: Optional[str] = None) -> Dict:
+                              output_file: Optional[str] = None,
+                              regions_or_labels=None,
+                              ignore_label: Optional[int] = None) -> Dict:
     """Per-case TP/FP/FN/TN → Dice and IoU per label, their means over the
     cases (NaN-aware), and ``foreground_mean``; written to ``output_file``.
-    PNGs are paired by sorted name; ``level`` converts PUMA pixel codes."""
+    PNGs are paired by sorted name; ``level`` converts PUMA pixel codes.
+    ``regions_or_labels`` (label ints and/or region tuples) scores each entry
+    by membership masks, keyed ``str(entry)``, without the ground truth's
+    ``ignore_label`` pixels; otherwise every class of a confusion matrix."""
     preds = sorted(f for f in os.listdir(pred_dir) if f.lower().endswith(".png"))
     gts = sorted(f for f in os.listdir(gt_dir) if f.lower().endswith(".png"))
     if len(preds) != len(gts):
         raise ValueError(f"{len(preds)} predictions vs {len(gts)} references")
+    if regions_or_labels is not None:
+        metric_per_case = []
+        for pf, gf in zip(preds, gts):
+            pred = _load_mask(os.path.join(pred_dir, pf), level)
+            gt = _load_mask(os.path.join(gt_dir, gf), level)
+            use = np.ones(gt.shape, bool) if ignore_label is None else gt != ignore_label
+            metrics = {}
+            for r in regions_or_labels:
+                mr, mp = _region_mask(gt, r), _region_mask(pred, r)
+                metrics[str(r)] = _entry(np.sum(mr & mp & use), np.sum(~mr & mp & use),
+                                         np.sum(mr & ~mp & use), np.sum(~mr & ~mp & use))
+            metric_per_case.append({"prediction_file": pf, "reference_file": gf,
+                                    "metrics": metrics})
+        keys = [str(r) for r in regions_or_labels]
+        return _summary(metric_per_case, keys, keys, output_file)
     metric_per_case = []
     for pf, gf in zip(preds, gts):
         pred = _load_mask(os.path.join(pred_dir, pf), level)
@@ -127,38 +181,11 @@ def compute_metrics_on_folder(pred_dir: str, gt_dir: str, num_classes: int,
         fp = cm.sum(0) - tp
         fn = cm.sum(1) - tp
         tn = cm.sum() - tp - fp - fn
-        metrics = {}
-        for c in range(num_classes):
-            denom = 2 * tp[c] + fp[c] + fn[c]
-            metrics[str(c)] = {
-                "Dice": float(2 * tp[c] / denom) if denom > 0 else float("nan"),
-                "IoU": float(tp[c] / (tp[c] + fp[c] + fn[c]))
-                if (tp[c] + fp[c] + fn[c]) > 0 else float("nan"),
-                "TP": float(tp[c]), "FP": float(fp[c]),
-                "FN": float(fn[c]), "TN": float(tn[c]),
-                "n_pred": float(tp[c] + fp[c]), "n_ref": float(tp[c] + fn[c]),
-            }
+        metrics = {str(c): _entry(tp[c], fp[c], fn[c], tn[c]) for c in range(num_classes)}
         metric_per_case.append({"prediction_file": pf, "reference_file": gf,
                                 "metrics": metrics})
-    mean: Dict[str, Dict[str, float]] = {}
-    for c in range(num_classes):
-        mean[str(c)] = {}
-        for key in ("Dice", "IoU"):
-            vals = [m["metrics"][str(c)][key] for m in metric_per_case]
-            vals = [v for v in vals if not np.isnan(v)]
-            mean[str(c)][key] = float(np.mean(vals)) if vals else float("nan")
-    fg_dice = [mean[str(c)]["Dice"] for c in range(1, num_classes)
-               if not np.isnan(mean[str(c)]["Dice"])]
-    summary = {
-        "metric_per_case": metric_per_case,
-        "mean": mean,
-        "foreground_mean": {"Dice": float(np.mean(fg_dice)) if fg_dice else float("nan")},
-    }
-    if output_file:
-        os.makedirs(os.path.dirname(output_file) or ".", exist_ok=True)
-        with open(output_file, "w") as f:
-            json.dump(summary, f, indent=2)
-    return summary
+    keys = [str(c) for c in range(num_classes)]
+    return _summary(metric_per_case, keys, keys[1:], output_file)
 
 
 # ---------------------------------------------------------------------------

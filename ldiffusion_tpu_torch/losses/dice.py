@@ -1,15 +1,18 @@
-"""The stage-2 segmentor's loss (counterpart of
-``ldiffusion_tpu/losses/dice.py:32-156``; reference
+"""The stage-2 segmentor's losses (counterpart of
+``ldiffusion_tpu/losses/dice.py:32-156, 213-284``; reference
 ``training/loss/{dice,robust_ce_loss,compound_losses,deep_supervision}.py``):
 soft Dice over (batch and) spatial axes without the background class, robust
-cross-entropy, their sum, and the deep-supervision weighting (1/2^i, the
-lowest scale zeroed, normalised); and the cell level's evaluation metric,
-``micro_dice`` (``ldiffusion_tpu/losses/dice.py:179-194``).
+cross-entropy, their sum, TopK cross-entropy (the hardest k% pixels, optional
+label smoothing), focal loss and DC+focal; for the regions regime the sigmoid
+family (BCE, sigmoid soft Dice, DC+BCE, sigmoid focal, DC+sigmoid focal); the
+deep-supervision weighting (1/2^i, the lowest scale zeroed, normalised); and
+the cell level's evaluation metric, ``micro_dice``
+(``ldiffusion_tpu/losses/dice.py:179-194``).
 
-Layout: logits (B, C, *spatial), channels first; targets (B, *spatial) int.
-Computed in float32 whatever the logits' dtype. The loss mask of an ignore
-label (with the label managers), the TopK, focal and cell-level losses wait
-(ROADMAP queue 1, *Long tail*).
+Layout: logits (B, C, *spatial), channels first; targets (B, *spatial) int,
+or (B, R, *spatial) region maps for the sigmoid family; ``loss_mask``
+(B, *spatial), 0 on ignored pixels. Computed in float32 whatever the
+logits' dtype.
 """
 from __future__ import annotations
 
@@ -32,36 +35,147 @@ def _one_hot(targets, num_classes: int):
 SMOOTH = 1e-5
 
 
-def soft_dice_loss(logits, targets, batch_dice: bool = True):
-    """1 − mean soft Dice over the foreground classes (reference
-    ``dice.py:58-119``)."""
-    c = logits.shape[1]
-    probs = torch.softmax(logits.float(), dim=1)
-    onehot = _one_hot(targets, c)
+def _dice_from(probs, onehot, batch_dice: bool, smooth: float, include_background: bool):
     spatial = tuple(range(2, probs.dim()))
     axes = (0,) + spatial if batch_dice else spatial
     tp = (probs * onehot).sum(dim=axes)
     fp = (probs * (1.0 - onehot)).sum(dim=axes)
     fn = ((1.0 - probs) * onehot).sum(dim=axes)
-    tp, fp, fn = tp[..., 1:], fp[..., 1:], fn[..., 1:]
-    dc = (2 * tp + SMOOTH) / torch.clamp(2 * tp + fp + fn + SMOOTH, min=1e-8)
+    if not include_background:
+        tp, fp, fn = tp[..., 1:], fp[..., 1:], fn[..., 1:]
+    dc = (2 * tp + smooth) / torch.clamp(2 * tp + fp + fn + smooth, min=1e-8)
     return 1.0 - dc.mean()
 
 
-def robust_cross_entropy(logits, targets):
-    """Mean CE over the pixels (reference ``robust_ce_loss.py:6-15``);
-    targets outside [0, C) are clamped, as the JAX package does."""
+def soft_dice_loss(logits, targets, loss_mask=None, batch_dice: bool = True,
+                   smooth: float = SMOOTH):
+    """1 − mean soft Dice over the foreground classes (reference
+    ``dice.py:58-119``); ``smooth`` 0 is the noSmooth variant."""
+    probs = torch.softmax(logits.float(), dim=1)
+    onehot = _one_hot(targets, logits.shape[1])
+    if loss_mask is not None:
+        m = loss_mask.float().unsqueeze(1)
+        probs, onehot = probs * m, onehot * m
+    return _dice_from(probs, onehot, batch_dice, smooth, include_background=False)
+
+
+def _nll(logits, targets):
+    """(−log p[target] (B, *spatial), log p (B, C, *spatial)); targets
+    outside [0, C) are clamped, as the JAX package does."""
     c = logits.shape[1]
     logp = torch.log_softmax(logits.float(), dim=1)
     idx = targets.long().clamp(0, c - 1).unsqueeze(1)
-    return -logp.gather(1, idx).mean()
+    return -logp.gather(1, idx).squeeze(1), logp
 
 
-def dc_and_ce_loss(logits, targets, batch_dice: bool = True):
+def _masked_mean(values, loss_mask):
+    if loss_mask is None:
+        return values.mean()
+    m = loss_mask.float()
+    return (values * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def robust_cross_entropy(logits, targets, loss_mask=None):
+    """Mean CE over the unmasked pixels (reference ``robust_ce_loss.py:6-15``)."""
+    return _masked_mean(_nll(logits, targets)[0], loss_mask)
+
+
+def topk_cross_entropy(logits, targets, k_percent: float = 10.0,
+                       label_smoothing: float = 0.0, loss_mask=None):
+    """TopK CE (reference ``robust_ce_loss.py:18-31``): the mean of the
+    ``max(1, int(N·k/100))`` largest per-pixel losses of all N pixels. Masked
+    pixels are zeroed before the selection and stay in N, as the JAX package
+    does, so they only enter the top k once fewer than k pixels lose more
+    than 0. ``label_smoothing`` (Topk10LossLS01):
+    (1 − ε)·nll + ε·mean_c(−log p)."""
+    nll, logp = _nll(logits, targets)
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll - label_smoothing * logp.mean(dim=1)
+    if loss_mask is not None:
+        nll = nll * loss_mask.float()
+    nll = nll.reshape(-1)
+    k = max(1, int(nll.numel() * k_percent / 100.0))
+    return torch.topk(nll, k, sorted=False).values.mean()
+
+
+def focal_loss(logits, targets, alpha: float = 1.0, gamma: float = 2.0, loss_mask=None):
+    """Softmax focal loss α(1 − p_t)^γ·CE, the masked mean (reference
+    ``compound_losses.py:152-181``)."""
+    ce = _nll(logits, targets)[0]
+    return _masked_mean(alpha * (1.0 - torch.exp(-ce)) ** gamma * ce, loss_mask)
+
+
+def dc_and_ce_loss(logits, targets, loss_mask=None, batch_dice: bool = True,
+                   smooth: float = SMOOTH):
     """nnU-Net's default compound, Dice + CE (reference
     ``compound_losses.py:8-57``)."""
-    return soft_dice_loss(logits, targets, batch_dice=batch_dice) + \
-        robust_cross_entropy(logits, targets)
+    return soft_dice_loss(logits, targets, loss_mask, batch_dice, smooth) + \
+        robust_cross_entropy(logits, targets, loss_mask)
+
+
+def dc_and_focal_loss(logits, targets, loss_mask=None, batch_dice: bool = True):
+    """Dice + focal (reference ``compound_losses.py:183-207``). As in the JAX
+    package, the mask reaches the Dice term only."""
+    return soft_dice_loss(logits, targets, loss_mask, batch_dice) + focal_loss(logits, targets)
+
+
+# ---------------------------------------------------------------------------
+# the sigmoid family (regions)
+# ---------------------------------------------------------------------------
+
+def _bce(logits, targets):
+    lg = logits.float()
+    return lg.clamp_min(0) - lg * targets.float() + torch.log1p(torch.exp(-lg.abs()))
+
+
+def binary_cross_entropy_with_logits(logits, targets, loss_mask=None):
+    """Elementwise BCE over the region channels, the (masked) mean
+    (reference ``compound_losses.py:59-100``)."""
+    bce = _bce(logits, targets)
+    if loss_mask is None:
+        return bce.mean()
+    m = loss_mask.float().unsqueeze(1)
+    return (bce * m).sum() / torch.clamp(m.sum() * logits.shape[1], min=1.0)
+
+
+def soft_dice_loss_sigmoid(logits, region_targets, loss_mask=None, batch_dice: bool = True,
+                           smooth: float = SMOOTH):
+    """1 − mean soft Dice of sigmoid probabilities over every region."""
+    probs = torch.sigmoid(logits.float())
+    tgt = region_targets.float()
+    if loss_mask is not None:
+        m = loss_mask.float().unsqueeze(1)
+        probs, tgt = probs * m, tgt * m
+    return _dice_from(probs, tgt, batch_dice, smooth, include_background=True)
+
+
+def dc_and_bce_loss(logits, region_targets, loss_mask=None, batch_dice: bool = True):
+    """The reference's region compound (``compound_losses.py:59-100``)."""
+    return soft_dice_loss_sigmoid(logits, region_targets, loss_mask, batch_dice) + \
+        binary_cross_entropy_with_logits(logits, region_targets, loss_mask)
+
+
+def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0,
+                       loss_mask=None):
+    """α(1 − p_t)^γ·BCE, the mean; with a mask, its sum over the masked
+    pixels' channels divided by the masked pixel count (reference
+    ``compound_losses.py:152-170, 197-200``)."""
+    tg = targets.float()
+    p = torch.sigmoid(logits.float())
+    p_t = tg * p + (1 - tg) * (1 - p)
+    fl = alpha * (1 - p_t) ** gamma * _bce(logits, targets)
+    if loss_mask is None:
+        return fl.mean()
+    m = loss_mask.float().unsqueeze(1)
+    return (fl * m).sum() / torch.clamp(m.sum(), min=1e-8)
+
+
+def dc_and_focal_sigmoid_loss(logits, region_targets, loss_mask=None,
+                              batch_dice: bool = True):
+    """The regions regime's training loss (reference
+    ``nnUNetTrainer.py:350-355``, ``compound_losses.py:173-207``)."""
+    return soft_dice_loss_sigmoid(logits, region_targets, loss_mask, batch_dice) + \
+        sigmoid_focal_loss(logits, region_targets, loss_mask=loss_mask)
 
 
 def deep_supervision_weights(n: int):

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ldiffusion_tpu_torch.models.clip_text import CLIPTextConfig
-from ldiffusion_tpu_torch.models.dynunet import DynUNetConfig
+from ldiffusion_tpu_torch.models.dynunet import DynUNetConfig, encoder_blocks
 from ldiffusion_tpu_torch.models.resnet import ResNetConfig
 from ldiffusion_tpu_torch.models.safetensors_io import load_state_dict
 from ldiffusion_tpu_torch.models.unet import UNet2DConditionConfig
@@ -227,11 +227,25 @@ def clip_text_rows(num_layers: int) -> List[Row]:
 
 
 def dynunet_rows(config: DynUNetConfig) -> List[Row]:
+    """Plain blocks ``enc_{s}_{c}/{conv,norm}``; residual encoder blocks
+    ``enc_{s}_{c}/{conv1,norm1,conv2,norm2}`` and, where the shape changes,
+    ``downsample_{conv,norm}`` (``ldiffusion_tpu/models/dynunet.py:121-153``)."""
     rows: List[Row] = []
-    for s in range(config.n_stages):
-        for c in range(config.n_conv_per_stage):
-            rows += [(f"enc_{s}_{c}.conv", f"enc_{s}_{c}/conv", "conv"),
-                     (f"enc_{s}_{c}.norm", f"enc_{s}_{c}/norm", "norm")]
+    cin = config.in_channels
+    for s, n_blocks in enumerate(encoder_blocks(config)):
+        feats = config.features_per_stage[s]
+        for c in range(n_blocks):
+            t, f = f"enc_{s}_{c}", f"enc_{s}_{c}"
+            if config.block_type == "plain":
+                rows += [(f"{t}.conv", f"{f}/conv", "conv"), (f"{t}.norm", f"{f}/norm", "norm")]
+            else:
+                for i in (1, 2):
+                    rows += [(f"{t}.conv{i}", f"{f}/conv{i}", "conv"),
+                             (f"{t}.norm{i}", f"{f}/norm{i}", "norm")]
+                if (c == 0 and config.strides[s] != 1) or cin != feats:
+                    rows += [(f"{t}.downsample_conv", f"{f}/downsample_conv", "conv"),
+                             (f"{t}.downsample_norm", f"{f}/downsample_norm", "norm")]
+            cin = feats
     for d in range(config.n_stages - 2, -1, -1):
         rows.append((f"up_{d}", f"up_{d}", "convT"))
         for c in range(config.n_conv_per_stage):
@@ -287,12 +301,35 @@ def clip_text_to_flax(state_dict, num_layers: int):
     return to_flax(clip_text_rows(num_layers), state_dict)
 
 
-def dynunet_from_flax(params, config: DynUNetConfig):
-    return from_flax(dynunet_rows(config), params)
+def dynunet_from_flax(params, config: DynUNetConfig, batch_stats=None):
+    """``batch_stats`` (a BatchNorm net's ``{path: {"mean", "var"}}``
+    collection) adds the norms' running statistics; without it the state
+    dict holds the parameters only (as for optimizer buffers)."""
+    sd = from_flax(dynunet_rows(config), params)
+    if batch_stats:
+        for tp, fp, kind in dynunet_rows(config):
+            if kind == "norm":
+                node = _node(batch_stats, fp)
+                sd[f"{tp}.running_mean"] = torch.tensor(np.asarray(node["mean"], np.float32))
+                sd[f"{tp}.running_var"] = torch.tensor(np.asarray(node["var"], np.float32))
+    return sd
 
 
 def dynunet_to_flax(state_dict, config: DynUNetConfig):
     return to_flax(dynunet_rows(config), state_dict)
+
+
+def dynunet_batch_stats_to_flax(state_dict, config: DynUNetConfig) -> dict:
+    """The running statistics as flax's ``batch_stats`` collection; ``{}``
+    for InstanceNorm nets, as the JAX trainer writes."""
+    stats: dict = {}
+    if config.norm == "batch":
+        for tp, fp, kind in dynunet_rows(config):
+            if kind == "norm":
+                for t, f in (("running_mean", "mean"), ("running_var", "var")):
+                    _set(stats, f"{fp}/{f}",
+                         state_dict[f"{tp}.{t}"].detach().float().cpu().numpy())
+    return stats
 
 
 def resnet_from_flax(variables: dict, config: ResNetConfig) -> Dict[str, torch.Tensor]:

@@ -1,9 +1,13 @@
-"""nnU-Net-style plain 2D UNet, counterpart of the plain-block, InstanceNorm
-``DynUNet`` of ``ldiffusion_tpu/models/dynunet.py``: per stage
-[conv3x3 → InstanceNorm → LeakyReLU(0.01)] × n, strided-conv downsampling,
+"""nnU-Net-style 2D UNet, counterpart of ``ldiffusion_tpu/models/dynunet.py``:
+per stage [conv3x3 → norm → LeakyReLU(0.01)] × n, strided-conv downsampling,
 transpose-conv upsampling with skip concat, 1x1 segmentation heads at every
 decoder stage (deep supervision). Submodule names follow the flax tree
 (``enc_{s}_{c}``, ``up_{d}``, ``dec_{d}_{c}``, ``seg_{d}``).
+
+``norm="instance"`` (nnU-Net's) or ``"batch"`` (nnUNetTrainerBN);
+``block_type="residual"`` makes the encoder stages BasicBlockD residual
+blocks (ResidualEncoderUNet, the ResEnc planners; ``n_blocks_per_stage``,
+the ResEnc-M schedule by default); the decoder stays plain.
 
 ``forward(x)`` (inference) returns the full-resolution logits only; with
 ``train=True`` and deep supervision it returns every head's logits, highest
@@ -11,8 +15,6 @@ resolution first, as ``ldiffusion_tpu/models/dynunet.py:198-217`` does.
 ``compute_dtype`` (e.g. bfloat16) runs the convolutions and norms in that
 dtype over parameters kept in theirs (float32 masters), as flax's
 ``dtype``/``param_dtype`` split does; None computes in the parameters' dtype.
-The residual encoder and BatchNorm variants wait (ROADMAP queue 1,
-*Long tail*).
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ class DynUNetConfig:
     deep_supervision: bool = True
     norm_eps: float = 1e-5
     negative_slope: float = 0.01
+    norm: str = "instance"
+    block_type: str = "plain"
+    n_blocks_per_stage: Tuple[int, ...] = ()
 
     @property
     def n_stages(self) -> int:
@@ -56,11 +61,51 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         var, mean = torch.var_mean(x.float(), dim=(2, 3), keepdim=True, correction=0)
         rstd = torch.rsqrt(var + self.eps)
         y = (x - mean.to(x.dtype)) * rstd.to(x.dtype)
         return y * self.weight.to(y.dtype)[:, None, None] + self.bias.to(y.dtype)[:, None, None]
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9)`` (torch's momentum 0.1): in training
+    the batch's statistics normalise and are folded into the running ones,
+    with the biased variance, as flax does (``nn.BatchNorm2d`` folds in the
+    unbiased one); in evaluation the running statistics normalise. Statistics
+    and the normalisation in float32, the output in x's dtype."""
+
+    momentum = 0.9
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x, train: bool = False):
+        xf = x.float()
+        if train:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        else:
+            var, mean = self.running_var, self.running_mean
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
+def _norm(cfg: "DynUNetConfig", channels: int) -> nn.Module:
+    if cfg.norm == "batch":
+        return BatchNorm(channels, cfg.norm_eps)
+    if cfg.norm != "instance":
+        raise ValueError(f"norm={cfg.norm!r}: use 'instance' or 'batch'")
+    return InstanceNorm(channels, cfg.norm_eps)
 
 
 def _conv(conv: nn.Module, x):
@@ -83,10 +128,56 @@ class ConvBlock(nn.Module):
         k = cfg.kernel_size
         self.negative_slope = cfg.negative_slope
         self.conv = nn.Conv2d(in_channels, features, k, stride=stride, padding=k // 2)
-        self.norm = InstanceNorm(features, cfg.norm_eps)
+        self.norm = _norm(cfg, features)
 
-    def forward(self, x):
-        return F.leaky_relu(self.norm(_conv(self.conv, x)), self.negative_slope)
+    def forward(self, x, train: bool = False):
+        return F.leaky_relu(self.norm(_conv(self.conv, x), train), self.negative_slope)
+
+
+class ResidualBlock(nn.Module):
+    """BasicBlockD (``ldiffusion_tpu/models/dynunet.py:121-153``):
+    conv(stride)-norm-lrelu → conv-norm, plus the input, through a 1x1
+    conv(stride) + norm when the shape changes; lrelu after the sum. The
+    strided 1x1 conv is computed as a 1x1 conv of the subsampled input (the
+    same numbers): PyTorch's CPU backward of a strided 1x1 conv over a
+    channels-last input corrupts the heap now and then."""
+
+    def __init__(self, in_channels: int, features: int, stride: int, cfg: DynUNetConfig):
+        super().__init__()
+        k = cfg.kernel_size
+        self.negative_slope = cfg.negative_slope
+        self.conv1 = nn.Conv2d(in_channels, features, k, stride=stride, padding=k // 2)
+        self.norm1 = _norm(cfg, features)
+        self.conv2 = nn.Conv2d(features, features, k, padding=k // 2)
+        self.norm2 = _norm(cfg, features)
+        self.stride = stride
+        self.projects = stride != 1 or in_channels != features
+        if self.projects:
+            self.downsample_conv = nn.Conv2d(in_channels, features, 1)
+            self.downsample_norm = _norm(cfg, features)
+
+    def forward(self, x, train: bool = False):
+        h = F.leaky_relu(self.norm1(_conv(self.conv1, x), train), self.negative_slope)
+        h = self.norm2(_conv(self.conv2, h), train)
+        if self.projects:
+            s = self.stride
+            x = self.downsample_norm(_conv(self.downsample_conv, x[:, :, ::s, ::s]), train)
+        return F.leaky_relu(h + x, self.negative_slope)
+
+
+# ResEnc-M encoder blocks a stage (nnUNetPlannerResEncM)
+RESENC_M_BLOCKS = (1, 3, 4, 6, 6, 6, 6)
+
+
+def encoder_blocks(cfg: DynUNetConfig) -> Tuple[int, ...]:
+    """Blocks a stage: ``n_conv_per_stage`` conv blocks (plain), or the
+    residual blocks of ``n_blocks_per_stage`` (the ResEnc-M schedule when
+    empty)."""
+    if cfg.block_type == "plain":
+        return (cfg.n_conv_per_stage,) * cfg.n_stages
+    if cfg.block_type != "residual":
+        raise ValueError(f"block_type={cfg.block_type!r}: use 'plain' or 'residual'")
+    return tuple(cfg.n_blocks_per_stage or RESENC_M_BLOCKS[:cfg.n_stages])
 
 
 class DynUNet(nn.Module):
@@ -96,9 +187,11 @@ class DynUNet(nn.Module):
         self.config = cfg = config
         self.compute_dtype = compute_dtype
         cin = cfg.in_channels
+        block = ResidualBlock if cfg.block_type == "residual" else ConvBlock
+        self.blocks = encoder_blocks(cfg)
         for s, feats in enumerate(cfg.features_per_stage):
-            for c in range(cfg.n_conv_per_stage):
-                self.add_module(f"enc_{s}_{c}", ConvBlock(
+            for c in range(self.blocks[s]):
+                self.add_module(f"enc_{s}_{c}", block(
                     cin, feats, cfg.strides[s] if c == 0 else 1, cfg))
                 cin = feats
         for d in range(cfg.n_stages - 2, -1, -1):
@@ -115,21 +208,23 @@ class DynUNet(nn.Module):
     def forward(self, x, train: bool = False):
         """x: (B, C_in, H, W) → full-resolution logits (B, classes, H, W)
         float32; with ``train`` and deep supervision, the list of every
-        head's logits, highest resolution first."""
+        head's logits, highest resolution first. ``train`` also makes
+        BatchNorm layers normalise with the batch and update their running
+        statistics, as flax's ``train``."""
         cfg = self.config
         dtype = self.compute_dtype or self.seg_0.weight.dtype
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         skips = []
         for s in range(cfg.n_stages):
-            for c in range(cfg.n_conv_per_stage):
-                x = getattr(self, f"enc_{s}_{c}")(x)
+            for c in range(self.blocks[s]):
+                x = getattr(self, f"enc_{s}_{c}")(x, train)
             skips.append(x)
         heads = []
         every_head = train and cfg.deep_supervision
         for d in range(cfg.n_stages - 2, -1, -1):
             x = torch.cat([_conv_transpose(getattr(self, f"up_{d}"), x), skips[d]], dim=1)
             for c in range(cfg.n_conv_per_stage):
-                x = getattr(self, f"dec_{d}_{c}")(x)
+                x = getattr(self, f"dec_{d}_{c}")(x, train)
             if every_head or d == 0:
                 heads.append(_conv(getattr(self, f"seg_{d}"), x).float())
         return heads[::-1] if every_head else heads[-1]

@@ -120,7 +120,7 @@ def crop_with_pad_batch_native(cases: Sequence[Tuple[np.ndarray, np.ndarray]],
     nd = len(patch)
     if nd != 2:
         raise NotImplementedError("the 3D crop is not ported yet (ROADMAP queue 1, "
-                                  "*Long tail*)")
+                                  "*The 3D / cascade pathway*)")
     lib = load_library()
     B = len(cases)
     data_ptrs = (ctypes.c_void_p * B)()

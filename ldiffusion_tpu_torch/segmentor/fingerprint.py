@@ -3,7 +3,8 @@
 ``fingerprint_extractor.py:18-199``): per case the crop-to-nonzero shape and
 up to 10k sampled foreground intensities per channel (≤ 1e7 in all),
 aggregated to mean/std/percentiles. Natural 2D images have the spacing
-(999, 1, 1). The 3D fingerprint waits (ROADMAP queue 1, *Long tail*)."""
+(999, 1, 1). The 3D fingerprint waits (ROADMAP queue 1, *The 3D / cascade
+pathway*)."""
 from __future__ import annotations
 
 import json

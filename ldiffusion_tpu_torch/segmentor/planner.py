@@ -6,8 +6,7 @@ reference ``default_experiment_planner.py:371-500``) for the default planner.
 The constants are the JAX package's, including the 8 GiB activation budget
 priced in bf16, so both packages write the same ``plans.json`` for the same
 fingerprint. Planning against the H100's memory would be a feature the JAX
-package lacks. The residual-encoder planner waits (ROADMAP queue 1,
-*Long tail*)."""
+package lacks."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,7 +17,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from ldiffusion_tpu_torch.models.dynunet import DynUNetConfig
+from ldiffusion_tpu_torch.models.dynunet import RESENC_M_BLOCKS, DynUNetConfig
 
 MAX_FEATURES_2D = 512
 BASE_FEATURES = 32
@@ -50,14 +49,14 @@ class SegPlan:
     remat_decoder: bool = False
 
     def network_config(self) -> DynUNetConfig:
-        if self.block_type != "plain":
-            raise NotImplementedError(
-                f"block_type={self.block_type!r}: the residual-encoder DynUNet is not "
-                "ported yet (ROADMAP queue 1, *Long tail*)")
+        """``remat_decoder`` is the JAX package's memory knob; the port has
+        no counterpart and ignores it."""
         return DynUNetConfig(in_channels=self.in_channels, num_classes=self.num_classes,
                              features_per_stage=self.features_per_stage,
                              strides=self.strides, n_conv_per_stage=self.n_conv_per_stage,
-                             deep_supervision=self.deep_supervision)
+                             deep_supervision=self.deep_supervision,
+                             block_type=self.block_type,
+                             n_blocks_per_stage=tuple(self.n_blocks_per_stage))
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
@@ -115,26 +114,29 @@ def _estimate_bytes(patch, features, strides, in_ch, num_classes) -> float:
 
 def plan_experiment(fingerprint: Dict, num_classes: int,
                     planner: str = "default") -> SegPlan:
-    """The default planner (``ldiffusion_tpu/segmentor/planner.py:136-193``):
-    the patch starts at the median cropped shape, halves its largest axis
-    until one sample fits half the budget, and the batch fills the budget,
-    capped at 5% of the dataset's pixels (at least 2)."""
-    if planner != "default":
-        raise NotImplementedError(f"planner={planner!r}: only the default planner is "
-                                  "ported (ROADMAP queue 1, *Long tail*)")
+    """``ldiffusion_tpu/segmentor/planner.py:136-193``: the patch starts at
+    the median cropped shape, halves its largest axis until one sample fits
+    half the budget, and the batch fills the budget, capped at 5% of the
+    dataset's pixels (at least 2). ``planner="resenc"``: the same rules with
+    2.3× the activations, and the residual encoder with the ResEnc-M
+    schedule."""
+    if planner not in ("default", "resenc"):
+        raise ValueError(f"planner={planner!r}: use 'default' or 'resenc'")
+    resenc = planner == "resenc"
+    act_scale = 2.3 if resenc else 1.0
     shapes = np.asarray(fingerprint["shapes_after_crop"], np.int64)
     median_shape = tuple(int(x) for x in np.median(shapes, axis=0))
     in_ch = int(fingerprint.get("num_channels", 3))
 
     features, strides, patch = _topology(tuple(median_shape))
-    while _estimate_bytes(patch, features, strides, in_ch, num_classes) \
+    while act_scale * _estimate_bytes(patch, features, strides, in_ch, num_classes) \
             > HBM_BUDGET_BYTES / MIN_BATCH and min(patch) > 2 * MIN_EDGE:
         axis = int(np.argmax(patch))
         new_patch = list(patch)
         new_patch[axis] = max(MIN_EDGE, new_patch[axis] // 2)
         features, strides, patch = _topology(tuple(new_patch))
 
-    per_sample = _estimate_bytes(patch, features, strides, in_ch, num_classes)
+    per_sample = act_scale * _estimate_bytes(patch, features, strides, in_ch, num_classes)
     batch = max(MIN_BATCH, int(HBM_BUDGET_BYTES / per_sample))
     total_px = float(np.sum(shapes[:, 0] * shapes[:, 1]))
     cap = max(MIN_BATCH, int(round(DATASET_COVERAGE_CAP * total_px /
@@ -145,4 +147,6 @@ def plan_experiment(fingerprint: Dict, num_classes: int,
         n_conv_per_stage=2, num_classes=num_classes, in_channels=in_ch,
         normalization="zscore_image",
         intensity_properties=fingerprint.get("foreground_intensity_properties_per_channel", {}),
-        median_shape=median_shape, batch_dice=True)
+        median_shape=median_shape, batch_dice=True,
+        block_type="residual" if resenc else "plain",
+        n_blocks_per_stage=tuple(RESENC_M_BLOCKS[:len(features)]) if resenc else ())

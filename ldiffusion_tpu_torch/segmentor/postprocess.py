@@ -34,30 +34,35 @@ def remove_all_but_largest_component(seg: np.ndarray, labels) -> np.ndarray:
 
 
 def _mean_fg_dice(preds: Sequence[np.ndarray], gts: Sequence[np.ndarray],
-                  num_classes: int) -> float:
-    """Mean foreground Dice of one confusion matrix over every case."""
+                  num_classes: int, ignore_label=None) -> float:
+    """Mean foreground Dice of one confusion matrix over every case, without
+    the ground truth's ``ignore_label`` pixels."""
     cm = np.zeros((num_classes, num_classes), np.int64)
     for p, g in zip(preds, gts):
+        if ignore_label is not None:
+            keep = np.asarray(g) != ignore_label
+            p, g = np.asarray(p)[keep], np.asarray(g)[keep]
         cm += confusion_matrix(p, g, num_classes)
     return float(np.mean(metrics_from_cm(cm)["dice_per_class"][1:]))
 
 
 def determine_postprocessing(preds: Sequence[np.ndarray], gts: Sequence[np.ndarray],
-                             num_classes: int) -> List[Dict]:
+                             num_classes: int, ignore_label=None) -> List[Dict]:
     """The keep-largest-component steps that improve the mean foreground Dice
-    (``ldiffusion_tpu/segmentor/postprocess.py:57-82``)."""
+    (``ldiffusion_tpu/segmentor/postprocess.py:57-82``), scored without the
+    ground truth's ``ignore_label`` pixels."""
     steps: List[Dict] = []
     cur = [p.copy() for p in preds]
-    base = _mean_fg_dice(cur, gts, num_classes)
+    base = _mean_fg_dice(cur, gts, num_classes, ignore_label)
     fg_labels = list(range(1, num_classes))
     cand = [remove_all_but_largest_component(p, fg_labels) for p in cur]
-    score = _mean_fg_dice(cand, gts, num_classes)
+    score = _mean_fg_dice(cand, gts, num_classes, ignore_label)
     if score > base:
         steps.append({"fn": "remove_all_but_largest_component", "labels": fg_labels})
         cur, base = cand, score
     for c in range(1, num_classes):
         cand = [remove_all_but_largest_component(p, c) for p in cur]
-        score = _mean_fg_dice(cand, gts, num_classes)
+        score = _mean_fg_dice(cand, gts, num_classes, ignore_label)
         if score > base:
             steps.append({"fn": "remove_all_but_largest_component", "labels": [c]})
             cur, base = cand, score

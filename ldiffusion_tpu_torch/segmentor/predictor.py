@@ -1,20 +1,31 @@
 """Sliding-window prediction with gaussian blending and mirror TTA
-(counterpart of ``ldiffusion_tpu/segmentor/predictor.py``, 2D, without a
-label manager).
+(counterpart of ``ldiffusion_tpu/segmentor/predictor.py:107-343``, 2D).
 
-Pad to at least the patch, tile with step 0.5 x patch (evenly spread starts),
-weight each tile's logits by a centred gaussian (sigma = patch/8, floored at
-its least nonzero value), average the logits over all 4 flip combinations,
-average the folds' logits, argmax to a uint8 mask. The four mirrored copies
-of a tile run as one batch of 4 (InstanceNorm is per sample, so this equals
-four separate passes); the tile loop is a Python loop over device tensors.
+Pad to at least the patch, tile with step ``tile_step_size`` x patch (evenly
+spread starts), weight each tile's logits by a centred gaussian (sigma =
+patch/8, floored at its least nonzero value), average the logits over every
+flip combination of the allowed mirror axes (4 by default; the trainer
+variant's ``inference_mirror_config`` restricts them), average the folds'
+logits. The mask: plain argmax, or with a label manager its regime's
+conversion (regions paint in ``regions_class_order`` where the logit > 0;
+plain labels map the argmax through the label values). The mirrored copies
+of a tile run as one batch (InstanceNorm is per sample and a BatchNorm net
+evaluates with its running statistics, so this equals separate passes); the
+tile loop is a Python loop over device tensors.
+
+BatchNorm checkpoints (nnUNetTrainerBN, a non-empty ``batch_stats``) build a
+BatchNorm DynUNet that evaluates with their running statistics. The JAX
+predictor builds its net from the plan alone, so it evaluates such a
+checkpoint with InstanceNorm over the BatchNorm affine parameters (ROADMAP
+queue 3); the port does not follow it there.
 """
 from __future__ import annotations
 
+import dataclasses
 import glob
 import itertools
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,20 +70,34 @@ def gaussian_importance_map(patch: Tuple[int, int], sigma_scale: float = 1.0 / 8
     return g
 
 
-def find_fold_checkpoints(config_dir: str) -> List[str]:
-    """Best (falling back to final) checkpoint of each ``fold_*`` directory;
-    a flat layout (no fold directories) is searched directly."""
-    dirs = sorted(d for d in glob.glob(os.path.join(config_dir, "fold_*"))
-                  if os.path.isdir(d)) or [config_dir]
+def find_fold_checkpoints(config_dir: str, folds=None,
+                          checkpoint_name: Optional[str] = None) -> List[str]:
+    """Best (falling back to final) checkpoint of each ``fold_*`` directory,
+    or of the ``folds`` given (a missing one is skipped with a warning); a
+    flat layout (no fold directories) is searched directly.
+    ``checkpoint_name`` (``-chk``) takes that one file name. Raises when
+    nothing is found."""
+    if folds is None:
+        dirs = sorted(d for d in glob.glob(os.path.join(config_dir, "fold_*"))
+                      if os.path.isdir(d)) or [config_dir]
+    else:
+        dirs = [os.path.join(config_dir, f"fold_{f}") for f in folds]
+    names = (checkpoint_name,) if checkpoint_name else \
+        ("checkpoint_best.pkl", "checkpoint_final.pkl")
     ckpts = []
     for d in dirs:
-        for name in ("checkpoint_best.pkl", "checkpoint_final.pkl"):
+        for name in names:
             p = os.path.join(d, name)
             if os.path.exists(p):
                 ckpts.append(p)
                 break
+        else:
+            if folds is not None:
+                print(f"WARNING: no checkpoint in {d} — fold skipped "
+                      "(ensembling over the trained folds only)")
     if not ckpts:
-        raise FileNotFoundError(f"no checkpoint_best/final.pkl under {config_dir}")
+        raise FileNotFoundError(f"no {checkpoint_name or 'checkpoint_best/final.pkl'} under "
+                                f"{config_dir} (folds={folds if folds is not None else 'all'})")
     return ckpts
 
 
@@ -84,19 +109,36 @@ def _zscore(image):
 
 
 class SlidingWindowPredictor:
-    def __init__(self, plan: SegPlan, state_dicts, dtype=torch.bfloat16, device=None):
-        """``state_dicts``: one DynUNet state dict per fold (logits averaged)."""
+    def __init__(self, plan: SegPlan, state_dicts, dtype=torch.bfloat16, device=None,
+                 label_manager=None, use_mirroring: bool = True, mirror_axes=None,
+                 tile_step_size: float = 0.5):
+        """``state_dicts``: one DynUNet state dict per fold (logits
+        averaged); one holding running statistics is a BatchNorm net.
+        ``mirror_axes``: the spatial axes TTA may flip (None: both)."""
         if len(plan.patch_size) != 2:
             raise NotImplementedError("the 3D pathway is not ported yet "
-                                      "(ROADMAP queue 1, *Long tail*)")
+                                      "(ROADMAP queue 1, *The 3D / cascade pathway*)")
+        if not 0 < tile_step_size <= 1:
+            raise ValueError(f"tile_step_size={tile_step_size}: use (0, 1]")
         self.plan = plan
         self.device = resolve_device(device)
+        self.label_manager = label_manager
+        self.tile_step_size = float(tile_step_size)
+        allowed = range(2) if mirror_axes is None else mirror_axes
+        axes = tuple(sorted(a + 2 for a in allowed if 0 <= a < 2))  # NCHW array axes
+        self.flips = [()]
+        if use_mirroring:
+            self.flips += [c for r in range(1, len(axes) + 1)
+                           for c in itertools.combinations(axes, r)]
         if isinstance(state_dicts, dict):
             state_dicts = [state_dicts]
         self.nets = []
         for sd in state_dicts:
+            cfg = plan.network_config()
+            if any(k.endswith("running_mean") for k in sd):
+                cfg = dataclasses.replace(cfg, norm="batch")
             with torch.device("meta"):  # no initialisation: the weights come next
-                net = DynUNet(plan.network_config())
+                net = DynUNet(cfg)
             net.to_empty(device=self.device).load_state_dict(sd)
             self.nets.append(net.to(dtype=dtype, memory_format=torch.channels_last).eval())
         self.gauss = torch.from_numpy(gaussian_importance_map(tuple(plan.patch_size))).to(
@@ -104,26 +146,25 @@ class SlidingWindowPredictor:
 
     @classmethod
     def from_checkpoints(cls, plan: SegPlan, paths: Sequence[str], **kw):
-        """Fold ensembling over the JAX trainer's checkpoints."""
-        cfg = plan.network_config()
+        """Fold ensembling over the trainers' checkpoints (either package's);
+        a non-empty ``batch_stats`` makes the fold a BatchNorm net."""
         sds = []
         for p in paths:
             ck = load_pytree(p)
+            cfg = plan.network_config()
             if ck.get("batch_stats"):
-                raise NotImplementedError(f"{p}: BatchNorm DynUNet checkpoints are not "
-                                          "ported yet (ROADMAP queue 1, *Long tail*)")
-            sds.append(dynunet_from_flax(ck["params"], cfg))
+                cfg = dataclasses.replace(cfg, norm="batch")
+            sds.append(dynunet_from_flax(ck["params"], cfg, ck.get("batch_stats")))
         return cls(plan, sds, **kw)
 
     def _tile_logits(self, net, tile):
-        """(1, C, ph, pw) → (classes, ph, pw) float32, mirror-averaged."""
-        flips = ([], [2], [3], [2, 3])  # none, H, W, both
-        batch = torch.cat([tile.flip(f) if f else tile for f in flips])
+        """(1, C, ph, pw) → (classes, ph, pw) float32, averaged over the flips."""
+        batch = torch.cat([tile.flip(f) if f else tile for f in self.flips])
         out = net(batch)
         logits = out[0]
-        for i, f in enumerate(flips[1:], start=1):
+        for i, f in enumerate(self.flips[1:], start=1):
             logits = logits + out[i].flip([a - 1 for a in f])
-        return logits / float(len(flips))
+        return logits / float(len(self.flips))
 
     def _blended(self, net, image, positions):
         """(C, H, W) padded image → (classes, H, W) gaussian-blended logits."""
@@ -149,18 +190,32 @@ class SlidingWindowPredictor:
         pad_h, pad_w = max(0, ph - h), max(0, pw - w)
         if pad_h or pad_w:
             chw = torch.nn.functional.pad(chw, (0, pad_w, 0, pad_h))
-        ys, xs = compute_steps(chw.shape[1], ph), compute_steps(chw.shape[2], pw)
+        ys = compute_steps(chw.shape[1], ph, self.tile_step_size)
+        xs = compute_steps(chw.shape[2], pw, self.tile_step_size)
         positions = list(itertools.product(ys, xs))
         out = self._blended(self.nets[0], chw, positions)
         for net in self.nets[1:]:
             out = out + self._blended(net, chw, positions)
         return (out / len(self.nets))[:, :h, :w]
 
+    def _to_seg(self, logits):
+        """(classes, H, W) → (H, W) uint8 by the label regime, on the device."""
+        lm = self.label_manager
+        if lm is None:
+            return logits.argmax(dim=0).to(torch.uint8)
+        if lm.has_regions:  # sigmoid(x) > 0.5 ⇔ x > 0
+            seg = torch.zeros(logits.shape[1:], dtype=torch.uint8, device=logits.device)
+            for i, cls in enumerate(lm.regions_class_order):
+                seg[logits[i] > 0] = cls
+            return seg
+        labels = torch.tensor(sorted(lm.all_labels), dtype=torch.uint8, device=logits.device)
+        return labels[logits.argmax(dim=0)]
+
     def seg(self, image, normalize: bool = True):
         """(H, W, C) tensor → (H, W) uint8 segmentation, on the device (the
         ``traced_seg`` counterpart: only the mask needs to reach the host)."""
         with torch.inference_mode():
-            return self.logits(image, normalize).argmax(dim=0).to(torch.uint8)
+            return self._to_seg(self.logits(image, normalize))
 
     def predict_logits(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
         """(H, W, C) numpy → (H, W, classes) float32 numpy."""
@@ -171,3 +226,11 @@ class SlidingWindowPredictor:
     def predict(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
         """(H, W, C) numpy → (H, W) uint8 segmentation."""
         return self.seg(torch.from_numpy(np.asarray(image, np.float32)), normalize).cpu().numpy()
+
+    def predict_probabilities(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
+        """(H, W, classes) probabilities under the regime's nonlinearity
+        (sigmoid for regions, else softmax), on the host as the JAX package
+        computes them: the ``--save_probabilities`` payload."""
+        from ldiffusion_tpu_torch.segmentor.export import inference_nonlin
+
+        return inference_nonlin(self.predict_logits(image, normalize), self.label_manager)

@@ -5,8 +5,10 @@ normalisation scheme ``plan_experiment`` emits), and at most 10k
 sampled locations per foreground class for oversampling. PNG cases have unit
 spacing, so resampling is the identity. ``PreprocessedDataset`` stores the
 cases in memory or as ``<case>.npz`` + ``<case>.json`` in the JAX package's
-layout. The other normalisation schemes, the preprocessor plugin point, the
-3D path and the resampler wait (ROADMAP queue 1, *Long tail*).
+layout. ``-preprocessor_name`` resolves through ``get_preprocessor``
+(``ldiffusion_tpu/segmentor/preprocess.py:183-220``). The other
+normalisation schemes, the 3D path and the resampler wait (ROADMAP queue 1,
+*The 3D / cascade pathway*).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ldiffusion_tpu_torch.core.registry import find_class, register
 from ldiffusion_tpu_torch.segmentor.fingerprint import crop_to_nonzero_bbox
 
 FG_LOCS_PER_CLASS = 10_000
@@ -66,6 +69,28 @@ def preprocess_case(image: np.ndarray, seg: np.ndarray, num_classes: int,
     return PreprocessedCase(data=zscore_normalize(image), seg=seg, properties=props)
 
 
+class DefaultPreprocessor:
+    """The ``-preprocessor_name`` plugin point (reference
+    ``plan_and_preprocess_entrypoints.py:49-53``): subclass and
+    ``@register("preprocessor")`` to change the per-case preprocessing."""
+
+    def run_case(self, image: np.ndarray, seg: np.ndarray, num_classes: int,
+                 seed: int = 1234) -> PreprocessedCase:
+        return preprocess_case(image, seg, num_classes, seed=seed)
+
+
+register("preprocessor")(DefaultPreprocessor)
+
+
+def get_preprocessor(name: Optional[str]) -> DefaultPreprocessor:
+    """``-preprocessor_name`` → an instance (the registry, then a walk over
+    ``ldiffusion_tpu_torch.segmentor``); an unknown name raises KeyError."""
+    if not name:
+        return DefaultPreprocessor()
+    return find_class("preprocessor", name,
+                      search_modules=["ldiffusion_tpu_torch.segmentor"])()
+
+
 class PreprocessedDataset:
     """Case-keyed preprocessed store (reference ``nnunet_dataset.py:11-111``):
     in memory, or npz-backed in a directory."""
@@ -78,11 +103,13 @@ class PreprocessedDataset:
     @classmethod
     def build(cls, images: Sequence[np.ndarray], segs: Sequence[np.ndarray],
               num_classes: int, case_ids: Optional[Sequence[str]] = None,
-              directory: Optional[str] = None) -> "PreprocessedDataset":
+              directory: Optional[str] = None,
+              preprocessor: Optional[DefaultPreprocessor] = None) -> "PreprocessedDataset":
         case_ids = case_ids or [f"case_{i:03d}" for i in range(len(images))]
+        preprocessor = preprocessor or DefaultPreprocessor()
         ds = cls(directory=directory)
         for cid, img, seg in zip(case_ids, images, segs):
-            ds.cases[cid] = preprocess_case(img, seg, num_classes)
+            ds.cases[cid] = preprocessor.run_case(img, seg, num_classes)
         if directory:
             ds.save(directory)
         return ds

@@ -1,34 +1,46 @@
-"""nnU-Net-style segmentor trainer, the default path (counterpart of
+"""nnU-Net-style segmentor trainer (counterpart of
 ``ldiffusion_tpu/segmentor/trainer.py``; reference ``nnUNetTrainer.py``).
 
-SGD-nesterov (lr 1e-2, momentum 0.99, coupled weight decay 3e-5) after
-``clip_grad_norm_(12)`` (the order of ``:204-212``: clip the raw gradients,
-then the optimizer adds wd·θ), PolyLR ``(1 − e/E)^0.9`` set once an epoch,
-deep-supervision DC+CE, the EMA(0.9) pseudo-Dice deciding
+The default recipe: SGD-nesterov (lr 1e-2, momentum 0.99, coupled weight
+decay 3e-5) after ``clip_grad_norm_(12)`` (the order of ``:204-212``: clip the
+raw gradients, then the optimizer adds wd·θ), PolyLR ``(1 − e/E)^0.9`` set
+once an epoch, deep-supervision DC+CE, the EMA(0.9) pseudo-Dice deciding
 ``checkpoint_best``, ``checkpoint_latest`` every ``save_every`` epochs and at
 the end, ``checkpoint_final``, and resuming (``continue_training``).
 
+A trainer variant (``segmentor/variants.py``, the ``-tr`` names) replaces the
+recipe's config, augmentation, loss (Dice, CE, TopK10 with or without label
+smoothing, Dice+TopK10, Dice+focal, Dice without smoothing), schedule (poly,
+cosine), optimizer (SGD; "Adam": ``torch.optim.Adam`` with the decay coupled
+into the clipped gradient, as the JAX chain ``add_decayed_weights`` →
+``adamw(wd=0)``; Adan, ``core/optim.py``), norm (BatchNorm for
+nnUNetTrainerBN), sampling (probabilistic oversampling), deep supervision,
+data order of the spatial transform and the mirror axes; the Benchmark
+recipes time 5 epochs, ``noDataLoading`` on one synthetic batch. A label
+manager (``segmentor/label_manager.py``) brings the regions regime (sigmoid
+heads trained with Dice + sigmoid focal on region maps, validated per region)
+and the ignore label (masked out of losses and metrics), through lookup tables
+indexed by label + 1.
+
 One train step (``:330-352``): device augmentation → labels ``max(seg, 0)``
 (the crop padding trains as background) → mode-pooled deep-supervision
-targets → loss → backward → clip → SGD. Patches come from ``PatchSampler``
-at the enlarged initial size, through the host rotation/scaling
-(``HostSpatialAugmenter``) in a prefetch thread.
+targets → loss → backward → clip → optimizer. Patches come from
+``PatchSampler`` at the enlarged initial size, through the host
+rotation/scaling (``HostSpatialAugmenter``) in a prefetch thread.
 
-Precision: the parameters and the momentum are float32; with
+Precision: the parameters and the optimizer state are float32; with
 ``compute_dtype="bfloat16"`` the DynUNet computes in bf16 over them (its
 ``compute_dtype``), with the norms' statistics and the losses in float32.
 
 Checkpoints are the JAX trainer's pickle layout (``save_pytree``):
-``params`` in the flax layout (``dynunet_to_flax``), ``step``,
-``batch_stats`` ``{}``, ``epoch``, ``best_ema``, ``logger``, ``plan``; the
+``params`` in the flax layout (``dynunet_to_flax``), ``batch_stats`` (a
+BatchNorm net's running statistics as flax's ``mean``/``var`` collection,
+else ``{}``), ``step``, ``epoch``, ``best_ema``, ``logger``, ``plan``; the
 JAX package's ``load_pytree`` and predictor read them. ``opt_state`` holds
-the port's own momentum buffers in the flax layout, so only the port
-resumes from them.
-
-Not ported (they raise ``NotImplementedError``, ROADMAP queue 1,
-*Long tail*): trainer variants, label managers (regions, ignore label), the
-BatchNorm, residual and 3D networks, ``load_pretrained``, the npz export of
-validation probabilities, multi-process validation (*Distribution*).
+the port's own optimizer buffers in the flax layout (``momentum``;
+``exp_avg``/``exp_avg_sq``; ``m``/``v``/``n``/``prev_grad``), so only the
+port resumes from them (ROADMAP queue 1, *The remaining CLI commands*).
+Multi-process validation waits for *Distribution*.
 """
 from __future__ import annotations
 
@@ -46,23 +58,30 @@ from ldiffusion_tpu_torch.core.checkpoint import load_pytree, save_pytree
 from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.core.logging import EpochLogger, TextLogger, dump_debug_json
+from ldiffusion_tpu_torch.core.optim import Adan
 from ldiffusion_tpu_torch.data.augment import (
     AugmentConfig,
     HostSpatialAugmenter,
     augment_batch,
-    check_supported,
     configure_spatial_da,
 )
 from ldiffusion_tpu_torch.data.patches import PatchSampler
 from ldiffusion_tpu_torch.data.prefetch import Prefetcher
-from ldiffusion_tpu_torch.losses.dice import dc_and_ce_loss, deep_supervision_loss
-from ldiffusion_tpu_torch.models.convert import dynunet_from_flax, dynunet_to_flax
+from ldiffusion_tpu_torch.losses import dice as losses
+from ldiffusion_tpu_torch.models.convert import (
+    dynunet_batch_stats_to_flax,
+    dynunet_from_flax,
+    dynunet_to_flax,
+)
 from ldiffusion_tpu_torch.models.dynunet import DynUNet
 from ldiffusion_tpu_torch.models.layers import init_random_
 from ldiffusion_tpu_torch.segmentor.planner import SegPlan
 from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
+from ldiffusion_tpu_torch.segmentor.variants import inference_mirror_config, lr_at_epoch
 
-_LATER = "is not ported yet (ROADMAP queue 1, *Long tail*)"
+# optimizer → the names of its per-parameter buffers in the checkpoint
+_OPT_BUFFERS = {"sgd": ("momentum_buffer",), "adam": ("exp_avg", "exp_avg_sq"),
+                "adan": ("m", "v", "n", "prev_grad")}
 
 
 def poly_lr(initial_lr: float, epoch: int, max_epochs: int, exponent: float = 0.9) -> float:
@@ -77,7 +96,9 @@ def _pools(s) -> bool:
 def downsample_seg(seg, s, num_labels: int):
     """Mode pool of (B, H, W) int labels over s×s windows
     (``ldiffusion_tpu/segmentor/trainer.py:752-769``): -1 votes as its own
-    label; ties go to the lowest value, as ``argmax`` takes the first."""
+    label; ties go to the lowest value, as ``argmax`` takes the first.
+    ``num_labels`` covers the largest label value (a region or ignore label
+    may exceed the head count)."""
     if isinstance(s, (tuple, list)):
         s = tuple(int(v) for v in s)
     onehot = F.one_hot((seg + 1).long(), num_labels + 1).permute(0, 3, 1, 2).float()
@@ -102,18 +123,28 @@ class SegmentorTrainer:
                  output_dir: str = "train_save/segmentor",
                  augment: Optional[AugmentConfig] = None, variant=None, label_manager=None,
                  device=None):
-        if variant is not None:
-            raise NotImplementedError(f"trainer variants {_LATER}")
-        if label_manager is not None:
-            raise NotImplementedError(f"label managers (regions, ignore label) {_LATER}")
+        """``variant``: a ``TrainerVariant`` (its config and augmentation
+        replace ``config`` and a missing ``augment``); ``label_manager``: the
+        dataset's ``LabelManager`` (regions, ignore label)."""
         if len(plan.patch_size) != 2:
-            raise NotImplementedError(f"3D plans {_LATER}")
+            raise NotImplementedError("3D plans are not ported yet "
+                                      "(ROADMAP queue 1, *The 3D / cascade pathway*)")
+        if label_manager is not None and label_manager.has_regions and \
+                plan.num_classes != label_manager.num_segmentation_heads:
+            raise ValueError(f"the plan has {plan.num_classes} heads, the regions "
+                             f"{label_manager.num_segmentation_heads}")
+        self.variant = variant
+        self.label_manager = label_manager
+        if variant is not None:
+            config = variant.config
+            augment = augment or variant.augment
+            if variant.mirror_axes_2d is not None:  # onlyMirror01: (0,) in 2D
+                augment = dataclasses.replace(augment, mirror_axes=variant.mirror_axes_2d)
         self.plan = plan
         self.cfg = config
         self.output_dir = output_dir
         self.device = resolve_device(device)
         self.augment_cfg = augment or AugmentConfig()
-        check_supported(self.augment_cfg)
         # rotation/scaling run on the host, from patches sampled at the
         # enlarged initial size (trainer.py:103-149)
         self.host_spatial = None
@@ -124,7 +155,9 @@ class SegmentorTrainer:
             self.train_patch_size = spatial.initial_patch_size
             self.augment_cfg = dataclasses.replace(self.augment_cfg,
                                                    rotation_max=spatial.rotation_max[0])
+            order0 = getattr(variant, "spatial_order0_data", False)
             self.host_spatial = HostSpatialAugmenter(self.augment_cfg, seed=config.seed + 17,
+                                                     data_order=0 if order0 else 1,
                                                      out_size=plan.patch_size)
             self.augment_cfg = dataclasses.replace(self.augment_cfg, p_rotation=0.0,
                                                    p_scaling=0.0)
@@ -132,17 +165,28 @@ class SegmentorTrainer:
         self.epoch_log = EpochLogger(config.ema_decay)
         self.current_epoch = 0
         self.best_ema: Optional[float] = None
+        self.disable_checkpointing = False  # --disable_checkpointing
 
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.net_config = plan.network_config()
+        if getattr(variant, "norm", "instance") == "batch":
+            self.net_config = dataclasses.replace(self.net_config, norm="batch")
         net = init_random_(DynUNet(self.net_config), torch.Generator().manual_seed(config.seed))
         self.net = net.to(self.device, memory_format=torch.channels_last)
         self.net.compute_dtype = self.compute_dtype
-        self.opt = torch.optim.SGD(self.net.parameters(), lr=config.initial_lr,
-                                   momentum=config.momentum, nesterov=True,
-                                   weight_decay=config.weight_decay)
+        self.opt_name = getattr(variant, "optimizer", "sgd")
+        params = self.net.parameters()
+        if self.opt_name == "adan":  # decoupled decay inside the step
+            self.opt = Adan(params, lr=config.initial_lr, weight_decay=config.weight_decay)
+        elif self.opt_name == "adam":  # L2 coupled into the clipped gradient
+            self.opt = torch.optim.Adam(params, lr=config.initial_lr,
+                                        weight_decay=config.weight_decay)
+        else:
+            self.opt = torch.optim.SGD(params, lr=config.initial_lr, momentum=config.momentum,
+                                       nesterov=True, weight_decay=config.weight_decay)
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self._make_luts()
         # measurements: host seconds a train iteration (ending in the loss
         # read), of patch sampling + host spatial DA a batch, a validation
         # case, a checkpoint write (outside the epoch_time stamp, as in JAX)
@@ -152,6 +196,29 @@ class SegmentorTrainer:
         self.checkpoint_seconds: List[float] = []
         dump_debug_json(os.path.join(output_dir, "debug.json"),
                         {"plan": plan.to_json(), "config": config.to_json()})
+
+    def _make_luts(self):
+        """Lookup tables indexed by label + 1 (``trainer.py:227-246``; row 0,
+        the -1 padding, is unreachable after ``max(seg, 0)``): the loss mask
+        (0 at the ignore label) and the regions' binary maps."""
+        self.region_lut = self.mask_lut = None
+        self.n_labels = self.plan.num_classes  # the mode pool's label count
+        lm = self.label_manager
+        if lm is None:
+            return
+        labels = list(lm.all_labels) + ([lm.ignore_label] if lm.has_ignore_label else [])
+        max_l = max(labels)
+        self.n_labels = max_l + 1
+        mask = torch.ones(max_l + 2)
+        if lm.has_ignore_label:
+            mask[lm.ignore_label + 1] = 0.0
+        self.mask_lut = mask.to(self.device)
+        if lm.has_regions:
+            lut = torch.zeros(max_l + 2, lm.num_segmentation_heads)
+            for ri, region in enumerate(lm.regions):
+                for lbl in region:
+                    lut[lbl + 1, ri] = 1.0
+            self.region_lut = lut.to(self.device)
 
     # ------------------------------------------------------------------
     def _to_device(self, data, seg):
@@ -168,29 +235,61 @@ class SegmentorTrainer:
             if len(out) >= n:
                 break
             if _pools(s):
-                cur = downsample_seg(cur, s, self.plan.num_classes)
+                cur = downsample_seg(cur, s, self.n_labels)
                 out.append(cur)
         return out
 
+    def _regime(self, seg):
+        """(targets, loss mask or None): region maps (B, R, H, W) for the
+        regions regime, else labels with the ignore label set to 0."""
+        if self.mask_lut is None:
+            return seg, None
+        idx = (seg + 1).clamp(0, self.mask_lut.shape[0] - 1)
+        mask = self.mask_lut[idx]
+        if self.region_lut is not None:
+            return self.region_lut[idx].permute(0, 3, 1, 2), mask
+        return torch.where(mask > 0, seg, torch.zeros_like(seg)), mask
+
     def _one_loss(self, logits, seg):
-        return dc_and_ce_loss(logits, seg, batch_dice=self.plan.batch_dice)
+        """The variant's loss of one head (``trainer.py:265-317``)."""
+        bd = self.plan.batch_dice
+        tgt, mask = self._regime(seg)
+        if self.region_lut is not None:
+            return losses.dc_and_focal_sigmoid_loss(logits, tgt, loss_mask=mask, batch_dice=bd)
+        v = self.variant
+        name = getattr(v, "loss", "dc_and_ce")
+        smooth = getattr(v, "dice_smooth", losses.SMOOTH)
+        if name == "dice":
+            return losses.soft_dice_loss(logits, tgt, mask, bd, smooth)
+        if name == "ce":
+            return losses.robust_cross_entropy(logits, tgt, mask)
+        if name == "topk10":
+            return losses.topk_cross_entropy(logits, tgt, label_smoothing=v.label_smoothing,
+                                             loss_mask=mask)
+        if name == "dc_and_topk10":
+            return losses.soft_dice_loss(logits, tgt, mask, bd, smooth) + \
+                losses.topk_cross_entropy(logits, tgt, loss_mask=mask)
+        if name == "dc_and_focal":
+            return losses.dc_and_focal_loss(logits, tgt, mask, bd)
+        return losses.dc_and_ce_loss(logits, tgt, mask, bd, smooth)
 
     def loss_and_grads(self, data, seg):
         """Forward + backward on an augmented (B, C, H, W) batch and its
-        (B, H, W) labels; leaves the raw gradients on the parameters.
-        Returns the loss, detached."""
+        (B, H, W) labels; leaves the raw gradients on the parameters (and
+        updates a BatchNorm net's running statistics). Returns the loss,
+        detached."""
         self.opt.zero_grad(set_to_none=True)
         seg = seg.clamp_min(0)  # RemoveLabelTransform(-1, 0)
         outputs = self.net(data, train=True)
         if not isinstance(outputs, list):
             outputs = [outputs]
-        loss = deep_supervision_loss(outputs, self.ds_targets(seg, len(outputs)),
-                                     self._one_loss)
+        loss = losses.deep_supervision_loss(outputs, self.ds_targets(seg, len(outputs)),
+                                            self._one_loss)
         loss.backward()
         return loss.detach()
 
     def apply_update(self, lr: Optional[float] = None):
-        """clip_grad_norm_ then the SGD step. Returns the norm before clipping."""
+        """clip_grad_norm_ then the optimizer step. Returns the norm before clipping."""
         if lr is not None:
             for group in self.opt.param_groups:
                 group["lr"] = lr
@@ -209,18 +308,62 @@ class SegmentorTrainer:
 
     @torch.no_grad()
     def val_step(self, data, seg):
-        """(loss, tp, fp, fn per class) of the full-resolution head."""
+        """(loss, tp, fp, fn per head) of the full-resolution head; the
+        regions regime thresholds the sigmoid at 0.5 and puts a zero
+        background column in front."""
         data, seg = self._to_device(data, seg)
         seg = seg.clamp_min(0)
         logits = self.net(data)
-        loss = self._one_loss(logits, seg)
+        bd = self.plan.batch_dice
+        tgt, mask = self._regime(seg)
+        if self.region_lut is not None:
+            loss = losses.dc_and_focal_sigmoid_loss(logits, tgt, loss_mask=mask, batch_dice=bd)
+            m = mask.unsqueeze(1)
+            ph = (torch.sigmoid(logits.float()) > 0.5).float() * m
+            th = tgt * m
+            axes = (0, 2, 3)
+            zero = torch.zeros(1, device=logits.device)
+            return (loss, *(torch.cat([zero, v.sum(dim=axes)])
+                            for v in (ph * th, ph * (1 - th), (1 - ph) * th)))
+        loss = losses.dc_and_ce_loss(logits, tgt, mask, bd)
         c = self.plan.num_classes
-        cm = torch.bincount((seg * c + logits.argmax(dim=1)).reshape(-1),
-                            minlength=c * c).reshape(c, c)
+        idx = (tgt * c + logits.argmax(dim=1)).reshape(-1)
+        if mask is not None:
+            idx = idx[mask.reshape(-1) > 0]
+        cm = torch.bincount(idx, minlength=c * c).reshape(c, c)
         tp = torch.diagonal(cm)
         return loss, tp, cm.sum(0) - tp, cm.sum(1) - tp
 
     # ------------------------------------------------------------------
+    def _iterators(self, train_ds, val_ds):
+        """(train, val) batch iterators: the samplers (positional or
+        probabilistic oversampling) through the host spatial DA in a prefetch
+        thread, or for ``noDataLoading`` one synthetic batch forever."""
+        cfg, v = self.cfg, self.variant
+        if getattr(v, "no_data_loading", False):
+            rng = np.random.default_rng(cfg.seed)
+            shape = (self.plan.batch_size, *self.plan.patch_size)
+            batch = (rng.random((*shape, self.net_config.in_channels), np.float32),
+                     rng.integers(0, max(2, self.plan.num_classes), shape).astype(np.int32))
+            return iter(lambda: batch, None), iter(lambda: batch, None)
+        probabilistic = bool(getattr(v, "probabilistic_oversampling", False))
+        oversample = cfg.oversample_fg
+        if getattr(v, "oversample_fg", None) is not None:
+            oversample = v.oversample_fg
+        elif probabilistic:
+            oversample = PatchSampler.effective_oversample_percent(self.plan.batch_size,
+                                                                   cfg.oversample_fg)
+        base = iter(PatchSampler(train_ds, self.train_patch_size, self.plan.batch_size,
+                                 oversample, seed=cfg.seed,
+                                 probabilistic_oversampling=probabilistic))
+        if self.host_spatial is not None:
+            base = (self.host_spatial(d, s) for d, s in base)
+        return (Prefetcher(_timed(base, self.host_batch_seconds)),
+                Prefetcher(iter(PatchSampler(val_ds, self.plan.patch_size,
+                                             self.plan.batch_size, oversample,
+                                             seed=cfg.seed + 1,
+                                             probabilistic_oversampling=probabilistic))))
+
     def run_training(self, train_ds: PreprocessedDataset, val_ds: PreprocessedDataset,
                      num_epochs: Optional[int] = None, continue_training: bool = False):
         cfg = self.cfg
@@ -233,28 +376,42 @@ class SegmentorTrainer:
                     self.load_checkpoint(path)
                     self.log(f"resumed from {name} at epoch {self.current_epoch}")
                     break
-        base = iter(PatchSampler(train_ds, self.train_patch_size, self.plan.batch_size,
-                                 cfg.oversample_fg, seed=cfg.seed))
-        if self.host_spatial is not None:
-            base = (self.host_spatial(d, s) for d, s in base)
-        train_iter = Prefetcher(_timed(base, self.host_batch_seconds))
-        val_iter = Prefetcher(iter(PatchSampler(val_ds, self.plan.patch_size,
-                                                self.plan.batch_size, cfg.oversample_fg,
-                                                seed=cfg.seed + 1)))
+        train_iter, val_iter = self._iterators(train_ds, val_ds)
         os.makedirs(self.output_dir, exist_ok=True)
         try:
             for epoch in range(self.current_epoch, num_epochs):
                 self._epoch(epoch, num_epochs, train_iter, val_iter)
         finally:
-            train_iter.close()
-            val_iter.close()
-        self.save_checkpoint(os.path.join(self.output_dir, "checkpoint_final.pkl"))
+            for it in (train_iter, val_iter):
+                if isinstance(it, Prefetcher):
+                    it.close()
+        if not self.disable_checkpointing:
+            self.save_checkpoint(os.path.join(self.output_dir, "checkpoint_final.pkl"))
         self._write_benchmark_result()
+        self.log_timing("training")
+
+    def log_timing(self, what: str):
+        """One ``timing <what> {json}`` line in ``training_log.txt``: the host
+        seconds of each iteration, batch (sampling + spatial DA), validation
+        case and checkpoint write, the device's peak allocated bytes, and the
+        host crop/resample calls by route, for callers that run the CLI in
+        a subprocess."""
+        from ldiffusion_tpu_torch import native
+
+        cuda = self.device.type == "cuda"
+        self.log(f"timing {what} " + json.dumps({
+            "iteration_s": self.iter_seconds, "host_batch_s": self.host_batch_seconds,
+            "validation_case_s": self.val_case_seconds,
+            "checkpoint_s": self.checkpoint_seconds,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(self.device) if cuda
+            else None,
+            "native_routes": native.launches_by_route}), also_print=False)
 
     def _epoch(self, epoch, num_epochs, train_iter, val_iter):
         cfg = self.cfg
         t0 = time.time()
-        lr = poly_lr(cfg.initial_lr, epoch, num_epochs)
+        lr = lr_at_epoch(self.variant, epoch, num_epochs) if self.variant is not None \
+            else poly_lr(cfg.initial_lr, epoch, num_epochs)
         self.epoch_log.log("lr", lr, epoch)
         self.net.train()
         tl = 0.0
@@ -267,8 +424,8 @@ class SegmentorTrainer:
 
         self.net.eval()
         vl = 0.0
-        c = self.plan.num_classes
-        tp, fp, fn = np.zeros(c), np.zeros(c), np.zeros(c)
+        n_heads = self.plan.num_classes + (1 if self.region_lut is not None else 0)
+        tp, fp, fn = np.zeros(n_heads), np.zeros(n_heads), np.zeros(n_heads)
         for _ in range(cfg.val_iters_per_epoch):
             l, tpi, fpi, fni = self.val_step(*next(val_iter))
             vl += float(l)
@@ -289,8 +446,10 @@ class SegmentorTrainer:
         self.current_epoch = epoch + 1
         if self.best_ema is None or ema > self.best_ema:
             self.best_ema = ema
-            self.save_checkpoint(os.path.join(self.output_dir, "checkpoint_best.pkl"))
-        if (epoch + 1) % cfg.save_every == 0 or epoch == num_epochs - 1:
+            if not self.disable_checkpointing:
+                self.save_checkpoint(os.path.join(self.output_dir, "checkpoint_best.pkl"))
+        if not self.disable_checkpointing and \
+                ((epoch + 1) % cfg.save_every == 0 or epoch == num_epochs - 1):
             self.save_checkpoint(os.path.join(self.output_dir, "checkpoint_latest.pkl"))
         self.epoch_log.plot_progress(os.path.join(self.output_dir, "progress.png"))
 
@@ -316,38 +475,57 @@ class SegmentorTrainer:
             json.dump(result, f, indent=2)
 
     # ------------------------------------------------------------------
-    def perform_actual_validation(self, val_images, val_labels, save_npz: bool = False):
-        """Sliding-window prediction of every validation case (mirror TTA,
-        z-score normalisation), PNGs beside the labels' in
-        ``validation_gt/``, ``summary.json`` and the ``postprocessing.json``
+    def perform_actual_validation(self, val_images, val_labels, save_npz: bool = False,
+                                  normalize: bool = True):
+        """Sliding-window prediction of every validation case (the variant's
+        mirror TTA, the label regime's mask), PNGs beside the labels' in
+        ``validation_gt/``, ``summary.json`` (region-keyed, ignore pixels
+        left out, under a label manager) and the ``postprocessing.json``
         decision (``trainer.py:567-703``, one process). val_images: (H, W, C)
-        arrays, diffusion-transformed; val_labels: (H, W) ints."""
+        arrays; val_labels: (H, W) ints. ``save_npz`` (``--npz``): each case's
+        probabilities too, ``case_NNN.npz``, from the same logits.
+        ``normalize=False`` for cases of the preprocessed store, which are
+        z-scored already."""
         from PIL import Image
 
         from ldiffusion_tpu_torch.evaluate import compute_metrics_on_folder
+        from ldiffusion_tpu_torch.segmentor.export import save_probabilities_npz
         from ldiffusion_tpu_torch.segmentor.postprocess import (
             determine_postprocessing,
             save_postprocessing,
         )
         from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
 
-        if save_npz:
-            raise NotImplementedError(f"the npz export of validation probabilities {_LATER}")
+        lm = self.label_manager
         out_dir = os.path.join(self.output_dir, "validation")
         os.makedirs(out_dir, exist_ok=True)
         gt_out = os.path.join(self.output_dir, "validation_gt")
         os.makedirs(gt_out, exist_ok=True)
+        use_mirroring, mirror_axes = inference_mirror_config(self.variant, 2)
         predictor = SlidingWindowPredictor(self.plan, [self.net.state_dict()],
-                                           dtype=self.compute_dtype, device=self.device)
+                                           dtype=self.compute_dtype, device=self.device,
+                                           label_manager=lm, use_mirroring=use_mirroring,
+                                           mirror_axes=mirror_axes)
         for i, (img, lab) in enumerate(zip(val_images, val_labels)):
             t0 = time.perf_counter()
-            seg = predictor.predict(np.asarray(img, np.float32))
+            img = np.asarray(img, np.float32)
+            if save_npz:  # one prediction: the logits feed both the npz and the mask
+                logits = predictor.predict_logits(img, normalize=normalize)
+                save_probabilities_npz(logits, os.path.join(out_dir, f"case_{i:03d}.npz"),
+                                       label_manager=lm)
+                seg = (lm.convert_logits_to_segmentation(logits) if lm is not None
+                       else np.argmax(logits, axis=-1).astype(np.uint8))
+            else:
+                seg = predictor.predict(img, normalize=normalize)
             self.val_case_seconds.append(time.perf_counter() - t0)
             Image.fromarray(seg).save(os.path.join(out_dir, f"case_{i:03d}.png"))
             Image.fromarray(np.asarray(lab, np.uint8)).save(
                 os.path.join(gt_out, f"case_{i:03d}.png"))
-        summary = compute_metrics_on_folder(out_dir, gt_out, self.plan.num_classes,
-                                            output_file=os.path.join(out_dir, "summary.json"))
+        summary = compute_metrics_on_folder(
+            out_dir, gt_out, self.plan.num_classes,
+            output_file=os.path.join(out_dir, "summary.json"),
+            regions_or_labels=lm.labels_or_regions_for_eval if lm is not None else None,
+            ignore_label=lm.ignore_label if lm is not None else None)
         preds, gts = [], []
         for f in sorted(os.listdir(out_dir)):
             if f.endswith(".png"):
@@ -356,28 +534,43 @@ class SegmentorTrainer:
                     preds.append(np.asarray(p))
                     gts.append(np.asarray(g))
         if preds:
-            steps = determine_postprocessing(preds, gts, self.plan.num_classes)
+            # painted region labels and the ignore label can exceed the head count
+            n_pp, ignore = self.plan.num_classes, None
+            if lm is not None:
+                n_pp = self.n_labels
+                ignore = lm.ignore_label
+            steps = determine_postprocessing(preds, gts, n_pp, ignore_label=ignore)
             save_postprocessing(steps, os.path.join(self.output_dir, "postprocessing.json"))
         self.log(f"final validation foreground dice: {summary['foreground_mean']['Dice']:.4f}")
+        self.log_timing("validation")
         return summary
 
     # ------------------------------------------------------------------
-    def _momentum_state(self):
-        """{parameter name: momentum buffer} (zeros before the first step)."""
+    def _opt_buffers(self, name: str):
+        """{parameter name: the optimizer's ``name`` buffer} (zeros before the
+        first step)."""
         out = {}
-        for name, p in self.net.named_parameters():
-            buf = self.opt.state.get(p, {}).get("momentum_buffer")
-            out[name] = torch.zeros_like(p) if buf is None else buf
+        for pname, p in self.net.named_parameters():
+            buf = self.opt.state.get(p, {}).get(name)
+            out[pname] = torch.zeros_like(p) if buf is None else buf
         return out
+
+    def _momentum_state(self):
+        """{parameter name: SGD momentum buffer}."""
+        return self._opt_buffers("momentum_buffer")
 
     def save_checkpoint(self, path: str):
         t0 = time.perf_counter()
+        sd = self.net.state_dict()
+        opt_state = {"learning_rate": float(self.opt.param_groups[0]["lr"])}
+        for name in _OPT_BUFFERS[self.opt_name]:
+            key = "momentum" if name == "momentum_buffer" else name
+            opt_state[key] = dynunet_to_flax(self._opt_buffers(name), self.net_config)
         save_pytree(path, {
-            "params": dynunet_to_flax(self.net.state_dict(), self.net_config),
-            "opt_state": {"momentum": dynunet_to_flax(self._momentum_state(), self.net_config),
-                          "learning_rate": float(self.opt.param_groups[0]["lr"])},
+            "params": dynunet_to_flax(sd, self.net_config),
+            "opt_state": opt_state,
             "step": np.asarray(self.step, np.int32),
-            "batch_stats": {},
+            "batch_stats": dynunet_batch_stats_to_flax(sd, self.net_config),
             "epoch": self.current_epoch,
             "best_ema": self.best_ema,
             "logger": self.epoch_log.state_dict(),
@@ -386,22 +579,46 @@ class SegmentorTrainer:
         self.checkpoint_seconds.append(time.perf_counter() - t0)
 
     def load_pretrained(self, path: str):
-        raise NotImplementedError(f"load_pretrained {_LATER}")
+        """``-pretrained_weights`` (reference ``load_pretrained_weights.py``):
+        the parameters whose flax path and shape match, from either package's
+        checkpoint, into the fresh net; the optimizer, epoch, logger and
+        running statistics stay as they are. Returns the transferred paths."""
+        from ldiffusion_tpu_torch.segmentor.pretrained import transfer_pretrained_weights
+
+        ck = load_pytree(path)
+        src = ck["params"] if isinstance(ck, dict) and "params" in ck else ck
+        sd = self.net.state_dict()
+        new, transferred, _ = transfer_pretrained_weights(
+            dynunet_to_flax(sd, self.net_config), src)
+        if not transferred:
+            raise ValueError(f"no shape-matched tensors in {path}")
+        sd.update(dynunet_from_flax(new, self.net_config,
+                                    dynunet_batch_stats_to_flax(sd, self.net_config)))
+        self.net.load_state_dict(sd)
+        self.log(f"pretrained weights: transferred {len(transferred)} tensors from {path}")
+        return transferred
 
     def load_checkpoint(self, path: str):
         """Resume from a checkpoint this trainer wrote."""
         ck = load_pytree(path)
-        if ck.get("batch_stats"):
-            raise NotImplementedError(f"{path}: BatchNorm checkpoints {_LATER}")
         opt_state = ck.get("opt_state")
-        if not (isinstance(opt_state, dict) and "momentum" in opt_state):
-            raise NotImplementedError(f"{path}: resuming from the JAX package's optax state "
-                                      "is not supported; its params load through the "
-                                      "predictor")
-        self.net.load_state_dict(dynunet_from_flax(ck["params"], self.net_config))
-        momentum = dynunet_from_flax(opt_state["momentum"], self.net_config)
-        for name, p in self.net.named_parameters():
-            self.opt.state[p]["momentum_buffer"] = momentum[name].to(p.device)
+        names = _OPT_BUFFERS[self.opt_name]
+        keys = ["momentum" if n == "momentum_buffer" else n for n in names]
+        if not (isinstance(opt_state, dict) and all(k in opt_state for k in keys)):
+            raise NotImplementedError(
+                f"{path}: resuming from another optimizer's state or the JAX package's "
+                "optax state is not ported (ROADMAP queue 1, *The remaining CLI "
+                "commands*); its params load through the predictor")
+        self.net.load_state_dict(dynunet_from_flax(ck["params"], self.net_config,
+                                                   ck.get("batch_stats")))
+        for name, key in zip(names, keys):
+            bufs = dynunet_from_flax(opt_state[key], self.net_config)
+            for pname, p in self.net.named_parameters():
+                self.opt.state[p][name] = bufs[pname].to(p.device)
+        if self.opt_name != "sgd":
+            for p in self.net.parameters():  # Adam keeps a float tensor, Adan an int
+                self.opt.state[p]["step"] = (torch.tensor(float(ck["step"]))
+                                             if self.opt_name == "adam" else int(ck["step"]))
         for group in self.opt.param_groups:
             group["lr"] = float(opt_state["learning_rate"])
         self.step = int(ck["step"])

@@ -200,6 +200,13 @@ from ldiffusion_tpu_torch.models.resnet import ResNetConfig
 image = np.random.default_rng(0).random((64, 64, 3)).astype(np.float32)
 FlowNetProposer.load_pretrained("transformed", n_iter=20, device="cpu").propose(image)
 CellSegClassifier(3, encoder_cfg=ResNetConfig.tiny(), device="cpu").predict_mask(image)
+# the segmentor CLI's parser and a trainer variant with a label manager
+from ldiffusion_tpu_torch.segmentor.cli import build_parser
+from ldiffusion_tpu_torch.segmentor.label_manager import LabelManager
+from ldiffusion_tpu_torch.segmentor.variants import get_variant
+build_parser().parse_args(["train", "-d", "1", "-tr", "nnUNetTrainerDA5"])
+assert get_variant("nnUNetTrainerAdan").optimizer == "adan"
+assert LabelManager({"background": 0, "a": (1, 2)}, [1]).has_regions
 # every module of the package, both training slices' included
 names = [m.name for m in pkgutil.walk_packages(ldiffusion_tpu_torch.__path__,
                                                "ldiffusion_tpu_torch.")]
@@ -209,7 +216,10 @@ for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
              "segmentor.fingerprint", "segmentor.splits", "segmentor.dataset_builder",
              "data.augment", "data.patches", "data.prefetch", "losses.dice", "native",
              "evaluate", "cell", "cell.instance", "cell.classifier", "models.resnet",
-             "models.tokenizer", "models.safetensors_io"):
+             "models.tokenizer", "models.safetensors_io", "core.paths", "core.registry",
+             "core.optim", "data.io", "segmentor.label_manager", "segmentor.variants",
+             "segmentor.pretrained", "segmentor.export", "segmentor.cli",
+             "segmentor.__main__", "ldiffusion"):
     assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu",

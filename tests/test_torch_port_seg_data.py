@@ -99,9 +99,13 @@ def test_plan_json_is_byte_equal(tmp_path, shapes, classes):
 
 
 def test_planner_variants_raise_naming_the_roadmap():
+    """The residual-encoder planner, which raised before it was ported, now
+    plans (``test_torch_port_seg_nets`` holds it against JAX); a name that
+    is neither planner raises."""
     fp = {"shapes_after_crop": [[64, 64]], "num_channels": 3}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan.plan_experiment(fp, 3, planner="resenc")
+    assert tplan.plan_experiment(fp, 3, planner="resenc").block_type == "residual"
+    with pytest.raises(ValueError, match="planner"):
+        tplan.plan_experiment(fp, 3, planner="nnUNetPlannerResEncM")
 
 
 @pytest.mark.parametrize("n", [1, 4, 7, 12])
@@ -340,6 +344,9 @@ def test_whole_augment_batch_with_fixed_draws_matches_jax(on):
 
 
 def test_draws_come_from_the_generator_and_da5_raises():
+    """The draws repeat from the same generator. The DA5 transforms, which
+    raised before they were ported, now run (``test_torch_port_da5`` holds
+    them against the JAX stack); device-side rotation and 3D still raise."""
     cfg = taug.AugmentConfig(p_rotation=0.0, p_scaling=0.0)
     a = taug.draw_augment_params((2, 3, 8, 8), cfg, torch.Generator().manual_seed(1))
     b = taug.draw_augment_params((2, 3, 8, 8), cfg, torch.Generator().manual_seed(1))
@@ -348,10 +355,10 @@ def test_draws_come_from_the_generator_and_da5_raises():
     x = torch.zeros(2, 3, 8, 8)
     for field, value in (("p_rot90", 0.5), ("p_median", 0.5), ("p_sharpen", 0.1),
                          ("brightness_additive_sigma", 0.5), ("gamma2_invert", True)):
-        bad = taug.AugmentConfig(p_rotation=0.0, p_scaling=0.0, **{field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            taug.augment_batch(x, torch.zeros(2, 8, 8, dtype=torch.long), bad,
-                               torch.Generator())
+        da5 = taug.AugmentConfig(p_rotation=0.0, p_scaling=0.0, **{field: value})
+        out, _ = taug.augment_batch(x, torch.zeros(2, 8, 8, dtype=torch.long), da5,
+                                    torch.Generator())
+        assert out.shape == x.shape and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError):
         taug.augment_batch(x, torch.zeros(2, 8, 8, dtype=torch.long), taug.AugmentConfig(),
                            torch.Generator())

@@ -205,23 +205,29 @@ def test_one_sgd_step_matches_jax(tmp_path):
 
 
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
+    """Variants, label managers, DA5 and the residual encoder, which raised
+    before they were ported, now build a trainer (their parity is in
+    ``test_torch_port_seg_variants``/``_label_regimes``/``_da5``/``_nets``);
+    a 3D plan still raises naming its ROADMAP item."""
+    from ldiffusion_tpu_torch.segmentor.label_manager import LabelManager
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant
+
     plan = SegPlan(**PLAN)
     cfg = SegmentorTrainConfig(compute_dtype="float32")
-    for kw in (dict(variant=object()), dict(label_manager=object()),
+    regions = LabelManager({"background": 0, "a": (1, 2, 3), "b": (2,)}, [1, 2])
+    for kw in (dict(variant=get_variant("nnUNetTrainerBN")),
+               dict(label_manager=LabelManager({f"c{i}": i for i in range(4)})),
                dict(augment=AugmentConfig(p_rot90=0.5))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.SegmentorTrainer(plan, cfg, output_dir=str(tmp_path), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.SegmentorTrainer(dataclasses.replace(plan, block_type="residual"), cfg,
-                                  output_dir=str(tmp_path), device="cpu")
+        ttrainer.SegmentorTrainer(plan, cfg, output_dir=str(tmp_path), device="cpu", **kw)
+    ttrainer.SegmentorTrainer(dataclasses.replace(plan, block_type="residual"), cfg,
+                              output_dir=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="heads"):  # 4 heads, 2 regions
+        ttrainer.SegmentorTrainer(plan, cfg, output_dir=str(tmp_path), device="cpu",
+                                  label_manager=regions)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.SegmentorTrainer(dataclasses.replace(plan, patch_size=(8, 8, 8)), cfg,
                                   output_dir=str(tmp_path), device="cpu")
 
-
-# ---------------------------------------------------------------------------
-# run_training, checkpoints, the final validation
-# ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
@@ -321,6 +327,12 @@ def test_final_validation_matches_jax_metrics_and_postprocessing(trained):
     with open(fold / "postprocessing.json") as f:
         assert json.load(f) == j_pp(preds, gts, 4)
     assert len(tr.val_case_seconds) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.perform_actual_validation(trained["images"][:1], trained["labels"][:1],
-                                     save_npz=True)
+    # --npz, which raised before it was ported: the probabilities beside the mask
+    tr.perform_actual_validation(trained["images"][:1], trained["labels"][:1], save_npz=True)
+    with np.load(fold / "validation" / "case_000.npz") as z:
+        probs = z["probabilities"]
+    assert probs.shape == (48, 48, 4) and probs.dtype == np.float16
+    np.testing.assert_allclose(probs.astype(np.float32).sum(-1), 1.0, atol=4e-3)
+    # the mask's class holds the largest float16 probability (ties allowed)
+    mask = np.asarray(Image.open(fold / "validation" / "case_000.png")).astype(np.int64)
+    assert (np.take_along_axis(probs, mask[..., None], -1)[..., 0] == probs.max(-1)).all()
