@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tissue inference, stage-1 training,
-stage-2 segmentor training, the cell level and the segmentor command line
-on one NVIDIA GPU.
+stage-2 segmentor training, the cell level, the 2D segmentor command line and
+its volumetric (3D) pathway on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -99,6 +99,27 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               seconds, s/iteration, peak memory, host ms a batch, validation
               s/case, predict s/ROI (from each run's ``timing`` log lines),
               DA5 device ms a batch, and one profiled iteration of A and B.
+  9. vol:     the volumetric pathway at the planner's full 3D width. First
+              the 3D pieces tiny and f32 on cuda against the CPU (one trainer
+              step of a cascade-width plan, the volumes' device DA with the
+              same draws, the 3D sliding window's logits; SEG_TINY_TOL, 1e-4).
+              Then 4 + 1 seeded 160x256x256 float32 volumes at spacing
+              (2.5, 0.8, 0.8) as a .npy dataset, through ``python -m
+              ldiffusion_tpu_torch.segmentor`` processes: plan_and_preprocess
+              (all three 3D configurations: 3d_fullres (80,128,128) batch 2,
+              32-320 features; 3d_lowres (112,96,96); the cascade), train -c
+              3d_lowres, 3d_cascade_fullres (1 + 2 input channels, fed by the
+              lowres stage), 3d_fullres (one epoch of VOL_ITERS iterations
+              each), predict -c 3d_fullres and -c 3d_cascade_fullres on the
+              test volume, evaluate_folder on fold 0's validation. Gates: the
+              plans, every 3D crop and resample native, finite losses, masks
+              of the input's shape with labels in {0, 1, 2}, the cascade's
+              cache and its log lines. Figures (``vol`` line): s/iteration,
+              peak memory, host ms a batch and validation s/case of each
+              configuration (the trainers' ``timing`` lines), predict seconds
+              a volume by step and network forwards (the ``timing predict``
+              line), and one profiled window of fullres iterations (device
+              idle share; none of the port's own kernels runs there).
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -207,17 +228,20 @@ def device_kernel_ms(prof) -> dict:
     return kernels
 
 
+PROFILE_ATTEMPTS = 8  # CUPTI now and then drops the records of a whole window
+
+
 def profiled_kernels_ms(fn, iters: int) -> dict:
     """Device time per call by kernel name: ``iters`` calls under
     torch.profiler, without the host time between them. A trace that holds
     fewer kernels than calls (each call launches at least one) is taken
-    again, up to three times, then raises."""
+    again, after a warm-up call, up to PROFILE_ATTEMPTS times, then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_ATTEMPTS):
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -657,6 +681,16 @@ def check_bf16_routes(where: str, routes: dict) -> None:
 
 
 INFERENCE_KERNELS = ("flash_attention_fwd", "groupnorm_silu")
+NATIVE_2D = ("crop_with_pad_batch", "affine_augment_batch")
+NATIVE_3D = ("crop_with_pad_batch_3d", "affine_augment_batch_3d")
+
+
+def check_native_routes(where: str, routes: dict, used) -> None:
+    """No host crop or resample took the numpy route, and each entry point
+    of ``used`` ran natively at least once."""
+    for name, by_route in routes.items():
+        if by_route["numpy"] or (name in used and not by_route["native"]):
+            raise AssertionError(f"{where}: {name} left the native route: {by_route}")
 
 
 class GnRouteWatch:
@@ -1307,9 +1341,7 @@ def phase_seg(work, seed):
     watch.check("seg", routes)
     if min(launches[k] for k in INFERENCE_KERNELS) == 0:
         raise AssertionError(f"seg: a kernel was not launched on the stage-2 path: {launches}")
-    for name, by_route in native_routes.items():
-        if by_route["numpy"] or not by_route["native"]:
-            raise AssertionError(f"seg: {name} left the native route: {by_route}")
+    check_native_routes("seg", native_routes, NATIVE_2D)
     plan = SegPlan.load(os.path.join(seg_dir, "plans.json"))
     if (tuple(plan.patch_size), tuple(plan.features_per_stage), tuple(plan.strides),
             plan.batch_size, plan.num_classes) != (*FULL_PLAN, 2, 7):
@@ -1911,9 +1943,7 @@ def cli_run_figures(fold_dir, commands):
     timing = cli_timing(fold_dir)
     train = timing["training"]
     routes = train["native_routes"]
-    for name, by_route in routes.items():
-        if by_route["numpy"] or not by_route["native"]:
-            raise AssertionError(f"cli: {name} left the native route in {fold_dir}: {by_route}")
+    check_native_routes(f"cli ({fold_dir})", routes, NATIVE_2D)
     return {"commands_s": commands,
             "s_per_iteration_median_after_first": float(np.median(train["iteration_s"][1:])),
             "iteration_s": train["iteration_s"],
@@ -2157,6 +2187,273 @@ def phase_cli(work, seed):
             "row": row}
 
 
+# ---------------------------------------------------------------------------
+# the volumetric (3D) segmentor pathway
+# ---------------------------------------------------------------------------
+
+VOL_TRAIN = 4                      # training volumes (fold 0: 3 train, 1 validation)
+VOL_SHAPE = (160, 256, 256)        # float32, 42 MB a volume
+VOL_SPACING = (2.5, 0.8, 0.8)      # anisotropic: 3.125 > ANISO_THRESHOLD, separate-z
+VOL_ITERS = 24                     # iterations of the one epoch of each configuration
+VOL_FULLRES = ((80, 128, 128), 2, (32, 64, 128, 256, 320, 320))
+VOL_LOWRES_PATCH = (112, 96, 96)
+VOL_MAX_FEATURES = 320             # the planner's 3D width (MAX_FEATURES_3D)
+
+
+def vol_tiny(work, seed):
+    """The 3D pieces, tiny and f32 on cuda against the CPU from the same
+    values: one trainer step of a cascade-width (1 + 2 channels) 3D plan with
+    batch Dice (DA off), the volumes' device DA with the same draws, and the
+    3D sliding window's logits from the stepped net."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
+    from ldiffusion_tpu_torch.data.augment import (
+        AugmentConfig,
+        apply_augment_3d,
+        draw_augment_params_3d,
+    )
+    from ldiffusion_tpu_torch.segmentor.planner3d import SegPlan3D
+    from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+
+    rng = np.random.default_rng(seed + 10)
+    plan = SegPlan3D(patch_size=(16, 32, 32), batch_size=2, spacing=VOL_SPACING,
+                     features_per_stage=(8, 16, 32), strides=((1, 1, 1), (1, 2, 2), (2, 2, 2)),
+                     kernel_sizes=((1, 3, 3), (3, 3, 3), (3, 3, 3)), n_conv_per_stage=2,
+                     num_classes=3, in_channels=1, normalization="zscore",
+                     median_shape=(16, 32, 32), batch_dice=True, previous_stage="3d_lowres")
+    cfg = SegmentorTrainConfig(compute_dtype="float32")
+    data = rng.normal(size=(2, 16, 32, 32, 3)).astype(np.float32)
+    seg = np.kron(rng.integers(-1, 3, (2, 4, 8, 8)), np.ones((1, 4, 4, 4), np.int64))
+    trainers, losses = {}, {}
+    for dev in ("cpu", "cuda"):  # the same seeded initialisation on both
+        tr = SegmentorTrainer(plan, cfg, output_dir=os.path.join(work, f"vol_tiny_{dev}"),
+                              augment=no_augment(), device=dev)
+        losses[dev] = float(tr.loss_and_grads(*tr._to_device(data, seg)))
+        tr.apply_update(lr=cfg.initial_lr)
+        trainers[dev] = tr
+    cpu, cuda = trainers["cpu"], trainers["cuda"]
+    errs = {"loss": abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"]),
+            "params": seg_tensor_err(cuda.net.state_dict(), cpu.net.state_dict()),
+            "momentum": seg_tensor_err(cuda._momentum_state(), cpu._momentum_state())}
+    every = AugmentConfig(p_noise=1.0, p_mirror=0.5)
+    x = torch.from_numpy(data).movedim(-1, 1)
+    drawn = draw_augment_params_3d(x.shape, every, torch.Generator().manual_seed(seed))
+    out_cpu = apply_augment_3d(x, torch.from_numpy(seg), drawn)
+    out_cuda = apply_augment_3d(x.cuda(), torch.from_numpy(seg).cuda(),
+                                {k: v.cuda() for k, v in drawn.items()})
+    errs["augment"] = float((out_cuda[0].cpu() - out_cpu[0]).abs().max())
+    if not torch.equal(out_cuda[1].cpu(), out_cpu[1]):
+        raise AssertionError("vol tiny: the 3D device DA moved the labels differently")
+    volume = rng.normal(size=(20, 40, 44, 3)).astype(np.float32)
+    logits = {dev: SlidingWindowPredictor(plan, [tr.net.state_dict()], dtype=torch.float32,
+                                          device=dev).predict_logits(volume)
+              for dev, tr in trainers.items()}
+    logit_err = float(np.abs(logits["cuda"] - logits["cpu"]).max() / np.abs(logits["cpu"]).max())
+    row = {"loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"], "errors": errs,
+           "tol": SEG_TINY_TOL, "predictor_logits_rel_err": logit_err,
+           "predictor_tol": CLI_TINY_TOL}
+    log("vol_tiny", json.dumps(row))
+    bad = {k: v for k, v in errs.items() if not v <= SEG_TINY_TOL[k]}
+    if bad or not logit_err <= CLI_TINY_TOL:
+        raise AssertionError(f"vol tiny: cuda vs cpu outside the tolerance: {bad} "
+                             f"(predictor {logit_err})")
+    return row
+
+
+def vol_dataset(raw, seed):
+    """Four training volumes and one test volume of VOL_SHAPE float32 with
+    the VOL_SPACING sidecar, drawn from the seed: a large ellipsoid (label 1)
+    holding a small one (label 2) at a random place, each a step brighter
+    than its surroundings, under Gaussian noise."""
+    import numpy as np
+
+    ds = os.path.join(raw, "Dataset300_Vol3D")
+    for sub in ("imagesTr", "labelsTr", "imagesTs", "labelsTs"):
+        os.makedirs(os.path.join(ds, sub), exist_ok=True)
+    rng = np.random.default_rng(seed + 11)
+    zz, yy, xx = np.ogrid[:VOL_SHAPE[0], :VOL_SHAPE[1], :VOL_SHAPE[2]]
+    for i in range(VOL_TRAIN + 1):
+        c = rng.uniform((50, 90, 90), (110, 166, 166))
+        r1, r2 = rng.uniform((28, 50, 50), (40, 75, 75)), rng.uniform((10, 18, 18), (16, 30, 30))
+        c2 = c + rng.uniform(-0.4, 0.4, 3) * (r1 - r2)
+        lab = np.zeros(VOL_SHAPE, np.uint8)
+        lab[((zz - c[0]) / r1[0]) ** 2 + ((yy - c[1]) / r1[1]) ** 2
+            + ((xx - c[2]) / r1[2]) ** 2 <= 1] = 1
+        lab[((zz - c2[0]) / r2[0]) ** 2 + ((yy - c2[1]) / r2[1]) ** 2
+            + ((xx - c2[2]) / r2[2]) ** 2 <= 1] = 2
+        vol = rng.standard_normal(VOL_SHAPE, dtype=np.float32) * np.float32(0.5) + 2.0
+        vol += lab.astype(np.float32)
+        split, case = ("Ts", "test_0") if i == VOL_TRAIN else ("Tr", f"vol_{i}")
+        np.save(os.path.join(ds, f"images{split}", f"{case}_0000.npy"), vol)
+        np.save(os.path.join(ds, f"labels{split}", f"{case}.npy"), lab)
+        with open(os.path.join(ds, f"images{split}", f"{case}_0000.json"), "w") as f:
+            json.dump({"spacing": list(VOL_SPACING)}, f)
+    with open(os.path.join(ds, "dataset.json"), "w") as f:
+        json.dump({"channel_names": {"0": "MR"},
+                   "labels": {"background": 0, "organ": 1, "lesion": 2},
+                   "numTraining": VOL_TRAIN, "file_ending": ".npy"}, f, indent=2)
+    return ds
+
+
+def vol_profile_window(pp_dir, seed, n=3):
+    """``n`` training iterations of the 3d_fullres plan as the CLI runs them
+    (bf16, the trainer's own sampler, host 3D DA and prefetch thread over the
+    preprocessed store) after two warm-up iterations, under the profiler; and
+    which of the port's own kernels they launched (none: the 3D net holds no
+    attention or GroupNorm)."""
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
+    from ldiffusion_tpu_torch.segmentor.plans_file import PlansFile
+    from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+
+    plan = PlansFile(os.path.join(pp_dir, "plans_3d.json")).get_configuration("3d_fullres")
+    ds = PreprocessedDataset.load(os.path.join(pp_dir, "ldPlans_3d_fullres"))
+    with tempfile.TemporaryDirectory() as out:
+        tr = SegmentorTrainer(plan, SegmentorTrainConfig(seed=seed), output_dir=out,
+                              device="cuda")
+        train_iter, val_iter = tr._iterators(ds, ds)
+        try:
+            for _ in range(2):
+                tr.train_step(*next(train_iter), lr=1e-3)
+            reset_counters()
+            prof = device_profile(lambda: [float(tr.train_step(*next(train_iter), lr=1e-3))
+                                           for _ in range(n)])
+            prof["launches"] = read_counters()
+        finally:
+            train_iter.close()
+            val_iter.close()
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof["iterations"] = n
+    return prof
+
+
+def phase_vol(work, seed):
+    """The volumetric nnU-Net command line on the card at the planner's full
+    3D width (module docstring, phase 9)."""
+    import numpy as np
+
+    from ldiffusion_tpu_torch.core.checkpoint import load_pytree
+    from ldiffusion_tpu_torch.segmentor.plans_file import PlansFile
+
+    tiny = vol_tiny(work, seed)
+    t0 = time.perf_counter()
+    raw = os.path.join(work, "vol_raw")
+    ds = vol_dataset(raw, seed)
+    data_s = time.perf_counter() - t0
+    pp, res = os.path.join(work, "vol_pp"), os.path.join(work, "vol_res")
+    env = {**os.environ, "LDIFFUSION_RAW": raw, "LDIFFUSION_PREPROCESSED": pp,
+           "LDIFFUSION_RESULTS": res, "PYTHONPATH": HERE}
+    commands, outputs = {}, {}
+
+    def user(name, *argv):  # the command as users call it: a process of its own
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ldiffusion_tpu_torch.segmentor", *argv],
+                              env=env, cwd=HERE, capture_output=True, text=True, timeout=900)
+        commands[name] = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"vol: {' '.join(argv)} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        outputs[name] = proc.stdout
+        return proc.stdout
+
+    did = ("-d", "300")
+    iters = ("--epochs", "1", "--iters", str(VOL_ITERS))
+    user("plan_and_preprocess", "plan_and_preprocess", *did)
+    for cfg in ("3d_lowres", "3d_cascade_fullres", "3d_fullres"):
+        user(f"train {cfg}", "train", *did, "-c", cfg, "-f", "0", *iters)
+    preds = {}
+    for cfg in ("3d_fullres", "3d_cascade_fullres"):
+        preds[cfg] = os.path.join(work, f"vol_pred_{cfg}")
+        user(f"predict {cfg}", "predict", "-i", os.path.join(ds, "imagesTs"), "-o", preds[cfg],
+             *did, "-c", cfg, "-f", "0")
+    fold_full = os.path.join(res, "Dataset300_Vol3D", "nnUNetTrainer__ldPlans__3d_fullres",
+                             "fold_0")
+    user("evaluate_folder", "evaluate_folder", os.path.join(fold_full, "validation_gt"),
+         os.path.join(fold_full, "validation"), "-djfile", os.path.join(ds, "dataset.json"))
+
+    # ---- gates
+    pp_dir = os.path.join(pp, "Dataset300_Vol3D")
+    pf = PlansFile(os.path.join(pp_dir, "plans_3d.json"))
+    plans = {name: pf.get_configuration(name) for name in pf.configuration_names()}
+    if set(plans) != {"3d_fullres", "3d_lowres", "3d_cascade_fullres"}:
+        raise AssertionError(f"vol: planned {sorted(plans)}")
+    full = plans["3d_fullres"]
+    if (tuple(full.patch_size), full.batch_size, tuple(full.features_per_stage)) != VOL_FULLRES:
+        raise AssertionError(f"vol: the fullres plan is not the planner's default: {full}")
+    if tuple(plans["3d_lowres"].patch_size) != VOL_LOWRES_PATCH or \
+            any(p.features_per_stage[-1] != VOL_MAX_FEATURES for p in plans.values()):
+        raise AssertionError(f"vol: the lowres plan: {plans['3d_lowres']}")
+    runs = {}
+    for cfg in ("3d_lowres", "3d_cascade_fullres", "3d_fullres"):
+        fold = os.path.join(res, "Dataset300_Vol3D", f"nnUNetTrainer__ldPlans__{cfg}", "fold_0")
+        timing = cli_timing(fold)
+        train = timing["training"]
+        check_native_routes(f"vol {cfg}", train["native_routes"], NATIVE_3D)
+        ck = load_pytree(os.path.join(fold, "checkpoint_final.pkl"))
+        losses = ck["logger"]["data"]["train_loss"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"vol: {cfg} trained to a non-finite loss {losses}")
+        with open(os.path.join(fold, "validation", "summary.json")) as f:
+            dice = json.load(f)["foreground_mean"]["Dice"]
+        it = train["iteration_s"]
+        runs[cfg] = {"s_per_iteration_median_last_half": float(np.median(it[len(it) // 2:])),
+                     "iteration_s": it,
+                     "host_ms_per_batch_median_after_first": float(
+                         np.median(train["host_batch_s"][1:]) * 1e3),
+                     "validation_s_per_case": timing["validation"]["validation_case_s"],
+                     "checkpoint_s": train["checkpoint_s"],
+                     "max_memory_allocated": max((t["max_memory_allocated"]
+                                                  for t in timing.values()
+                                                  if t["max_memory_allocated"] is not None),
+                                                 default=None),
+                     "train_loss": losses, "val_foreground_dice": dice,
+                     "native_routes": train["native_routes"],
+                     "in_channels": plans[cfg].network_config().in_channels,
+                     "command_s": commands[f"train {cfg}"]}
+    if runs["3d_cascade_fullres"]["in_channels"] != 1 + 2:
+        raise AssertionError("vol: the cascade's input is not 1 + 2 channels")
+    cached = os.path.join(pp_dir, "predicted_next_stage", "3d_cascade_fullres")
+    if len([f for f in os.listdir(cached) if f.endswith(".npy")]) != VOL_TRAIN:
+        raise AssertionError(f"vol: the lowres stage's cache holds {os.listdir(cached)}")
+    if "lowres-stage prediction(s)" not in outputs["train 3d_cascade_fullres"] or \
+            "consumed the lowres stage" not in outputs["predict 3d_cascade_fullres"]:
+        raise AssertionError("vol: the cascade did not report consuming the lowres stage")
+    predict = {}
+    for cfg, out in preds.items():
+        mask = np.load(os.path.join(out, "test_0.npy"))
+        if mask.shape != VOL_SHAPE or not set(np.unique(mask).tolist()) <= {0, 1, 2}:
+            raise AssertionError(f"vol: {cfg} mask {mask.shape} labels {np.unique(mask)}")
+        line = [ln for ln in outputs[f"predict {cfg}"].splitlines()
+                if ln.startswith("timing predict ")][-1]
+        predict[cfg] = {**json.loads(line[len("timing predict "):])[0],
+                        "command_s": commands[f"predict {cfg}"]}
+    with open(os.path.join(fold_full, "validation", "summary.json")) as f:
+        eval_dice = json.load(f)["foreground_mean"]["Dice"]
+
+    # ---- figures: one profiled window of fullres iterations
+    prof = vol_profile_window(pp_dir, seed)
+    if any(prof["launches"].values()) or prof["ours_by_kernel_ms"]:
+        raise AssertionError(f"vol: the 3D path launched the port's kernels: {prof['launches']}")
+    row = {"gpu": gpu_line(), "tiny": tiny["errors"],
+           "tiny_predictor_logits_rel_err": tiny["predictor_logits_rel_err"],
+           "plans": {k: {"patch": list(p.patch_size), "batch": p.batch_size,
+                         "spacing": list(p.spacing), "features": list(p.features_per_stage),
+                         "batch_dice": p.batch_dice} for k, p in plans.items()},
+           "dataset_write_s": data_s, "commands_s": commands,
+           "command_s_total": sum(commands.values()), "runs": runs, "predict": predict,
+           "fullres_validation_foreground_dice": eval_dice,
+           "profiled_fullres_window": prof}
+    log("vol", json.dumps(row))
+    return {"launches": prof["launches"], "row": row}
+
+
 def tr_batch(rng, size):
     """A (images, labels) batch of one synthetic size² ROI with 64² labels."""
     import numpy as np
@@ -2338,8 +2635,8 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli",
-                    help="comma-separated subset of kernels,tiny,full,train,seg,cell,cli")
+    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli,vol",
+                    help="comma-separated subset of kernels,tiny,full,train,seg,cell,cli,vol")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2416,6 +2713,8 @@ def main(argv=None) -> int:
                 if name not in launches:
                     launches[name] = cli_out["launches"][name]
                     routes[name] = cli_out["launches_by_route"][name]
+        if "vol" in phases:  # the 3D pathway: cuDNN convolutions, none of our kernels
+            by_path["vol"] = phase_vol(work, args.seed)["launches"]
 
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes, by_path)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

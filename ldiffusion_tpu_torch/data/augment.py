@@ -30,8 +30,16 @@ the stack's costliest, run only when a sample picked one (one host read of
 the flags).
 
 Layout: data (B, C, H, W) float32, seg (B, H, W) int. Rotation/scaling run
-on the host only; 3D raises ``NotImplementedError`` (ROADMAP queue 1, *The
-3D / cascade pathway*).
+on the host only.
+
+Volumes (``ldiffusion_tpu/data/augment.py:124-198, 540-566, 637-730``): the
+host applies an Euler rotation (±30° about each axis by default,
+``rotation_max_3d``) and scaling through the native trilinear resample
+(``HostSpatialAugmenter3D``), or, for an anisotropic patch (largest edge over
+the first > 3, "dummy 2D"), an in-plane rotation ±180° of every z slice with
+the sample's draws repeated across z; the device (``augment_batch_3d``)
+mirrors each allowed axis (p 0.5) and adds Gaussian noise (p 0.1), on
+(B, C, D, H, W) data and (B, D, H, W) labels.
 """
 from __future__ import annotations
 
@@ -42,7 +50,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ldiffusion_tpu_torch.native import affine_augment_batch_native
+from ldiffusion_tpu_torch.native import (
+    affine_augment_batch_3d_native,
+    affine_augment_batch_native,
+)
+
+ANISO_THRESHOLD = 3.0  # reference configuration.py:7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,11 +114,11 @@ class SpatialDAPlan:
 
 def get_initial_patch_size(final_patch_size, rot_x, rot_y, rot_z, scale_range) -> tuple:
     """The patch to sample so that rotation and zoom-out still see content at
-    the final patch's corners, 2D (reference
+    the final patch's corners (reference
     ``compute_initial_patch_size.py:get_patch_size``): the extent vector
-    rotated by the largest angle, the componentwise max, over the least
-    scale."""
-    del rot_y, rot_z  # 2D rotates about one axis only
+    rotated by each axis's largest angle (3D: about x, y and z in turn; 2D:
+    one rotation), the componentwise max, over the least scale. It rotates
+    the extent vector, not the corners, as the reference does."""
 
     def _max_abs(r):
         if isinstance(r, (tuple, list)):
@@ -113,29 +126,47 @@ def get_initial_patch_size(final_patch_size, rot_x, rot_y, rot_z, scale_range) -
         return min(np.pi / 2, abs(float(r)))
 
     coords = np.asarray(final_patch_size, np.float64)
-    if len(coords) != 2:
-        raise NotImplementedError("3D spatial augmentation is not ported yet "
-                                  "(ROADMAP queue 1, *The 3D / cascade pathway*)")
-    rx = _max_abs(rot_x)
-    c, s = np.cos(rx), np.sin(rx)
-    final = np.maximum(coords, np.abs(coords @ np.array([[c, -s], [s, c]])))
+    final = coords.copy()
+    if len(coords) == 3:
+        for axis, ang in enumerate((_max_abs(rot_x), _max_abs(rot_y), _max_abs(rot_z))):
+            c, s = np.cos(ang), np.sin(ang)
+            m = np.eye(3)
+            a, b = [i for i in range(3) if i != axis]
+            m[a, a] = m[b, b] = c
+            m[a, b] = s if axis == 1 else -s
+            m[b, a] = -s if axis == 1 else s
+            final = np.maximum(final, np.abs(coords @ m))
+    elif len(coords) == 2:
+        c, s = np.cos(_max_abs(rot_x)), np.sin(_max_abs(rot_x))
+        final = np.maximum(final, np.abs(coords @ np.array([[c, -s], [s, c]])))
     final = final / min(scale_range)
     return tuple(int(v) for v in final)
 
 
 def configure_spatial_da(patch_size, initial_scale_range=None) -> SpatialDAPlan:
-    """2D: aspect > 1.5 → rotation ±15°, else ±180°; mirror axes (0, 1); the
-    initial patch from the legacy (0.85, 1.25) scale range unless given."""
+    """From the patch geometry (reference ``nnUNetTrainer.py:375-431``):
+    2D: aspect > 1.5 → rotation ±15°, else ±180°; mirror axes (0, 1). 3D:
+    ``max(patch) / patch[0] > 3`` → dummy-2D (in-plane ±180° only, the first
+    axis's extent kept), else ±30° about each axis; mirror axes (0, 1, 2).
+    The initial patch from the legacy (0.85, 1.25) scale range unless given."""
     patch_size = tuple(int(p) for p in patch_size)
-    if len(patch_size) != 2:
-        raise NotImplementedError("3D spatial augmentation is not ported yet "
-                                  "(ROADMAP queue 1, *The 3D / cascade pathway*)")
+    dim = len(patch_size)
     scale = tuple(initial_scale_range or (0.85, 1.25))
-    rot = np.pi / 12 if max(patch_size) / min(patch_size) > 1.5 else np.pi
-    rotation = (rot, 0.0, 0.0)
+    do_dummy = False
+    if dim == 2:
+        rot = np.pi / 12 if max(patch_size) / min(patch_size) > 1.5 else np.pi
+        rotation, mirror_axes = (rot, 0.0, 0.0), (0, 1)
+    elif dim == 3:
+        do_dummy = max(patch_size) / patch_size[0] > ANISO_THRESHOLD
+        rotation = (np.pi, 0.0, 0.0) if do_dummy else (np.pi / 6,) * 3
+        mirror_axes = (0, 1, 2)
+    else:
+        raise ValueError(f"patch rank {dim}")
     initial = get_initial_patch_size(patch_size, *rotation, scale)
-    return SpatialDAPlan(rotation_max=rotation, do_dummy_2d=False,
-                         initial_patch_size=initial, mirror_axes=(0, 1))
+    if do_dummy:
+        initial = (patch_size[0], *initial[1:])
+    return SpatialDAPlan(rotation_max=rotation, do_dummy_2d=do_dummy,
+                         initial_patch_size=initial, mirror_axes=mirror_axes)
 
 
 def center_crop_batch(data, seg, final_patch):
@@ -185,6 +216,72 @@ class HostSpatialAugmenter:
             np.ascontiguousarray(data, np.float32), np.ascontiguousarray(seg, np.int16),
             angles, scales, apply, data_order=self.data_order, out_size=self.out_size)
         return d, s.astype(seg.dtype)
+
+
+class HostSpatialAugmenter3D:
+    """Host 3D rotation + scale in the prefetch thread
+    (``ldiffusion_tpu/data/augment.py:637-730``), numpy draws from
+    ``default_rng(seed)`` in the JAX package's order: the flags (B, 2), the
+    scales, then the angles. Euler angles U(±``rotation_max_3d``) about x, y,
+    z through the native trilinear resample; with ``dummy_2d`` one in-plane
+    angle U(±π) a sample, repeated across its z slices, through the 2D
+    resample of the (B·Z) slices. ``out_size``: the final patch, whose
+    centred window alone is computed. Returns (data (B, *out, C) float32,
+    seg (B, *out) of seg's dtype)."""
+
+    def __init__(self, cfg: AugmentConfig, seed: int = 0, data_order: int = 1,
+                 out_size=None, dummy_2d: bool = False):
+        self.cfg = cfg
+        self.data_order = data_order
+        self.rng = np.random.default_rng(seed)
+        self.out_size = tuple(out_size) if out_size is not None else None
+        self.dummy_2d = dummy_2d
+
+    def draw(self, B: int):
+        """(apply, scales, angles): angles (x, y, z) each (B,), or the (B,)
+        in-plane angles under ``dummy_2d``; None when no sample moves."""
+        cfg = self.cfg
+        u = self.rng.random((B, 2))
+        rot, sc = u[:, 0] < cfg.p_rotation, u[:, 1] < cfg.p_scaling
+        apply = rot | sc
+        if not apply.any():
+            return None
+        scales = np.where(sc, self.rng.uniform(cfg.scale_range[0], cfg.scale_range[1], B), 1.0)
+        if self.dummy_2d:
+            return apply, scales, np.where(rot, self.rng.uniform(-np.pi, np.pi, B), 0.0)
+        r = cfg.rotation_max_3d
+        return apply, scales, tuple(np.where(rot, self.rng.uniform(-r, r, B), 0.0)
+                                    for _ in range(3))
+
+    def __call__(self, data, seg):
+        drawn = self.draw(data.shape[0])
+        if drawn is None:
+            if self.out_size is None:
+                return data, seg
+            return center_crop_batch(data, seg, self.out_size)
+        return self.apply(data, seg, *drawn)
+
+    def apply(self, data, seg, apply, scales, angles):
+        """The transform of ``draw``'s values (fixed draws in the tests)."""
+        data = np.ascontiguousarray(data, np.float32)
+        seg16 = np.ascontiguousarray(seg, np.int16)
+        if not self.dummy_2d:
+            d, s = affine_augment_batch_3d_native(data, seg16, *angles, scales, apply,
+                                                  data_order=self.data_order,
+                                                  out_size=self.out_size)
+            return d, s.astype(seg.dtype)
+        # (B, Z, H, W, C) → (B·Z, H, W, C), each sample's draws repeated across z
+        B, Z, H, W, C = data.shape
+        out2d = None if self.out_size is None else self.out_size[1:]
+        OH, OW = (H, W) if out2d is None else out2d
+        d, s = affine_augment_batch_native(
+            data.reshape(B * Z, H, W, C), seg16.reshape(B * Z, H, W), np.repeat(angles, Z),
+            np.repeat(scales, Z), np.repeat(apply, Z), data_order=self.data_order,
+            out_size=out2d)
+        d, s = d.reshape(B, Z, OH, OW, C), s.reshape(B, Z, OH, OW).astype(seg.dtype)
+        if self.out_size is not None and Z != self.out_size[0]:
+            d, s = center_crop_batch(d, s, self.out_size)
+        return d, s
 
 
 # ---------------------------------------------------------------------------
@@ -502,3 +599,45 @@ def augment_batch(data, seg, cfg: AugmentConfig = AugmentConfig(),
                                   "trainer runs them on the host (HostSpatialAugmenter)")
     return apply_augment(data, seg, draw_augment_params(data.shape, cfg, generator,
                                                         data.device), cfg)
+
+
+def draw_augment_params_3d(shape: Sequence[int], cfg: AugmentConfig,
+                           generator: torch.Generator, device=None) -> Dict[str, torch.Tensor]:
+    """The draws of ``apply_augment_3d`` for a (B, C, D, H, W) batch: a flip
+    flag for each allowed spatial axis (``mirror_<axis>``) and the noise's
+    flag, variance and field."""
+    B = shape[0]
+    g = generator
+    p: Dict[str, torch.Tensor] = {}
+    for ax in range(3):
+        if ax in cfg.mirror_axes:
+            p[f"mirror_{ax}"] = torch.rand(B, generator=g, device=device) < cfg.p_mirror
+    if cfg.p_noise > 0:
+        p["noise_on"] = torch.rand(B, generator=g, device=device) < cfg.p_noise
+        p["noise_var"] = _uniform(0.0, cfg.noise_var_max, B, g, device)
+        p["noise"] = torch.randn(tuple(shape), generator=g, device=device)
+    return p
+
+
+def apply_augment_3d(data, seg, p: Dict[str, torch.Tensor]):
+    """Per sample: flip each spatial axis whose flag is on (data axis 2 + a,
+    labels 1 + a), then add ``noise · sqrt(var)`` where the noise is on
+    (``ldiffusion_tpu/data/augment.py:540-566``)."""
+    for ax in range(3):
+        if f"mirror_{ax}" in p:
+            on = p[f"mirror_{ax}"]
+            data = _sel(on, data.flip(2 + ax), data)
+            seg = _sel(on, seg.flip(1 + ax), seg)
+    if "noise_on" in p:
+        noisy = data + p["noise"].to(data.dtype) * _col(p["noise_var"], data).sqrt()
+        data = _sel(p["noise_on"], noisy, data)
+    return data, seg
+
+
+def augment_batch_3d(data, seg, cfg: AugmentConfig = AugmentConfig(),
+                     generator: Optional[torch.Generator] = None):
+    """The volumes' device stack, mirroring and noise, on (B, C, D, H, W)
+    data and (B, D, H, W) labels; rotation and scaling run on the host
+    (``HostSpatialAugmenter3D``)."""
+    return apply_augment_3d(data, seg, draw_augment_params_3d(data.shape, cfg, generator,
+                                                              data.device))

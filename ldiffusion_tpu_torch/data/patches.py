@@ -1,6 +1,7 @@
-"""Foreground-oversampled random patch sampling, 2D (counterpart of
-``ldiffusion_tpu/data/patches.py:28-153``; reference ``base_data_loader.py``
-and ``data_loader_2d.py``): endless batches of random patches; the last
+"""Foreground-oversampled random patch sampling, 2D and 3D (counterpart of
+``ldiffusion_tpu/data/patches.py:28-153``; reference ``base_data_loader.py``,
+``data_loader_2d.py`` and ``data_loader_3d.py``; the rank is the patch's):
+endless batches of random patches; the last
 ``round(batch * oversample)`` of each batch are centred on a sampled location
 of a randomly chosen present foreground class; crops leaving the case are
 padded with 0 (data) and -1 (labels). ``probabilistic_oversampling`` (the
@@ -86,7 +87,8 @@ class PatchSampler:
                 yield data, seg.astype(np.int32)
                 continue
             items = [crop_with_pad_numpy(c.data, c.seg, lb, self.patch) for c, lb in picks]
-            count("crop_with_pad_batch", "numpy")
+            count("crop_with_pad_batch" if len(self.patch) == 2 else "crop_with_pad_batch_3d",
+                  "numpy")
             yield (np.stack([d for d, _ in items]),
                    np.stack([s for _, s in items]).astype(np.int32))
 

@@ -49,9 +49,20 @@ def metrics_from_cm(cm: np.ndarray) -> Dict:
             "mean_iou": mean_iou, "pixel_accuracy": pixel_acc, "fwiou": fwiou}
 
 
-def _load_mask(path: str, level: Optional[str]) -> np.ndarray:
+MASK_ENDINGS = (".png", ".npy")
+
+
+def read_mask(path: str) -> np.ndarray:
+    """A mask file: a PNG as uint8, a ``.npy`` volume as int64
+    (``ldiffusion_tpu/evaluate.py:62-70``)."""
+    if path.lower().endswith(".npy"):
+        return np.load(path).astype(np.int64)
     with Image.open(path) as f:
-        arr = np.asarray(f.convert("L"), np.uint8)
+        return np.asarray(f.convert("L"), np.uint8)
+
+
+def _load_mask(path: str, level: Optional[str]) -> np.ndarray:
+    arr = read_mask(path)
     return convert_labels(arr, level) if level else arr
 
 
@@ -148,12 +159,13 @@ def compute_metrics_on_folder(pred_dir: str, gt_dir: str, num_classes: int,
                               ignore_label: Optional[int] = None) -> Dict:
     """Per-case TP/FP/FN/TN → Dice and IoU per label, their means over the
     cases (NaN-aware), and ``foreground_mean``; written to ``output_file``.
-    PNGs are paired by sorted name; ``level`` converts PUMA pixel codes.
+    PNGs and ``.npy`` volumes are paired by sorted name; ``level`` converts
+    PUMA pixel codes.
     ``regions_or_labels`` (label ints and/or region tuples) scores each entry
     by membership masks, keyed ``str(entry)``, without the ground truth's
     ``ignore_label`` pixels; otherwise every class of a confusion matrix."""
-    preds = sorted(f for f in os.listdir(pred_dir) if f.lower().endswith(".png"))
-    gts = sorted(f for f in os.listdir(gt_dir) if f.lower().endswith(".png"))
+    preds = sorted(f for f in os.listdir(pred_dir) if f.lower().endswith(MASK_ENDINGS))
+    gts = sorted(f for f in os.listdir(gt_dir) if f.lower().endswith(MASK_ENDINGS))
     if len(preds) != len(gts):
         raise ValueError(f"{len(preds)} predictions vs {len(gts)} references")
     if regions_or_labels is not None:

@@ -34,6 +34,7 @@ import torch
 
 from ldiffusion_tpu_torch.models.clip_text import CLIPTextConfig
 from ldiffusion_tpu_torch.models.dynunet import DynUNetConfig, encoder_blocks
+from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3DConfig
 from ldiffusion_tpu_torch.models.resnet import ResNetConfig
 from ldiffusion_tpu_torch.models.safetensors_io import load_state_dict
 from ldiffusion_tpu_torch.models.unet import UNet2DConditionConfig
@@ -47,20 +48,23 @@ Row = Tuple[str, str, str]  # (torch prefix, flax path, kind)
 
 
 def _torch_layout(kind: str, w: np.ndarray) -> np.ndarray:
+    """flax → torch; convolutions of any spatial rank (2D and 3D)."""
+    nd = w.ndim - 2
     if kind == "conv":
-        return w.transpose(3, 2, 0, 1)
+        return w.transpose(nd + 1, nd, *range(nd))
     if kind == "convT":
-        return w[::-1, ::-1].transpose(2, 3, 0, 1)
+        return w[(slice(None, None, -1),) * nd].transpose(nd, nd + 1, *range(nd))
     if kind == "linear":
         return w.T
     return w
 
 
 def _flax_layout(kind: str, w: np.ndarray) -> np.ndarray:
+    nd = w.ndim - 2
     if kind == "conv":
-        return w.transpose(2, 3, 1, 0)
+        return w.transpose(*range(2, nd + 2), 1, 0)
     if kind == "convT":
-        return w.transpose(2, 3, 0, 1)[::-1, ::-1]
+        return w.transpose(*range(2, nd + 2), 0, 1)[(slice(None, None, -1),) * nd]
     if kind == "linear":
         return w.T
     return w
@@ -226,10 +230,12 @@ def clip_text_rows(num_layers: int) -> List[Row]:
     return rows
 
 
-def dynunet_rows(config: DynUNetConfig) -> List[Row]:
+def dynunet_rows(config) -> List[Row]:
     """Plain blocks ``enc_{s}_{c}/{conv,norm}``; residual encoder blocks
     ``enc_{s}_{c}/{conv1,norm1,conv2,norm2}`` and, where the shape changes,
-    ``downsample_{conv,norm}`` (``ldiffusion_tpu/models/dynunet.py:121-153``)."""
+    ``downsample_{conv,norm}`` (``ldiffusion_tpu/models/dynunet.py:121-153``).
+    ``config``: a ``DynUNetConfig`` (int strides) or a ``DynUNet3DConfig``
+    (per-axis strides); both nets name their modules alike."""
     rows: List[Row] = []
     cin = config.in_channels
     for s, n_blocks in enumerate(encoder_blocks(config)):
@@ -242,7 +248,7 @@ def dynunet_rows(config: DynUNetConfig) -> List[Row]:
                 for i in (1, 2):
                     rows += [(f"{t}.conv{i}", f"{f}/conv{i}", "conv"),
                              (f"{t}.norm{i}", f"{f}/norm{i}", "norm")]
-                if (c == 0 and config.strides[s] != 1) or cin != feats:
+                if (c == 0 and max(np.atleast_1d(config.strides[s])) > 1) or cin != feats:
                     rows += [(f"{t}.downsample_conv", f"{f}/downsample_conv", "conv"),
                              (f"{t}.downsample_norm", f"{f}/downsample_norm", "norm")]
             cin = feats
@@ -319,11 +325,21 @@ def dynunet_to_flax(state_dict, config: DynUNetConfig):
     return to_flax(dynunet_rows(config), state_dict)
 
 
+def dynunet3d_from_flax(params, config: DynUNet3DConfig):
+    """``ldiffusion_tpu/models/dynunet3d.py``'s tree (plain or residual
+    blocks) → ``DynUNet3D``'s state dict."""
+    return from_flax(dynunet_rows(config), params)
+
+
+def dynunet3d_to_flax(state_dict, config: DynUNet3DConfig):
+    return to_flax(dynunet_rows(config), state_dict)
+
+
 def dynunet_batch_stats_to_flax(state_dict, config: DynUNetConfig) -> dict:
     """The running statistics as flax's ``batch_stats`` collection; ``{}``
     for InstanceNorm nets, as the JAX trainer writes."""
     stats: dict = {}
-    if config.norm == "batch":
+    if getattr(config, "norm", "instance") == "batch":
         for tp, fp, kind in dynunet_rows(config):
             if kind == "norm":
                 for t, f in (("running_mean", "mean"), ("running_var", "var")):

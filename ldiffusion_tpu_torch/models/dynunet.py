@@ -169,7 +169,7 @@ class ResidualBlock(nn.Module):
 RESENC_M_BLOCKS = (1, 3, 4, 6, 6, 6, 6)
 
 
-def encoder_blocks(cfg: DynUNetConfig) -> Tuple[int, ...]:
+def encoder_blocks(cfg) -> Tuple[int, ...]:
     """Blocks a stage: ``n_conv_per_stage`` conv blocks (plain), or the
     residual blocks of ``n_blocks_per_stage`` (the ResEnc-M schedule when
     empty)."""

@@ -1,5 +1,6 @@
-"""The host C++ of the stage-2 input pipeline (the port's copy of the 2D
-entry points of ``ldiffusion_tpu/native``), loaded through ctypes.
+"""The host C++ of the segmentor's input pipeline (the port's copy of
+``ldiffusion_tpu/native``: the 2D and 3D crop, the 2D affine and the 3D
+Euler affine), loaded through ctypes.
 
 ``fast_patches.cpp`` is compiled with ``g++ -O3 -shared -fPIC -std=c++17
 -pthread`` at first use into ``ldiffusion_tpu_torch/_build/`` (listed in
@@ -8,9 +9,10 @@ an edited source is rebuilt. Each process compiles to a pid-unique temporary
 file and renames it, so concurrent first uses do not interleave their writes.
 
 There is no silent fallback: a failed build or load raises. The numpy
-versions (``crop_with_pad_numpy``, ``affine_augment_batch_numpy``) are the
-oracles the tests hold the library against. ``launches_by_route`` counts the
-calls of each entry point by route ("native" or "numpy").
+versions (``crop_with_pad_numpy``, ``affine_augment_batch_numpy``,
+``affine_augment_batch_3d_numpy``) are the oracles the tests hold the library
+against. ``launches_by_route`` counts the calls of each entry point by route
+("native" or "numpy"), the 3D crop apart from the 2D one.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ _SRC = Path(__file__).resolve().parent / "fast_patches.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
-launches_by_route = {"crop_with_pad_batch": {"native": 0, "numpy": 0},
-                     "affine_augment_batch": {"native": 0, "numpy": 0}}
+launches_by_route = {name: {"native": 0, "numpy": 0} for name in (
+    "crop_with_pad_batch", "affine_augment_batch", "crop_with_pad_batch_3d",
+    "affine_augment_batch_3d")}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -103,6 +106,23 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_int64,                    # data_order (1 bilinear, 0 nearest)
             ]
             lib.affine_augment_batch.restype = None
+            lib.affine_augment_batch_3d.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p),   # datas
+                ctypes.POINTER(ctypes.c_void_p),   # segs
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64,                    # B D H W C
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # OD OH OW
+                ctypes.POINTER(ctypes.c_double),   # angles_x
+                ctypes.POINTER(ctypes.c_double),   # angles_y
+                ctypes.POINTER(ctypes.c_double),   # angles_z
+                ctypes.POINTER(ctypes.c_double),   # scales
+                ctypes.POINTER(ctypes.c_uint8),    # apply flags
+                ctypes.POINTER(ctypes.c_float),    # out_data
+                ctypes.POINTER(ctypes.c_int16),    # out_seg
+                ctypes.c_int64,                    # n_threads
+                ctypes.c_int64,                    # data_order (1 trilinear, 0 nearest)
+            ]
+            lib.affine_augment_batch_3d.restype = None
             _lib = lib
     return _lib
 
@@ -113,14 +133,13 @@ def _ptr(a: np.ndarray, ctype):
 
 def crop_with_pad_batch_native(cases: Sequence[Tuple[np.ndarray, np.ndarray]],
                                lbs: np.ndarray, patch: Sequence[int]):
-    """Batch crop + pad of 2D cases, one thread a case. cases: B pairs (data
-    (H, W, C) float32 C-contiguous, seg (H, W) int16 C-contiguous); lbs:
-    (B, 2) lower bounds; patch: (2). Returns (data (B, *patch, C) float32,
-    seg (B, *patch) int16)."""
+    """Batch crop + pad of 2D or 3D cases, one thread a case. cases: B pairs
+    (data (*spatial, C) float32 C-contiguous, seg (*spatial) int16
+    C-contiguous); lbs: (B, nd) lower bounds; patch: (nd), nd 2 or 3.
+    Returns (data (B, *patch, C) float32, seg (B, *patch) int16)."""
     nd = len(patch)
-    if nd != 2:
-        raise NotImplementedError("the 3D crop is not ported yet (ROADMAP queue 1, "
-                                  "*The 3D / cascade pathway*)")
+    if nd not in (2, 3):
+        raise ValueError(f"patch {tuple(patch)}: the crop takes rank 2 or 3")
     lib = load_library()
     B = len(cases)
     data_ptrs = (ctypes.c_void_p * B)()
@@ -143,7 +162,7 @@ def crop_with_pad_batch_native(cases: Sequence[Tuple[np.ndarray, np.ndarray]],
                             _ptr(lbs, ctypes.c_int64), B, nd,
                             _ptr(patch_arr, ctypes.c_int64), C,
                             _ptr(out_data, ctypes.c_float), _ptr(out_seg, ctypes.c_int16), B)
-    count("crop_with_pad_batch", "native")
+    count("crop_with_pad_batch" if nd == 2 else "crop_with_pad_batch_3d", "native")
     return out_data, out_seg
 
 
@@ -156,7 +175,8 @@ def crop_with_pad_numpy(data: np.ndarray, seg: np.ndarray, lb: Sequence[int],
     src, dst = [], []
     for ax in range(nd):
         a0, a1 = lb[ax], lb[ax] + patch[ax]
-        s0, s1 = max(0, a0), min(shape[ax], a1)
+        s0 = min(max(0, a0), shape[ax])
+        s1 = max(s0, min(shape[ax], a1))  # a patch wholly outside copies nothing
         src.append(slice(s0, s1))
         dst.append(slice(s0 - a0, s0 - a0 + (s1 - s0)))
     out_d = np.zeros(tuple(patch) + (data.shape[-1],), data.dtype)
@@ -240,4 +260,95 @@ def affine_augment_batch_numpy(data, seg, angles, scales, apply, data_order: int
         out_s[b] = np.where(ok, seg[b][np.clip(ry, 0, H - 1), np.clip(rx, 0, W - 1)],
                             0).astype(seg.dtype)
     count("affine_augment_batch", "numpy")
+    return out_d, out_s
+
+
+def _euler_inverse(ax, ay, az):
+    """R = Rx(ax)·Ry(ay)·Rz(az) of ``affine_augment_batch_3d``, as its rows."""
+    cxr, sxr, cyr, syr, czr, szr = (np.cos(ax), np.sin(ax), np.cos(ay), np.sin(ay),
+                                    np.cos(az), np.sin(az))
+    return ((cyr * czr, -cyr * szr, syr),
+            (cxr * szr + sxr * syr * czr, cxr * czr - sxr * syr * szr, -sxr * cyr),
+            (sxr * szr - cxr * syr * czr, sxr * czr + cxr * syr * szr, cxr * cyr))
+
+
+def affine_augment_batch_3d_native(data: np.ndarray, seg: np.ndarray, angles_x, angles_y,
+                                   angles_z, scales, apply, data_order: int = 1,
+                                   out_size=None):
+    """Host Euler rotation (Rx·Ry·Rz) + isotropic scale of a 3D batch about
+    the volume centre, one thread a sample: trilinear (``data_order=1``) or
+    nearest data, nearest labels, zero outside. ``out_size=(OD, OH, OW)``
+    computes only the centred window. data: (B, D, H, W, C) float32
+    contiguous; seg: (B, D, H, W) int16 contiguous."""
+    lib = load_library()
+    B, D, H, W, C = data.shape
+    OD, OH, OW = (D, H, W) if out_size is None else map(int, out_size)
+    if not (0 < OD <= D and 0 < OH <= H and 0 < OW <= W):
+        raise ValueError(f"out_size {out_size} does not fit {data.shape}")
+    if not (data.dtype == np.float32 and data.flags.c_contiguous and seg.dtype == np.int16
+            and seg.flags.c_contiguous):
+        raise ValueError("affine_augment_batch_3d_native: data must be C-contiguous float32 "
+                         "and seg C-contiguous int16")
+    vox = D * H * W
+    data_ptrs = (ctypes.c_void_p * B)(*[data.ctypes.data + b * vox * C * 4 for b in range(B)])
+    seg_ptrs = (ctypes.c_void_p * B)(*[seg.ctypes.data + b * vox * 2 for b in range(B)])
+    ax, ay, az, sc = (np.ascontiguousarray(a, np.float64)
+                      for a in (angles_x, angles_y, angles_z, scales))
+    apply = np.ascontiguousarray(apply, np.uint8)
+    out_data = np.empty((B, OD, OH, OW, C), np.float32)
+    out_seg = np.empty((B, OD, OH, OW), np.int16)
+    lib.affine_augment_batch_3d(data_ptrs, seg_ptrs, B, D, H, W, C, OD, OH, OW,
+                                _ptr(ax, ctypes.c_double), _ptr(ay, ctypes.c_double),
+                                _ptr(az, ctypes.c_double), _ptr(sc, ctypes.c_double),
+                                _ptr(apply, ctypes.c_uint8), _ptr(out_data, ctypes.c_float),
+                                _ptr(out_seg, ctypes.c_int16), B, data_order)
+    count("affine_augment_batch_3d", "native")
+    return out_data, out_seg
+
+
+def affine_augment_batch_3d_numpy(data, seg, angles_x, angles_y, angles_z, scales, apply,
+                                  data_order: int = 1, out_size=None):
+    """The same math in numpy: the oracle of ``affine_augment_batch_3d_native``."""
+    B, D, H, W, C = data.shape
+    OD, OH, OW = (D, H, W) if out_size is None else map(int, out_size)
+    offz, offy, offx = (D - OD) // 2, (H - OH) // 2, (W - OW) // 2
+    out_d = data[:, offz:offz + OD, offy:offy + OH, offx:offx + OW].copy()
+    out_s = seg[:, offz:offz + OD, offy:offy + OH, offx:offx + OW].copy()
+    centre = ((D - 1) / 2.0, (H - 1) / 2.0, (W - 1) / 2.0)
+    grid = np.mgrid[:OD, :OH, :OW].astype(np.float64)
+    pos = [grid[a] + off - c for a, (off, c) in enumerate(zip((offz, offy, offx), centre))]
+    size = (D, H, W)
+
+    def gather(vol, idx, fill):
+        ok = np.ones(idx[0].shape, bool)
+        for i, n in zip(idx, size):
+            ok &= (i >= 0) & (i < n)
+        vals = vol[tuple(np.clip(i, 0, n - 1) for i, n in zip(idx, size))]
+        return ok, vals
+
+    for b in range(B):
+        if not apply[b]:
+            continue
+        r = _euler_inverse(angles_x[b], angles_y[b], angles_z[b])
+        src = [(r[0][a] * pos[0] + r[1][a] * pos[1] + r[2][a] * pos[2]) / scales[b] + centre[a]
+               for a in range(3)]
+        # half away from zero, as std::llround (np.round rounds half to even)
+        near = [np.trunc(s + np.copysign(0.5, s)).astype(np.int64) for s in src]
+        if data_order == 0:
+            ok, vals = gather(data[b], near, 0.0)
+            out_d[b] = np.where(ok[..., None], vals, 0.0).astype(np.float32)
+        else:
+            lo = [np.floor(s).astype(np.int64) for s in src]
+            frac = [s - f for s, f in zip(src, lo)]
+            acc = np.zeros((OD, OH, OW, C), np.float64)
+            for corner in np.ndindex(2, 2, 2):
+                w = np.ones_like(frac[0])
+                for f, d in zip(frac, corner):
+                    w = w * (f if d else 1.0 - f)
+                ok, vals = gather(data[b], [l + d for l, d in zip(lo, corner)], 0.0)
+                acc += (w * ok)[..., None] * vals
+            out_d[b] = acc.astype(np.float32)
+        ok, vals = gather(seg[b], near, 0)
+        out_s[b] = np.where(ok, vals, 0).astype(seg.dtype)
+    count("affine_augment_batch_3d", "numpy")
     return out_d, out_s

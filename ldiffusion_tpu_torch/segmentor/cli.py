@@ -1,4 +1,4 @@
-"""nnU-Net-style segmentor command line, 2D (counterpart of
+"""nnU-Net-style segmentor command line (counterpart of
 ``ldiffusion_tpu/segmentor/cli.py``; reference ``nnUNetv2_plan_and_preprocess``
 / ``nnUNetv2_train`` / ``nnUNetv2_predict``, ``run_training.py:212-271``,
 ``plan_and_preprocess_entrypoints.py:8-204``,
@@ -9,18 +9,30 @@
     python -m ldiffusion_tpu_torch.segmentor predict -i IN -o OUT -d 1 -f 0 [--save_probabilities]
 
 The dataset layout, the flags and every file written are the JAX CLI's:
-``$LDIFFUSION_RAW/DatasetXXX_Name/{imagesTr,labelsTr,dataset.json}`` (PNG,
-channel files ``<case>_NNNN.png``), the preprocessed store under
+``$LDIFFUSION_RAW/DatasetXXX_Name/{imagesTr,labelsTr,dataset.json}``
+(channel files ``<case>_NNNN<ending>``), the preprocessed store under
 ``$LDIFFUSION_PREPROCESSED``, results under
-``$LDIFFUSION_RESULTS/DatasetXXX_Name/<trainer>__<plans>__2d/fold_<f>``
+``$LDIFFUSION_RESULTS/DatasetXXX_Name/<trainer>__<plans>__<config>/fold_<f>``
 (``core/paths.py``; the ``nnUNet_*`` names as fallbacks). Training and
 prediction run on the card unless ``main(argv, device="cpu")``.
 
-Also here: ``extract_fingerprint`` / ``plan_experiment`` / ``preprocess``,
-``evaluate_folder``, ``determine_postprocessing``, ``apply_postprocessing``.
-The other subcommands are in the parser and raise ``NotImplementedError``
-(ROADMAP queue 1, *The remaining CLI commands*), as do the ``3d_*``
-configurations and volumetric datasets (*The 3D / cascade pathway*).
+A PNG dataset takes the 2D configuration (``-c 2d``). A volumetric one (any
+other ``file_ending``: ``.npy`` with its spacing sidecar, or the gated
+NIfTI/SimpleITK/TIFF readers of ``data/io.py``) is planned in every 3D
+configuration (``plans_3d.json``: ``3d_fullres``, and ``3d_lowres`` +
+``3d_cascade_fullres`` when the fullres patch covers under a quarter of the
+median volume); ``train -c 3d_cascade_fullres`` reads the fullres store with
+the lowres stage's segmentations appended as one-hot channels (cached under
+``predicted_next_stage/3d_cascade_fullres``), and ``predict`` reads,
+z-scores, resamples to the plan's spacing, predicts (the cascade runs the
+lowres stage first, or reads ``-prev_stage_predictions``), resamples the mask
+back and writes it through the dataset's reader.
+
+Also here: ``extract_fingerprint`` / ``plan_experiment`` / ``preprocess``
+(2D datasets, as in the JAX package), ``evaluate_folder``,
+``determine_postprocessing``, ``apply_postprocessing``. The other
+subcommands are in the parser and raise ``NotImplementedError`` (ROADMAP
+queue 1, *The remaining CLI commands*).
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import argparse
 import glob
 import json
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -35,7 +48,6 @@ import numpy as np
 from ldiffusion_tpu_torch.core import paths as env_paths
 
 VOLUMETRIC_CONFIGS = ("3d_fullres", "3d_lowres", "3d_cascade_fullres")
-_LATER_3D = "is not ported yet (ROADMAP queue 1, *The 3D / cascade pathway*)"
 
 
 # ---------------------------------------------------------------------------
@@ -143,9 +155,44 @@ def _label_manager(ds_dir: str):
     from ldiffusion_tpu_torch.segmentor.label_manager import label_manager_from_dataset_json
 
     dj = _read_dataset_json(os.path.join(ds_dir, "dataset.json"))
-    if dj.get("file_ending", ".png").lower() != ".png":
-        raise NotImplementedError(f"volumetric datasets ({dj['file_ending']}) {_LATER_3D}")
     return label_manager_from_dataset_json(dj), dj
+
+
+def _is_volumetric_dataset(dataset_json) -> bool:
+    return dataset_json.get("file_ending", ".png").lower() != ".png"
+
+
+def load_volume_cases(ds_dir: str, split: str, dataset_json):
+    """(case ids, volumes (Z, H, W, C) float32, labels (Z, H, W) int16 or
+    None, spacings) of imagesTr/labelsTr (or Ts) through the dataset's
+    reader; for Tr a ``"dataset"`` file list in dataset.json comes first
+    (``ldiffusion_tpu/segmentor/cli.py:144-182``)."""
+    from ldiffusion_tpu_torch.data.io import (
+        determine_reader_writer_from_dataset_json,
+        get_train_images_and_targets,
+        group_channel_files,
+    )
+
+    rw = determine_reader_writer_from_dataset_json(dataset_json)
+    ending = dataset_json.get("file_ending", ".npy").lower()
+    if split == "Tr" and "dataset" in dataset_json:
+        entries = sorted(get_train_images_and_targets(ds_dir, dataset_json).items())
+    else:
+        img_dir = os.path.join(ds_dir, f"images{split}")
+        lbl_dir = os.path.join(ds_dir, f"labels{split}")
+        groups = group_channel_files(img_dir, ending) if os.path.isdir(img_dir) else {}
+        entries = [(case, {"images": [os.path.join(img_dir, f) for f in sorted(files)],
+                           "label": os.path.join(lbl_dir, case + ending)})
+                   for case, files in sorted(groups.items())]
+    ids, vols, labs, spacings = [], [], [], []
+    for case, entry in entries:
+        data, props = rw.read_images(entry["images"])
+        vols.append(np.moveaxis(data, 0, -1).astype(np.float32))
+        labs.append(rw.read_seg(entry["label"])[0][0].astype(np.int16)
+                    if os.path.exists(entry["label"]) else None)
+        ids.append(case)
+        spacings.append(tuple(props.get("spacing", (1.0, 1.0, 1.0))))
+    return ids, vols, labs, spacings
 
 
 def _pp_dataset_dir(pp_root: str, raw_ds_dir: str) -> str:
@@ -158,9 +205,12 @@ def _results_config_dir(results_root: str, raw_ds_name: str, trainer: str, confi
     return os.path.join(results_root, raw_ds_name, f"{trainer}__{plans_name}__{config}")
 
 
-def _plans_filename(args) -> str:
-    """``-p``: the default identifier reads plans.json, ``-p NAME`` NAME.json."""
+def _plans_filename(args, volumetric: bool = False) -> str:
+    """``-p``: the default identifier reads plans.json (plans_3d.json for a
+    volumetric dataset), ``-p NAME`` NAME.json (NAME_3d.json)."""
     p = getattr(args, "p", None) or "ldPlans"
+    if volumetric:
+        return "plans_3d.json" if p == "ldPlans" else f"{p}_3d.json"
     return "plans.json" if p == "ldPlans" else f"{p}.json"
 
 
@@ -179,14 +229,6 @@ def _planner_kind(name: str) -> str:
         return "default"
     raise SystemExit(f"unknown planner {name!r} — use 'default', 'resenc', or a reference "
                      "planner class name (nnUNetPlannerResEncM/L/XL, ExperimentPlanner)")
-
-
-def _check_2d(config: str):
-    if config in VOLUMETRIC_CONFIGS:
-        raise NotImplementedError(f"-c {config} {_LATER_3D}")
-    if config != "2d":
-        raise SystemExit(f"unknown configuration {config!r} — use 2d, "
-                         f"{', '.join(VOLUMETRIC_CONFIGS)}")
 
 
 def _write_fingerprint(path: str, fp: dict):
@@ -217,7 +259,14 @@ def cmd_plan_and_preprocess(args) -> str:
     except KeyError as e:
         raise SystemExit(str(e))
     plans_name = args.overwrite_plans_name or "ldPlans"
-    if args.overwrite_target_spacing is not None:
+    spacing = args.overwrite_target_spacing
+    if spacing is not None and len(spacing) != 3:
+        raise SystemExit("-overwrite_target_spacing must be three numbers (z y x) — "
+                         "reference plan_and_preprocess_entrypoints.py:54-62")
+    if _is_volumetric_dataset(dataset_json):
+        return _plan_and_preprocess_volumetric(args, ds_dir, pp_root, lm, dataset_json,
+                                               preprocessor, plans_name)
+    if spacing is not None:
         raise SystemExit("-overwrite_target_spacing only applies to the 3D configurations "
                          f"(reference help) — dataset {args.d} is 2D")
     ids, images, labels = load_png_cases(ds_dir, "Tr")
@@ -259,6 +308,136 @@ def cmd_plan_and_preprocess(args) -> str:
     return out
 
 
+def _plan_and_preprocess_volumetric(args, ds_dir, pp_root, lm, dataset_json, preprocessor,
+                                    plans_name) -> str:
+    """Fingerprint → every 3D configuration → each configuration's store
+    ``ldPlans_<config>`` (the cascade shares the fullres one) and
+    ``plans_3d.json`` (``NAME_3d.json`` under ``-overwrite_plans_name``)
+    (``ldiffusion_tpu/segmentor/cli.py:345-401``). ``--hbm_budget`` plans
+    for another memory budget than the JAX package's 8 GiB."""
+    from ldiffusion_tpu_torch.segmentor.fingerprint import extract_fingerprint_3d
+    from ldiffusion_tpu_torch.segmentor.planner3d import HBM_BUDGET_BYTES, plan_and_preprocess_3d
+    from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
+
+    ids, vols, labs, spacings = load_volume_cases(ds_dir, "Tr", dataset_json)
+    if not ids:
+        raise SystemExit(f"no volumetric training cases under {ds_dir}/imagesTr")
+    out = _pp_dataset_dir(pp_root, ds_dir)
+    os.makedirs(out, exist_ok=True)
+    fp_path = os.path.join(out, "dataset_fingerprint.json")
+    if os.path.exists(fp_path) and not args.clean:
+        print(f"fingerprint exists, reusing {fp_path} (--clean re-extracts)")
+        with open(fp_path) as f:
+            fingerprint = json.load(f)
+    else:
+        fingerprint = extract_fingerprint_3d(vols, labs, spacings=spacings, save_path=fp_path)
+    plans_file = "plans_3d.json" if plans_name == "ldPlans" else f"{plans_name}_3d.json"
+    configs, datasets = plan_and_preprocess_3d(
+        vols, labs, lm.num_segmentation_heads, spacings=spacings,
+        planner=_planner_kind(args.pl), hbm_budget=args.hbm_budget or HBM_BUDGET_BYTES,
+        plans_path=os.path.join(out, plans_file), preprocess=not args.no_pp,
+        target_spacing=args.overwrite_target_spacing, preprocessor=preprocessor,
+        configurations=args.c, fingerprint=fingerprint)
+    for name, ds in datasets.items():
+        keyed = {cid: ds[f"case_{i:03d}"] for i, cid in enumerate(ids)}
+        PreprocessedDataset(cases=keyed).save(os.path.join(out, f"ldPlans_{name}"))
+    with open(os.path.join(out, "dataset.json"), "w") as f:
+        json.dump(dataset_json, f, indent=2)
+    print(f"3D plans ({', '.join(sorted(configs))}) + preprocessed data written to {out}")
+    return out
+
+
+def _load_preprocessed_3d(args):
+    """The configuration's plan from plans_3d.json and its store (the
+    cascade reads the fullres store) (``cli.py:403-436``)."""
+    from ldiffusion_tpu_torch.segmentor.plans_file import PlansFile
+    from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
+
+    raw_root, pp_root = _roots(args, "raw", "preprocessed")
+    ds_dir = find_dataset_dir(raw_root, args.d)
+    pp_dir = _pp_dataset_dir(pp_root, ds_dir)
+    plans_path = os.path.join(pp_dir, _plans_filename(args, volumetric=True))
+    if not os.path.exists(plans_path):
+        raise SystemExit(f"{plans_path} missing — run plan_and_preprocess on this "
+                         "(volumetric) dataset first")
+    pf = PlansFile(plans_path)
+    if args.c not in pf.configuration_names():
+        raise SystemExit(
+            f"configuration {args.c!r} was not planned for this dataset (planned: "
+            f"{sorted(pf.configuration_names())}; 3d_lowres/3d_cascade_fullres only exist "
+            "when the fullres patch covers <25% of the median volume, reference "
+            "default_experiment_planner.py:371-500)")
+    plan = pf.get_configuration(args.c)
+    lm, _ = _label_manager(pp_dir)
+    base = "3d_fullres" if args.c == "3d_cascade_fullres" else args.c
+    store = os.path.join(pp_dir, f"ldPlans_{base}")
+    if not os.path.isdir(store):
+        raise SystemExit(f"{store} missing — run plan_and_preprocess first")
+    return ds_dir, pp_dir, plan, lm, PreprocessedDataset.load(store)
+
+
+def _ensure_prev_stage_predictions(pp_dir: str, results_root: str, ds_name: str,
+                                   trainer_name: str, lowres_plan, ds, device=None) -> str:
+    """The lowres stage's segmentations on the fullres grid, cached as
+    ``predicted_next_stage/3d_cascade_fullres/<case>.npy``
+    (``cli.py:438-507``): each trained lowres fold predicts its own
+    validation cases (``splits_final.json``); cases whose fold is untrained
+    are predicted by the ensemble of the trained folds, which saw them in
+    training, with a warning."""
+    from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
+    from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
+    from ldiffusion_tpu_torch.segmentor.resample import resample_data_3d
+    from ldiffusion_tpu_torch.segmentor.splits import do_split
+
+    out = os.path.join(pp_dir, "predicted_next_stage", "3d_cascade_fullres")
+    missing = [cid for cid in ds.keys() if not os.path.exists(os.path.join(out, f"{cid}.npy"))]
+    if not missing:
+        return out
+    low_dir = _results_config_dir(results_root, ds_name, trainer_name, "3d_lowres")
+    fold_ckpts = {}
+    for f in range(5):
+        for name in ("checkpoint_best.pkl", "checkpoint_final.pkl"):
+            p = os.path.join(low_dir, f"fold_{f}", name)
+            if os.path.exists(p):
+                fold_ckpts[f] = p
+                break
+    if not fold_ckpts:
+        raise SystemExit("3d_cascade_fullres requires a trained 3d_lowres stage — run "
+                         f"`train -d ... -c 3d_lowres` first (no checkpoints under {low_dir})")
+    low_ds = PreprocessedDataset.load(os.path.join(pp_dir, "ldPlans_3d_lowres"))
+    splits_file = os.path.join(pp_dir, "splits_final.json")
+    os.makedirs(out, exist_ok=True)
+
+    def write(predictor, cid):
+        seg = np.asarray(predictor.predict(low_ds[cid].data, normalize=False))
+        tgt = tuple(ds[cid].seg.shape)
+        if tuple(seg.shape) != tgt:
+            seg = resample_data_3d(seg, tgt, lowres_plan.spacing, is_seg=True)
+        np.save(os.path.join(out, f"{cid}.npy"), seg.astype(np.int16))
+
+    remaining = set(missing)
+    for f, ckpt in sorted(fold_ckpts.items()):
+        _, va_keys = do_split(ds.keys(), f, splits_file)
+        mine = remaining & set(va_keys)
+        if not mine:
+            continue
+        predictor = SlidingWindowPredictor.from_checkpoints(lowres_plan, [ckpt], device=device)
+        for cid in sorted(mine):
+            write(predictor, cid)
+        remaining -= mine
+    if remaining:
+        print(f"WARNING: lowres folds {sorted(set(range(5)) - set(fold_ckpts))} are untrained "
+              f"— {len(remaining)} case(s) predicted with an ensemble of the trained folds, "
+              "which SAW them in training (train/inference leak for the cascade stage; train "
+              "all 5 lowres folds to avoid this)")
+        predictor = SlidingWindowPredictor.from_checkpoints(
+            lowres_plan, sorted(fold_ckpts.values()), device=device)
+        for cid in sorted(remaining):
+            write(predictor, cid)
+    print(f"3d_cascade_fullres: {len(missing)} lowres-stage prediction(s) → {out}")
+    return out
+
+
 def _load_preprocessed(args):
     from ldiffusion_tpu_torch.segmentor.planner import SegPlan
     from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
@@ -283,8 +462,13 @@ def cmd_train(args) -> str:
     from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
     from ldiffusion_tpu_torch.segmentor.variants import get_variant
 
-    _check_2d(args.c)
-    ds_dir, pp_dir, plan, lm, ds = _load_preprocessed(args)
+    if args.c in VOLUMETRIC_CONFIGS:
+        ds_dir, pp_dir, plan, lm, ds = _load_preprocessed_3d(args)
+    elif args.c == "2d":
+        ds_dir, pp_dir, plan, lm, ds = _load_preprocessed(args)
+    else:
+        raise SystemExit(f"unknown configuration {args.c!r} — use 2d, "
+                         f"{', '.join(VOLUMETRIC_CONFIGS)}")
     results_root = _roots(args, "results")
     overrides = {}
     if args.epochs:
@@ -303,6 +487,21 @@ def cmd_train(args) -> str:
         dj = f.read()
     with open(os.path.join(cfg_dir, "dataset.json"), "w") as f:
         f.write(dj)
+    if args.c == "3d_cascade_fullres":  # the fullres store + the lowres stage's one-hot
+        from ldiffusion_tpu_torch.segmentor.plans_file import PlansFile
+        from ldiffusion_tpu_torch.segmentor.preprocess import (
+            PreprocessedDataset,
+            append_prev_stage_channels,
+        )
+
+        lowres_plan = PlansFile(os.path.join(pp_dir, "plans_3d.json")) \
+            .get_configuration("3d_lowres")
+        prev_dir = _ensure_prev_stage_predictions(pp_dir, results_root, os.path.basename(ds_dir),
+                                                  args.tr, lowres_plan, ds, device=args.device)
+        ds = PreprocessedDataset(cases={
+            cid: append_prev_stage_channels(ds[cid], np.load(os.path.join(prev_dir, f"{cid}.npy")),
+                                            plan.num_classes)
+            for cid in ds.keys()})
     fold_dir = os.path.join(cfg_dir, f"fold_{fold}")
     trainer = SegmentorTrainer(plan, variant.config, output_dir=fold_dir, variant=variant,
                                label_manager=lm, device=args.device)
@@ -326,7 +525,7 @@ def cmd_train(args) -> str:
                 trainer.load_pretrained(args.pretrained_weights)
         trainer.run_training(ds.subset(tr_keys), ds.subset(va_keys),
                              continue_training=args.c_continue)
-    # the store's cases are z-scored already
+    # the store's cases are z-scored already (and the cascade's one-hot stays {0, 1})
     trainer.perform_actual_validation([ds[k].data for k in va_keys],
                                       [np.maximum(ds[k].seg, 0) for k in va_keys],
                                       save_npz=args.npz, normalize=False)
@@ -349,9 +548,11 @@ def cmd_predict(args) -> str:
     )
     from ldiffusion_tpu_torch.segmentor.variants import get_variant, inference_mirror_config
 
-    _check_2d(args.c)
-    if args.prev_stage_predictions:
-        raise NotImplementedError(f"-prev_stage_predictions (the cascade) {_LATER_3D}")
+    if args.c in VOLUMETRIC_CONFIGS:
+        return _cmd_predict_volumetric(args)
+    if args.c != "2d":
+        raise SystemExit(f"unknown configuration {args.c!r} — use 2d, "
+                         f"{', '.join(VOLUMETRIC_CONFIGS)}")
     results_root = _roots(args, "results")
     raw_root = args.raw or env_paths.raw_dir(warn=False)
     ds_name = os.path.basename(find_dataset_dir(raw_root, args.d)) if raw_root \
@@ -385,6 +586,134 @@ def cmd_predict(args) -> str:
     return args.o
 
 
+def _cmd_predict_volumetric(args) -> str:
+    """Volumetric folder prediction (``cli.py:642-785``): read → z-score →
+    resample to the plan's spacing → sliding window (the cascade first runs
+    the lowres stage on its grid and brings its mask to the input's grid, as
+    ``predict -c 3d_lowres`` writes it, or reads ``-prev_stage_predictions``;
+    then appends it as one-hot channels) → the mask resampled back to the
+    input's grid → written through the dataset's reader. Whole volumes are
+    predicted (no crop to nonzero), as in the JAX CLI. Prints one ``timing
+    predict {json}`` line: the host seconds of each case's steps and the
+    network's forwards."""
+    from ldiffusion_tpu_torch.data.io import (
+        determine_reader_writer_from_dataset_json,
+        group_channel_files,
+    )
+    from ldiffusion_tpu_torch.segmentor.export import save_probabilities_npz
+    from ldiffusion_tpu_torch.segmentor.planner3d import SegPlan3D
+    from ldiffusion_tpu_torch.segmentor.predictor import (
+        SlidingWindowPredictor,
+        find_fold_checkpoints,
+    )
+    from ldiffusion_tpu_torch.segmentor.resample import compute_new_shape, resample_data_3d
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant, inference_mirror_config
+
+    results_root = _roots(args, "results")
+    raw_root = args.raw or env_paths.raw_dir(warn=False)
+    ds_name = os.path.basename(find_dataset_dir(raw_root, args.d)) if raw_root \
+        else f"Dataset{int(args.d):03d}"
+    plans_name = args.p or "ldPlans"
+    cfg_dir = _results_config_dir(results_root, ds_name, args.tr, args.c, plans_name)
+    if not os.path.isdir(cfg_dir):
+        raise SystemExit(f"{cfg_dir} missing — train first")
+    plan = SegPlan3D.load(os.path.join(cfg_dir, "plans.json"))
+    lm, dataset_json = _label_manager(cfg_dir)
+    ckpts = find_fold_checkpoints(cfg_dir, folds=args.f, checkpoint_name=args.chk)
+    mirror, axes = inference_mirror_config(get_variant(args.tr), 3)
+    use_mirroring = (not args.disable_tta) and mirror
+    predictor = SlidingWindowPredictor.from_checkpoints(
+        plan, ckpts, use_mirroring=use_mirroring, mirror_axes=axes, label_manager=lm,
+        tile_step_size=args.step_size, device=args.device)
+    prev_predictor = prev_plan = None
+    if args.c == "3d_cascade_fullres" and not args.prev_stage_predictions:
+        low_dir = _results_config_dir(results_root, ds_name, args.tr, "3d_lowres", plans_name)
+        if not os.path.isdir(low_dir):
+            raise SystemExit(f"cascade prediction requires the trained 3d_lowres stage "
+                             f"({low_dir} missing) or an explicit -prev_stage_predictions "
+                             "folder")
+        prev_plan = SegPlan3D.load(os.path.join(low_dir, "plans.json"))
+        prev_predictor = SlidingWindowPredictor.from_checkpoints(
+            prev_plan, find_fold_checkpoints(low_dir, folds=args.f),
+            use_mirroring=use_mirroring, mirror_axes=axes, device=args.device)
+
+    rw = determine_reader_writer_from_dataset_json(dataset_json)
+    ending = dataset_json.get("file_ending", ".npy").lower()
+    os.makedirs(args.o, exist_ok=True)
+
+    def to_grid(vol, spacing, target_spacing):
+        if tuple(spacing) == tuple(target_spacing):
+            return vol
+        return resample_data_3d(vol, compute_new_shape(vol.shape[:3], spacing, target_spacing),
+                                spacing, order=3)
+
+    timing = []
+    cases = sorted(group_channel_files(args.i, ending).items())
+    for case, files in cases[args.part_id::args.num_parts]:
+        out_path = os.path.join(args.o, f"{case}{ending}")
+        if args.continue_prediction and os.path.exists(out_path):
+            continue
+        t = {"case": case}
+        t0 = time.perf_counter()
+        data, props = rw.read_images([os.path.join(args.i, f) for f in sorted(files)])
+        vol = np.moveaxis(data, 0, -1).astype(np.float32)  # (Z, H, W, c)
+        spacing = tuple(props.get("spacing", (1.0, 1.0, 1.0)))
+        mean = vol.mean(axis=(0, 1, 2), keepdims=True)
+        std = vol.std(axis=(0, 1, 2), keepdims=True)
+        vol_n = (vol - mean) / np.maximum(std, 1e-8)
+        t["read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grid = to_grid(vol_n, spacing, plan.spacing)  # z-scored: predict with normalize=False
+        t["resample_s"] = time.perf_counter() - t0
+        if args.c == "3d_cascade_fullres":
+            t0 = time.perf_counter()
+            if args.prev_stage_predictions:  # predict_from_raw_data.py:676-727
+                pf = os.path.join(args.prev_stage_predictions, f"{case}{ending}")
+                if not os.path.exists(pf):
+                    raise SystemExit(f"-prev_stage_predictions: {pf} missing")
+                seg_low = rw.read_seg(pf)[0][0].astype(np.int32)
+            else:  # what `predict -c 3d_lowres` writes, bit for bit
+                low = to_grid(vol_n, spacing, prev_plan.spacing)
+                seg_low = np.asarray(prev_predictor.predict(low, normalize=False))
+                if tuple(seg_low.shape) != tuple(vol.shape[:3]):
+                    seg_low = resample_data_3d(seg_low, vol.shape[:3], prev_plan.spacing,
+                                               is_seg=True)
+                seg_low = seg_low.astype(np.uint8).astype(np.int32)
+            if tuple(seg_low.shape) != tuple(grid.shape[:3]):
+                seg_low = resample_data_3d(seg_low, grid.shape[:3], spacing, is_seg=True)
+            onehot = np.eye(plan.num_classes, dtype=np.float32)[np.maximum(seg_low, 0)][..., 1:]
+            grid = np.concatenate([grid, onehot], axis=-1)
+            print(f"3d_cascade_fullres: {case} consumed the lowres stage's segmentation "
+                  f"({'-prev_stage_predictions' if args.prev_stage_predictions else 'predicted'}"
+                  f", labels {sorted(int(v) for v in np.unique(seg_low))})")
+            t["previous_stage_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        forwards = predictor.network_forwards
+        logits = predictor.predict_logits(grid, normalize=False)
+        t["sliding_window_s"] = time.perf_counter() - t0
+        t["network_forwards"] = predictor.network_forwards - forwards
+        t0 = time.perf_counter()
+        seg = lm.convert_logits_to_segmentation(logits)
+        if tuple(seg.shape) != tuple(vol.shape[:3]):
+            seg = resample_data_3d(np.asarray(seg), vol.shape[:3], plan.spacing, is_seg=True)
+        rw.write_seg(np.asarray(seg).astype(np.uint8), out_path, properties=props)
+        if args.save_probabilities:
+            save_probabilities_npz(logits, os.path.join(args.o, f"{case}.npz"),
+                                   label_manager=lm)
+        t["export_s"] = time.perf_counter() - t0
+        timing.append(t)
+    print(f"{len(timing)} volumetric predictions → {args.o}")
+    print("timing predict " + json.dumps(timing))
+    return args.o
+
+
+def _require_2d_dataset(ds_dir: str, command: str):
+    _, dj = _label_manager(ds_dir)
+    if _is_volumetric_dataset(dj):
+        raise SystemExit(f"{command} takes 2D (PNG) datasets, as in the JAX package; plan a "
+                         "volumetric dataset with plan_and_preprocess")
+
+
 def cmd_extract_fingerprint(args) -> str:
     """The fingerprint, reused when it exists unless ``--clean``
     (``fingerprint_extractor.py:107-114``)."""
@@ -392,7 +721,7 @@ def cmd_extract_fingerprint(args) -> str:
 
     raw_root, pp_root = _roots(args, "raw", "preprocessed")
     ds_dir = find_dataset_dir(raw_root, args.d)
-    _label_manager(ds_dir)  # a volumetric dataset raises here
+    _require_2d_dataset(ds_dir, "extract_fingerprint")
     out = _pp_dataset_dir(pp_root, ds_dir)
     path = os.path.join(out, "dataset_fingerprint.json")
     if os.path.exists(path) and not getattr(args, "clean", False):
@@ -410,6 +739,7 @@ def cmd_plan_experiment(args) -> str:
 
     raw_root, pp_root = _roots(args, "raw", "preprocessed")
     ds_dir = find_dataset_dir(raw_root, args.d)
+    _require_2d_dataset(ds_dir, "plan_experiment")
     out = _pp_dataset_dir(pp_root, ds_dir)
     fp_path = os.path.join(out, "dataset_fingerprint.json")
     if not os.path.exists(fp_path):
@@ -431,6 +761,7 @@ def cmd_preprocess(args) -> str:
 
     raw_root, pp_root = _roots(args, "raw", "preprocessed")
     ds_dir = find_dataset_dir(raw_root, args.d)
+    _require_2d_dataset(ds_dir, "preprocess")
     out = _pp_dataset_dir(pp_root, ds_dir)
     configurations = getattr(args, "c", None) or ["2d"]
     if "2d" not in configurations:
@@ -597,7 +928,8 @@ def build_parser() -> argparse.ArgumentParser:
     tr.set_defaults(fn=cmd_train)
 
     pr = sub.add_parser("predict", help="predict a folder (nnUNetv2_predict)")
-    pr.add_argument("-i", required=True, help="input folder of PNGs")
+    pr.add_argument("-i", required=True,
+                    help="input folder (PNGs, or volumes in the dataset's file ending)")
     pr.add_argument("-o", required=True, help="output folder")
     pr.add_argument("-d", type=int, required=True)
     pr.add_argument("-c", default="2d",

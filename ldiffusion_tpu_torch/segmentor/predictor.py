@@ -1,12 +1,14 @@
-"""Sliding-window prediction with gaussian blending and mirror TTA
-(counterpart of ``ldiffusion_tpu/segmentor/predictor.py:107-343``, 2D).
+"""Sliding-window prediction with gaussian blending and mirror TTA, 2D and
+3D by the plan's rank (counterpart of
+``ldiffusion_tpu/segmentor/predictor.py:30-66, 107-343``).
 
 Pad to at least the patch, tile with step ``tile_step_size`` x patch (evenly
-spread starts), weight each tile's logits by a centred gaussian (sigma =
-patch/8, floored at its least nonzero value), average the logits over every
-flip combination of the allowed mirror axes (4 by default; the trainer
-variant's ``inference_mirror_config`` restricts them), average the folds'
-logits. The mask: plain argmax, or with a label manager its regime's
+spread starts on each axis), weight each tile's logits by a centred gaussian
+(sigma = patch/8, floored at its least nonzero value), average the logits
+over every flip combination of the allowed mirror axes (4 in 2D, 8 in 3D by
+default; the trainer variant's ``inference_mirror_config`` restricts them),
+average the folds' logits. ``network_forwards`` counts the network's inputs
+(tiles × flips × folds). The mask: plain argmax, or with a label manager its regime's
 conversion (regions paint in ``regions_class_order`` where the logit > 0;
 plain labels map the argmax through the label values). The mirrored copies
 of a tile run as one batch (InstanceNorm is per sample and a BatchNorm net
@@ -34,6 +36,7 @@ from ldiffusion_tpu_torch.core.checkpoint import load_pytree
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.models.convert import dynunet_from_flax
 from ldiffusion_tpu_torch.models.dynunet import DynUNet
+from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3D
 from ldiffusion_tpu_torch.segmentor.planner import SegPlan
 
 
@@ -46,25 +49,25 @@ def compute_steps(image_size: int, patch_size: int, step_frac: float = 0.5) -> L
     return [int(round(i * actual)) for i in range(num_steps)]
 
 
-def gaussian_importance_map(patch: Tuple[int, int], sigma_scale: float = 1.0 / 8) -> np.ndarray:
+def gaussian_importance_map(patch: Tuple[int, ...], sigma_scale: float = 1.0 / 8) -> np.ndarray:
     """Centred gaussian weight map, floored at its least nonzero value.
 
-    The same values as scipy's 2D ``gaussian_filter`` of a centred float32
+    The same values as scipy's N-D ``gaussian_filter`` of a centred float32
     delta, as the JAX package computes it, but as the outer product of the
-    filter's two 1D passes: the 2D filter spends over a second of host time
-    at a 1024² patch. Pass 1 (axis 0) stores float32; pass 2 (axis 1) has one
+    filter's 1D passes: the N-D filter spends over a second of host time at
+    a 1024² patch. Pass 1 (axis 0) stores float32; every later pass has one
     nonzero input per output, so it is that float32 value times a float64
     weight, stored as float32."""
     from scipy.ndimage import gaussian_filter1d
 
-    ph, pw = patch
-    rows = np.zeros(ph, np.float32)
-    rows[ph // 2] = 1.0
-    cols = np.zeros(pw, np.float64)
-    cols[pw // 2] = 1.0
-    g_h = gaussian_filter1d(rows, ph * sigma_scale, mode="constant")
-    g_w = gaussian_filter1d(cols, pw * sigma_scale, mode="constant")
-    g = (g_h.astype(np.float64)[:, None] * g_w[None, :]).astype(np.float32)
+    first = np.zeros(patch[0], np.float32)
+    first[patch[0] // 2] = 1.0
+    g = gaussian_filter1d(first, patch[0] * sigma_scale, mode="constant")
+    for p in patch[1:]:
+        delta = np.zeros(p, np.float64)
+        delta[p // 2] = 1.0
+        w = gaussian_filter1d(delta, p * sigma_scale, mode="constant")
+        g = (g.astype(np.float64)[..., None] * w).astype(np.float32)
     g = g / g.max()
     g[g == 0] = g[g > 0].min()
     return g
@@ -102,9 +105,10 @@ def find_fold_checkpoints(config_dir: str, folds=None,
 
 
 def _zscore(image):
-    """Per-channel z-score over the spatial axes of (H, W, C), std floored at 1e-8."""
-    mean = image.mean(dim=(0, 1), keepdim=True)
-    std = image.std(dim=(0, 1), keepdim=True, correction=0)
+    """Per-channel z-score over the spatial axes of (*spatial, C), std floored at 1e-8."""
+    axes = tuple(range(image.dim() - 1))
+    mean = image.mean(dim=axes, keepdim=True)
+    std = image.std(dim=axes, keepdim=True, correction=0)
     return (image - mean) / torch.clamp(std, min=1e-8)
 
 
@@ -112,20 +116,19 @@ class SlidingWindowPredictor:
     def __init__(self, plan: SegPlan, state_dicts, dtype=torch.bfloat16, device=None,
                  label_manager=None, use_mirroring: bool = True, mirror_axes=None,
                  tile_step_size: float = 0.5):
-        """``state_dicts``: one DynUNet state dict per fold (logits
-        averaged); one holding running statistics is a BatchNorm net.
-        ``mirror_axes``: the spatial axes TTA may flip (None: both)."""
-        if len(plan.patch_size) != 2:
-            raise NotImplementedError("the 3D pathway is not ported yet "
-                                      "(ROADMAP queue 1, *The 3D / cascade pathway*)")
+        """``plan``: a ``SegPlan`` (2D) or a ``SegPlan3D``; ``state_dicts``:
+        one DynUNet (DynUNet3D) state dict per fold (logits averaged); a 2D
+        one holding running statistics is a BatchNorm net. ``mirror_axes``:
+        the spatial axes TTA may flip (None: all)."""
         if not 0 < tile_step_size <= 1:
             raise ValueError(f"tile_step_size={tile_step_size}: use (0, 1]")
         self.plan = plan
         self.device = resolve_device(device)
         self.label_manager = label_manager
         self.tile_step_size = float(tile_step_size)
-        allowed = range(2) if mirror_axes is None else mirror_axes
-        axes = tuple(sorted(a + 2 for a in allowed if 0 <= a < 2))  # NCHW array axes
+        nd = len(plan.patch_size)
+        allowed = range(nd) if mirror_axes is None else mirror_axes
+        axes = tuple(sorted(a + 2 for a in allowed if 0 <= a < nd))  # N, C, *spatial
         self.flips = [()]
         if use_mirroring:
             self.flips += [c for r in range(1, len(axes) + 1)
@@ -133,16 +136,18 @@ class SlidingWindowPredictor:
         if isinstance(state_dicts, dict):
             state_dicts = [state_dicts]
         self.nets = []
+        layout = torch.channels_last_3d if nd == 3 else torch.channels_last
         for sd in state_dicts:
             cfg = plan.network_config()
             if any(k.endswith("running_mean") for k in sd):
                 cfg = dataclasses.replace(cfg, norm="batch")
             with torch.device("meta"):  # no initialisation: the weights come next
-                net = DynUNet(cfg)
+                net = DynUNet3D(cfg) if nd == 3 else DynUNet(cfg)
             net.to_empty(device=self.device).load_state_dict(sd)
-            self.nets.append(net.to(dtype=dtype, memory_format=torch.channels_last).eval())
+            self.nets.append(net.to(dtype=dtype, memory_format=layout).eval())
         self.gauss = torch.from_numpy(gaussian_importance_map(tuple(plan.patch_size))).to(
             self.device)
+        self.network_forwards = 0
 
     @classmethod
     def from_checkpoints(cls, plan: SegPlan, paths: Sequence[str], **kw):
@@ -158,48 +163,47 @@ class SlidingWindowPredictor:
         return cls(plan, sds, **kw)
 
     def _tile_logits(self, net, tile):
-        """(1, C, ph, pw) → (classes, ph, pw) float32, averaged over the flips."""
+        """(1, C, *patch) → (classes, *patch) float32, averaged over the flips."""
         batch = torch.cat([tile.flip(f) if f else tile for f in self.flips])
         out = net(batch)
+        self.network_forwards += len(self.flips)
         logits = out[0]
         for i, f in enumerate(self.flips[1:], start=1):
             logits = logits + out[i].flip([a - 1 for a in f])
         return logits / float(len(self.flips))
 
     def _blended(self, net, image, positions):
-        """(C, H, W) padded image → (classes, H, W) gaussian-blended logits."""
-        ph, pw = self.plan.patch_size
-        _, h, w = image.shape
-        acc = torch.zeros((self.plan.num_classes, h, w), device=self.device)
-        wacc = torch.zeros((1, h, w), device=self.device)
-        for y, x in positions:
-            tile = image[None, :, y:y + ph, x:x + pw]
-            acc[:, y:y + ph, x:x + pw] += self._tile_logits(net, tile) * self.gauss
-            wacc[:, y:y + ph, x:x + pw] += self.gauss
+        """(C, *spatial) padded image → (classes, *spatial) gaussian-blended logits."""
+        patch = self.plan.patch_size
+        acc = torch.zeros((self.plan.num_classes, *image.shape[1:]), device=self.device)
+        wacc = torch.zeros((1, *image.shape[1:]), device=self.device)
+        for start in positions:
+            win = (slice(None),) + tuple(slice(s, s + p) for s, p in zip(start, patch))
+            acc[win] += self._tile_logits(net, image[win][None]) * self.gauss
+            wacc[win] += self.gauss
         return acc / wacc
 
     def logits(self, image, normalize: bool = True):
-        """(H, W, C) float tensor on the predictor's device → fold-averaged
-        blended logits (classes, H, W)."""
+        """(*spatial, C) float tensor on the predictor's device → fold-averaged
+        blended logits (classes, *spatial)."""
         image = image.to(self.device, torch.float32)
         if normalize:
             image = _zscore(image)
-        h, w = image.shape[:2]
-        ph, pw = self.plan.patch_size
-        chw = image.permute(2, 0, 1)
-        pad_h, pad_w = max(0, ph - h), max(0, pw - w)
-        if pad_h or pad_w:
-            chw = torch.nn.functional.pad(chw, (0, pad_w, 0, pad_h))
-        ys = compute_steps(chw.shape[1], ph, self.tile_step_size)
-        xs = compute_steps(chw.shape[2], pw, self.tile_step_size)
-        positions = list(itertools.product(ys, xs))
+        shape = image.shape[:-1]
+        patch = self.plan.patch_size
+        chw = image.movedim(-1, 0)
+        pads = [max(0, p - s) for p, s in zip(patch, shape)]
+        if any(pads):
+            chw = torch.nn.functional.pad(chw, [v for p in reversed(pads) for v in (0, p)])
+        steps = [compute_steps(n, p, self.tile_step_size) for n, p in zip(chw.shape[1:], patch)]
+        positions = list(itertools.product(*steps))
         out = self._blended(self.nets[0], chw, positions)
         for net in self.nets[1:]:
             out = out + self._blended(net, chw, positions)
-        return (out / len(self.nets))[:, :h, :w]
+        return (out / len(self.nets))[(slice(None),) + tuple(slice(0, s) for s in shape)]
 
     def _to_seg(self, logits):
-        """(classes, H, W) → (H, W) uint8 by the label regime, on the device."""
+        """(classes, *spatial) → (*spatial) uint8 by the label regime, on the device."""
         lm = self.label_manager
         if lm is None:
             return logits.argmax(dim=0).to(torch.uint8)
@@ -212,23 +216,23 @@ class SlidingWindowPredictor:
         return labels[logits.argmax(dim=0)]
 
     def seg(self, image, normalize: bool = True):
-        """(H, W, C) tensor → (H, W) uint8 segmentation, on the device (the
+        """(*spatial, C) tensor → (*spatial) uint8 segmentation, on the device (the
         ``traced_seg`` counterpart: only the mask needs to reach the host)."""
         with torch.inference_mode():
             return self._to_seg(self.logits(image, normalize))
 
     def predict_logits(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
-        """(H, W, C) numpy → (H, W, classes) float32 numpy."""
+        """(*spatial, C) numpy → (*spatial, classes) float32 numpy."""
         with torch.inference_mode():
             out = self.logits(torch.from_numpy(np.asarray(image, np.float32)), normalize)
-            return out.permute(1, 2, 0).cpu().numpy()
+            return out.movedim(0, -1).cpu().numpy()
 
     def predict(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
-        """(H, W, C) numpy → (H, W) uint8 segmentation."""
+        """(*spatial, C) numpy → (*spatial) uint8 segmentation."""
         return self.seg(torch.from_numpy(np.asarray(image, np.float32)), normalize).cpu().numpy()
 
     def predict_probabilities(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
-        """(H, W, classes) probabilities under the regime's nonlinearity
+        """(*spatial, classes) probabilities under the regime's nonlinearity
         (sigmoid for regions, else softmax), on the host as the JAX package
         computes them: the ``--save_probabilities`` payload."""
         from ldiffusion_tpu_torch.segmentor.export import inference_nonlin

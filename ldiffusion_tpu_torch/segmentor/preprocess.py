@@ -1,14 +1,17 @@
-"""Preprocessing, 2D (counterpart of ``ldiffusion_tpu/segmentor/preprocess.py:
-31-118, 159-170, 210-290``; reference ``default_preprocessor.py:33-296``):
-crop to nonzero (the bbox is kept), per-channel z-score (the one
-normalisation scheme ``plan_experiment`` emits), and at most 10k
-sampled locations per foreground class for oversampling. PNG cases have unit
-spacing, so resampling is the identity. ``PreprocessedDataset`` stores the
+"""Preprocessing (counterpart of ``ldiffusion_tpu/segmentor/preprocess.py:
+31-290``; reference ``default_preprocessor.py:33-296``): crop to nonzero (the
+bbox is kept), per-channel z-score (the one normalisation scheme the planners
+emit), and at most 10k sampled locations per foreground class for
+oversampling. PNG cases have unit spacing, so resampling is the identity;
+volumes are resampled to the plan's spacing (``preprocess_case_3d``, through
+``segmentor/resample.py``). The cascade's input appends the previous stage's
+segmentation as one-hot channels of the foreground labels
+(``append_prev_stage_channels``). ``PreprocessedDataset`` stores 2D and 3D
 cases in memory or as ``<case>.npz`` + ``<case>.json`` in the JAX package's
 layout. ``-preprocessor_name`` resolves through ``get_preprocessor``
 (``ldiffusion_tpu/segmentor/preprocess.py:183-220``). The other
-normalisation schemes, the 3D path and the resampler wait (ROADMAP queue 1,
-*The 3D / cascade pathway*).
+normalisation schemes are not ported (no planner of either package emits
+them).
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ FG_LOCS_PER_CLASS = 10_000
 
 @dataclasses.dataclass
 class PreprocessedCase:
-    data: np.ndarray          # (H, W, C) float32, normalised
-    seg: np.ndarray           # (H, W) int16
+    data: np.ndarray          # (*spatial, C) float32, normalised
+    seg: np.ndarray           # (*spatial) int16
     properties: Dict          # bbox, original shape, class locations
 
 
@@ -69,6 +72,53 @@ def preprocess_case(image: np.ndarray, seg: np.ndarray, num_classes: int,
     return PreprocessedCase(data=zscore_normalize(image), seg=seg, properties=props)
 
 
+def preprocess_case_3d(image: np.ndarray, seg: np.ndarray, num_classes: int,
+                       spacing: Sequence[float] = (1.0, 1.0, 1.0),
+                       target_spacing: Optional[Sequence[float]] = None,
+                       seed: int = 1234) -> PreprocessedCase:
+    """image: (Z, H, W, C) float32; seg: (Z, H, W) int. Crop to nonzero →
+    z-score over the volume → resample to ``target_spacing`` (separate-z when
+    anisotropic) → foreground locations (``preprocess.py:119-157``)."""
+    from ldiffusion_tpu_torch.segmentor.resample import compute_new_shape, resample_data_3d
+
+    orig_shape = image.shape[:3]
+    idx = np.argwhere(np.any(image != 0, axis=-1))
+    if idx.size == 0:
+        sl = tuple(slice(0, s) for s in orig_shape)
+    else:
+        mins, maxs = idx.min(axis=0), idx.max(axis=0) + 1
+        sl = tuple(slice(int(a), int(b)) for a, b in zip(mins, maxs))
+    image = image[sl]
+    seg = seg[sl].astype(np.int16)
+    mean = image.mean(axis=(0, 1, 2), keepdims=True)
+    std = image.std(axis=(0, 1, 2), keepdims=True)
+    data = ((image - mean) / np.maximum(std, 1e-8)).astype(np.float32)
+    if target_spacing is not None and tuple(target_spacing) != tuple(spacing):
+        new_shape = compute_new_shape(data.shape[:3], spacing, target_spacing)
+        data = resample_data_3d(data, new_shape, spacing, order=3)
+        seg = resample_data_3d(seg, new_shape, spacing, is_seg=True).astype(np.int16)
+    props = {
+        "original_shape": list(orig_shape),
+        "spacing": list(spacing),
+        "target_spacing": list(target_spacing or spacing),
+        "bbox": [[s.start, s.stop] for s in sl],
+        "class_locations": sample_fg_locations(seg, num_classes, seed),
+    }
+    return PreprocessedCase(data=data, seg=seg, properties=props)
+
+
+def append_prev_stage_channels(case: PreprocessedCase, prev_seg: np.ndarray,
+                               num_classes: int) -> PreprocessedCase:
+    """The cascade's input: the previous stage's segmentation (on this case's
+    grid) appended as one-hot channels of the foreground labels only, no
+    background channel (reference ``label_handling.py:283-322``)."""
+    if prev_seg.shape != case.seg.shape:
+        raise ValueError(f"previous stage {prev_seg.shape} vs case {case.seg.shape}")
+    onehot = np.eye(num_classes, dtype=np.float32)[np.maximum(prev_seg, 0)][..., 1:]
+    return PreprocessedCase(data=np.concatenate([case.data, onehot], axis=-1), seg=case.seg,
+                            properties=dict(case.properties))
+
+
 class DefaultPreprocessor:
     """The ``-preprocessor_name`` plugin point (reference
     ``plan_and_preprocess_entrypoints.py:49-53``): subclass and
@@ -77,6 +127,13 @@ class DefaultPreprocessor:
     def run_case(self, image: np.ndarray, seg: np.ndarray, num_classes: int,
                  seed: int = 1234) -> PreprocessedCase:
         return preprocess_case(image, seg, num_classes, seed=seed)
+
+    def run_case_3d(self, image: np.ndarray, seg: np.ndarray, num_classes: int,
+                    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+                    target_spacing: Optional[Sequence[float]] = None,
+                    seed: int = 1234) -> PreprocessedCase:
+        return preprocess_case_3d(image, seg, num_classes, spacing=spacing,
+                                  target_spacing=target_spacing, seed=seed)
 
 
 register("preprocessor")(DefaultPreprocessor)

@@ -28,6 +28,15 @@ targets → loss → backward → clip → optimizer. Patches come from
 ``PatchSampler`` at the enlarged initial size, through the host
 rotation/scaling (``HostSpatialAugmenter``) in a prefetch thread.
 
+A 3D plan (``SegPlan3D``: 3d_fullres, 3d_lowres, 3d_cascade_fullres,
+``:106-173``) builds the ``DynUNet3D`` (its input widened by the cascade's
+one-hot channels), the 3D host DA (``HostSpatialAugmenter3D``, dummy-2D for
+anisotropic patches) and the volumes' device stack (``augment_batch_3d``,
+mirroring and noise); its deep-supervision targets pool over per-axis
+strides, batch Dice runs over the batch and every spatial axis, and the
+final validation writes ``.npy`` cases. A variant's 2D-only mirror axes
+(onlyMirror01: ``(0,)`` in 2D) leave 3D at the variant's own axes.
+
 Precision: the parameters and the optimizer state are float32; with
 ``compute_dtype="bfloat16"`` the DynUNet computes in bf16 over them (its
 ``compute_dtype``), with the norms' statistics and the losses in float32.
@@ -62,7 +71,9 @@ from ldiffusion_tpu_torch.core.optim import Adan
 from ldiffusion_tpu_torch.data.augment import (
     AugmentConfig,
     HostSpatialAugmenter,
+    HostSpatialAugmenter3D,
     augment_batch,
+    augment_batch_3d,
     configure_spatial_da,
 )
 from ldiffusion_tpu_torch.data.patches import PatchSampler
@@ -74,6 +85,7 @@ from ldiffusion_tpu_torch.models.convert import (
     dynunet_to_flax,
 )
 from ldiffusion_tpu_torch.models.dynunet import DynUNet
+from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3D
 from ldiffusion_tpu_torch.models.layers import init_random_
 from ldiffusion_tpu_torch.segmentor.planner import SegPlan
 from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
@@ -94,15 +106,17 @@ def _pools(s) -> bool:
 
 
 def downsample_seg(seg, s, num_labels: int):
-    """Mode pool of (B, H, W) int labels over s×s windows
+    """Mode pool of (B, H, W) or (B, D, H, W) int labels over windows of
+    ``s`` (an int, or one stride an axis)
     (``ldiffusion_tpu/segmentor/trainer.py:752-769``): -1 votes as its own
     label; ties go to the lowest value, as ``argmax`` takes the first.
     ``num_labels`` covers the largest label value (a region or ignore label
     may exceed the head count)."""
-    if isinstance(s, (tuple, list)):
-        s = tuple(int(v) for v in s)
-    onehot = F.one_hot((seg + 1).long(), num_labels + 1).permute(0, 3, 1, 2).float()
-    counts = F.avg_pool2d(onehot, s, s)
+    nd = seg.dim() - 1
+    s = tuple(int(v) for v in s) if isinstance(s, (tuple, list)) else (int(s),) * nd
+    onehot = F.one_hot((seg + 1).long(), num_labels + 1).movedim(-1, 1).float()
+    pool = F.avg_pool3d if nd == 3 else F.avg_pool2d
+    counts = pool(onehot, s, s)
     return (counts.argmax(dim=1) - 1).to(seg.dtype)
 
 
@@ -126,9 +140,7 @@ class SegmentorTrainer:
         """``variant``: a ``TrainerVariant`` (its config and augmentation
         replace ``config`` and a missing ``augment``); ``label_manager``: the
         dataset's ``LabelManager`` (regions, ignore label)."""
-        if len(plan.patch_size) != 2:
-            raise NotImplementedError("3D plans are not ported yet "
-                                      "(ROADMAP queue 1, *The 3D / cascade pathway*)")
+        self.is_3d = len(plan.patch_size) == 3
         if label_manager is not None and label_manager.has_regions and \
                 plan.num_classes != label_manager.num_segmentation_heads:
             raise ValueError(f"the plan has {plan.num_classes} heads, the regions "
@@ -138,7 +150,7 @@ class SegmentorTrainer:
         if variant is not None:
             config = variant.config
             augment = augment or variant.augment
-            if variant.mirror_axes_2d is not None:  # onlyMirror01: (0,) in 2D
+            if variant.mirror_axes_2d is not None and not self.is_3d:  # onlyMirror01 in 2D
                 augment = dataclasses.replace(augment, mirror_axes=variant.mirror_axes_2d)
         self.plan = plan
         self.cfg = config
@@ -153,12 +165,20 @@ class SegmentorTrainer:
             spatial = configure_spatial_da(plan.patch_size,
                                            self.augment_cfg.initial_scale_range)
             self.train_patch_size = spatial.initial_patch_size
-            self.augment_cfg = dataclasses.replace(self.augment_cfg,
-                                                   rotation_max=spatial.rotation_max[0])
-            order0 = getattr(variant, "spatial_order0_data", False)
-            self.host_spatial = HostSpatialAugmenter(self.augment_cfg, seed=config.seed + 17,
-                                                     data_order=0 if order0 else 1,
-                                                     out_size=plan.patch_size)
+            order = 0 if getattr(variant, "spatial_order0_data", False) else 1
+            if self.is_3d:
+                if not spatial.do_dummy_2d:
+                    self.augment_cfg = dataclasses.replace(
+                        self.augment_cfg, rotation_max_3d=spatial.rotation_max[0])
+                self.host_spatial = HostSpatialAugmenter3D(
+                    self.augment_cfg, seed=config.seed + 17, data_order=order,
+                    out_size=plan.patch_size, dummy_2d=spatial.do_dummy_2d)
+            else:
+                self.augment_cfg = dataclasses.replace(self.augment_cfg,
+                                                       rotation_max=spatial.rotation_max[0])
+                self.host_spatial = HostSpatialAugmenter(self.augment_cfg, seed=config.seed + 17,
+                                                         data_order=order,
+                                                         out_size=plan.patch_size)
             self.augment_cfg = dataclasses.replace(self.augment_cfg, p_rotation=0.0,
                                                    p_scaling=0.0)
         self.log = TextLogger(os.path.join(output_dir, "training_log.txt"))
@@ -170,9 +190,13 @@ class SegmentorTrainer:
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.net_config = plan.network_config()
         if getattr(variant, "norm", "instance") == "batch":
+            if self.is_3d:
+                raise ValueError("nnUNetTrainerBN is 2D only (as in the JAX package)")
             self.net_config = dataclasses.replace(self.net_config, norm="batch")
-        net = init_random_(DynUNet(self.net_config), torch.Generator().manual_seed(config.seed))
-        self.net = net.to(self.device, memory_format=torch.channels_last)
+        net = DynUNet3D(self.net_config) if self.is_3d else DynUNet(self.net_config)
+        init_random_(net, torch.Generator().manual_seed(config.seed))
+        self.net = net.to(self.device, memory_format=torch.channels_last_3d if self.is_3d
+                          else torch.channels_last)
         self.net.compute_dtype = self.compute_dtype
         self.opt_name = getattr(variant, "optimizer", "sgd")
         params = self.net.parameters()
@@ -222,11 +246,11 @@ class SegmentorTrainer:
 
     # ------------------------------------------------------------------
     def _to_device(self, data, seg):
-        """(B, H, W, C) / (B, H, W) host batch → (B, C, H, W) float32 and
-        (B, H, W) int64 on the device."""
+        """(B, *spatial, C) / (B, *spatial) host batch → (B, C, *spatial)
+        float32 and (B, *spatial) int64 on the device."""
         data = torch.as_tensor(data, dtype=torch.float32).to(self.device, non_blocking=True)
         seg = torch.as_tensor(seg).to(self.device, non_blocking=True).long()
-        return data.permute(0, 3, 1, 2), seg
+        return data.movedim(-1, 1), seg
 
     def ds_targets(self, seg, n: int):
         """The deep-supervision targets of the first ``n`` heads."""
@@ -240,14 +264,14 @@ class SegmentorTrainer:
         return out
 
     def _regime(self, seg):
-        """(targets, loss mask or None): region maps (B, R, H, W) for the
+        """(targets, loss mask or None): region maps (B, R, *spatial) for the
         regions regime, else labels with the ignore label set to 0."""
         if self.mask_lut is None:
             return seg, None
         idx = (seg + 1).clamp(0, self.mask_lut.shape[0] - 1)
         mask = self.mask_lut[idx]
         if self.region_lut is not None:
-            return self.region_lut[idx].permute(0, 3, 1, 2), mask
+            return self.region_lut[idx].movedim(-1, 1), mask
         return torch.where(mask > 0, seg, torch.zeros_like(seg)), mask
 
     def _one_loss(self, logits, seg):
@@ -274,8 +298,8 @@ class SegmentorTrainer:
         return losses.dc_and_ce_loss(logits, tgt, mask, bd, smooth)
 
     def loss_and_grads(self, data, seg):
-        """Forward + backward on an augmented (B, C, H, W) batch and its
-        (B, H, W) labels; leaves the raw gradients on the parameters (and
+        """Forward + backward on an augmented (B, C, *spatial) batch and its
+        (B, *spatial) labels; leaves the raw gradients on the parameters (and
         updates a BatchNorm net's running statistics). Returns the loss,
         detached."""
         self.opt.zero_grad(set_to_none=True)
@@ -301,7 +325,8 @@ class SegmentorTrainer:
     def train_step(self, data, seg, lr: Optional[float] = None):
         """One step on a host batch: device DA, loss, backward, update."""
         data, seg = self._to_device(data, seg)
-        data, seg = augment_batch(data, seg, self.augment_cfg, self.generator)
+        aug = augment_batch_3d if self.is_3d else augment_batch
+        data, seg = aug(data, seg, self.augment_cfg, self.generator)
         loss = self.loss_and_grads(data, seg)
         self.apply_update(lr)
         return loss
@@ -321,7 +346,7 @@ class SegmentorTrainer:
             m = mask.unsqueeze(1)
             ph = (torch.sigmoid(logits.float()) > 0.5).float() * m
             th = tgt * m
-            axes = (0, 2, 3)
+            axes = (0, *range(2, logits.dim()))
             zero = torch.zeros(1, device=logits.device)
             return (loss, *(torch.cat([zero, v.sum(dim=axes)])
                             for v in (ph * th, ph * (1 - th), (1 - ph) * th)))
@@ -482,7 +507,8 @@ class SegmentorTrainer:
         ``validation_gt/``, ``summary.json`` (region-keyed, ignore pixels
         left out, under a label manager) and the ``postprocessing.json``
         decision (``trainer.py:567-703``, one process). val_images: (H, W, C)
-        arrays; val_labels: (H, W) ints. ``save_npz`` (``--npz``): each case's
+        arrays; val_labels: (H, W) ints; for a 3D plan (Z, H, W, C) and
+        (Z, H, W), the cases written as ``.npy``. ``save_npz`` (``--npz``): each case's
         probabilities too, ``case_NNN.npz``, from the same logits.
         ``normalize=False`` for cases of the preprocessed store, which are
         z-scored already."""
@@ -501,7 +527,8 @@ class SegmentorTrainer:
         os.makedirs(out_dir, exist_ok=True)
         gt_out = os.path.join(self.output_dir, "validation_gt")
         os.makedirs(gt_out, exist_ok=True)
-        use_mirroring, mirror_axes = inference_mirror_config(self.variant, 2)
+        nd = len(self.plan.patch_size)
+        use_mirroring, mirror_axes = inference_mirror_config(self.variant, nd)
         predictor = SlidingWindowPredictor(self.plan, [self.net.state_dict()],
                                            dtype=self.compute_dtype, device=self.device,
                                            label_manager=lm, use_mirroring=use_mirroring,
@@ -518,21 +545,24 @@ class SegmentorTrainer:
             else:
                 seg = predictor.predict(img, normalize=normalize)
             self.val_case_seconds.append(time.perf_counter() - t0)
-            Image.fromarray(seg).save(os.path.join(out_dir, f"case_{i:03d}.png"))
-            Image.fromarray(np.asarray(lab, np.uint8)).save(
-                os.path.join(gt_out, f"case_{i:03d}.png"))
+            if self.is_3d:
+                np.save(os.path.join(out_dir, f"case_{i:03d}.npy"), seg)
+                np.save(os.path.join(gt_out, f"case_{i:03d}.npy"), np.asarray(lab, np.int16))
+            else:
+                Image.fromarray(seg).save(os.path.join(out_dir, f"case_{i:03d}.png"))
+                Image.fromarray(np.asarray(lab, np.uint8)).save(
+                    os.path.join(gt_out, f"case_{i:03d}.png"))
         summary = compute_metrics_on_folder(
             out_dir, gt_out, self.plan.num_classes,
             output_file=os.path.join(out_dir, "summary.json"),
             regions_or_labels=lm.labels_or_regions_for_eval if lm is not None else None,
             ignore_label=lm.ignore_label if lm is not None else None)
-        preds, gts = [], []
-        for f in sorted(os.listdir(out_dir)):
-            if f.endswith(".png"):
-                with Image.open(os.path.join(out_dir, f)) as p, \
-                        Image.open(os.path.join(gt_out, f)) as g:
-                    preds.append(np.asarray(p))
-                    gts.append(np.asarray(g))
+        from ldiffusion_tpu_torch.evaluate import read_mask
+
+        ending = ".npy" if self.is_3d else ".png"
+        files = sorted(f for f in os.listdir(out_dir) if f.endswith(ending))
+        preds = [read_mask(os.path.join(out_dir, f)) for f in files]
+        gts = [read_mask(os.path.join(gt_out, f)) for f in files]
         if preds:
             # painted region labels and the ignore label can exceed the head count
             n_pp, ignore = self.plan.num_classes, None

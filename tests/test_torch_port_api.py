@@ -219,7 +219,8 @@ for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
              "models.tokenizer", "models.safetensors_io", "core.paths", "core.registry",
              "core.optim", "data.io", "segmentor.label_manager", "segmentor.variants",
              "segmentor.pretrained", "segmentor.export", "segmentor.cli",
-             "segmentor.__main__", "ldiffusion"):
+             "segmentor.__main__", "ldiffusion", "models.dynunet3d", "segmentor.resample",
+             "segmentor.planner3d", "segmentor.plans_file"):
     assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu",

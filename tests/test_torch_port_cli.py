@@ -358,17 +358,30 @@ def test_each_recipe_trains_through_the_cli(preprocessed, name):
     ["plot_overlays", "a", "b", "-o", "c"], ["move_plans", "-s", "1", "-t", "2"],
     ["train", "-d", "1", "-c", "3d_fullres"], ["predict", "-i", "a", "-o", "b", "-d", "1",
                                               "-c", "3d_lowres"]])
-def test_unported_subcommands_raise_naming_the_roadmap(argv):
+def test_unported_subcommands_raise_naming_the_roadmap(argv, monkeypatch):
+    """The subcommands still to port raise naming their ROADMAP item. The 3D
+    configurations are ported (``test_torch_port_cli_3d``): ``train -c
+    3d_fullres`` and ``predict -c 3d_lowres`` go on to look for their
+    dataset's roots, which are unset here."""
+    if "-c" in argv and argv[argv.index("-c") + 1].startswith("3d_"):
+        for name in ("LDIFFUSION_RAW", "nnUNet_raw", "LDIFFUSION_RESULTS", "nnUNet_results"):
+            monkeypatch.delenv(name, raising=False)
+        with pytest.raises(SystemExit, match="LDIFFUSION_(RAW|RESULTS) is not set"):
+            tcli.main(argv, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(argv, device="cpu")
 
 
 def test_volumetric_dataset_raises(tmp_path):
+    """A volumetric dataset is planned (``test_torch_port_cli_3d``); a NIfTI
+    one needs nibabel (or SimpleITK), which this machine lacks: the reader
+    raises naming it."""
     ds = tmp_path / "raw" / "Dataset009_Vol"
     ds.mkdir(parents=True)
     with open(ds / "dataset.json", "w") as f:
         json.dump({"labels": {"background": 0, "a": 1}, "file_ending": ".nii.gz"}, f)
-    with pytest.raises(NotImplementedError, match="3D"):
+    with pytest.raises(ValueError, match="nibabel"):
         tcli.main(["plan_and_preprocess", "-d", "9", "--raw", str(tmp_path / "raw"),
                    "--preprocessed", str(tmp_path / "pp")], device="cpu")
 

@@ -14,6 +14,7 @@ Tolerances:
   zero-width ranges: 5e-5 (float32, other summation orders: the low-res
   pooling, the gamma's ``pow``).
 """
+import dataclasses
 import json
 import os
 
@@ -346,7 +347,8 @@ def test_whole_augment_batch_with_fixed_draws_matches_jax(on):
 def test_draws_come_from_the_generator_and_da5_raises():
     """The draws repeat from the same generator. The DA5 transforms, which
     raised before they were ported, now run (``test_torch_port_da5`` holds
-    them against the JAX stack); device-side rotation and 3D still raise."""
+    them against the JAX stack); device-side rotation still raises, and a 3D
+    patch gets the JAX package's spatial-DA plan."""
     cfg = taug.AugmentConfig(p_rotation=0.0, p_scaling=0.0)
     a = taug.draw_augment_params((2, 3, 8, 8), cfg, torch.Generator().manual_seed(1))
     b = taug.draw_augment_params((2, 3, 8, 8), cfg, torch.Generator().manual_seed(1))
@@ -362,5 +364,7 @@ def test_draws_come_from_the_generator_and_da5_raises():
     with pytest.raises(NotImplementedError):
         taug.augment_batch(x, torch.zeros(2, 8, 8, dtype=torch.long), taug.AugmentConfig(),
                            torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        taug.configure_spatial_da((8, 8, 8))
+    # a 3D patch is ported: ±30° about each axis, the JAX package's plan
+    plan3d = taug.configure_spatial_da((8, 8, 8))
+    assert dataclasses.asdict(plan3d) == dataclasses.asdict(jaug.configure_spatial_da((8, 8, 8)))
+    assert plan3d.rotation_max == pytest.approx((np.pi / 6,) * 3) and not plan3d.do_dummy_2d

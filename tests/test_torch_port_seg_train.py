@@ -205,10 +205,10 @@ def test_one_sgd_step_matches_jax(tmp_path):
 
 
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
-    """Variants, label managers, DA5 and the residual encoder, which raised
-    before they were ported, now build a trainer (their parity is in
-    ``test_torch_port_seg_variants``/``_label_regimes``/``_da5``/``_nets``);
-    a 3D plan still raises naming its ROADMAP item."""
+    """Variants, label managers, DA5, the residual encoder and 3D plans,
+    which raised before they were ported, now build a trainer (their parity
+    is in ``test_torch_port_seg_variants``/``_label_regimes``/``_da5``/
+    ``_nets``/``_3d_train``)."""
     from ldiffusion_tpu_torch.segmentor.label_manager import LabelManager
     from ldiffusion_tpu_torch.segmentor.variants import get_variant
 
@@ -224,9 +224,17 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
     with pytest.raises(ValueError, match="heads"):  # 4 heads, 2 regions
         ttrainer.SegmentorTrainer(plan, cfg, output_dir=str(tmp_path), device="cpu",
                                   label_manager=regions)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.SegmentorTrainer(dataclasses.replace(plan, patch_size=(8, 8, 8)), cfg,
-                                  output_dir=str(tmp_path), device="cpu")
+    # a 3D plan builds the 3D trainer (its parity: ``test_torch_port_3d_train``)
+    from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3D
+    from ldiffusion_tpu_torch.segmentor.planner3d import SegPlan3D
+
+    plan3d = SegPlan3D(patch_size=(8, 8, 8), batch_size=2, spacing=(1.0, 1.0, 1.0),
+                       features_per_stage=(8, 16), strides=((1, 1, 1), (2, 2, 2)),
+                       kernel_sizes=((3, 3, 3),) * 2, n_conv_per_stage=2, num_classes=4,
+                       in_channels=3, normalization="zscore", median_shape=(8, 8, 8),
+                       batch_dice=False)
+    tr3d = ttrainer.SegmentorTrainer(plan3d, cfg, output_dir=str(tmp_path), device="cpu")
+    assert isinstance(tr3d.net, DynUNet3D) and tr3d.is_3d
 
 
 @pytest.fixture(scope="module")
