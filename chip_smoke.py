@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tissue inference, stage-1 training,
-stage-2 segmentor training, the cell level, the 2D segmentor command line and
-its volumetric (3D) pathway on one NVIDIA GPU.
+stage-2 segmentor training, the cell level, the 2D segmentor command line,
+its workflow after training and its volumetric (3D) pathway on one NVIDIA
+GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -99,7 +100,37 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               seconds, s/iteration, peak memory, host ms a batch, validation
               s/case, predict s/ROI (from each run's ``timing`` log lines),
               DA5 device ms a batch, and one profiled iteration of A and B.
-  9. vol:     the volumetric pathway at the planner's full 3D width. First
+  9. workflow: the nnU-Net workflow after training, on run A (Dataset001,
+              the 1024²/7-class plan, nnUNetTrainerDA5; the cli phase's
+              datasets, plans, fold 0 and fold-0 predictions when it ran in
+              this invocation, else built here the same way). As user
+              processes: train -f 1; find_best_configuration -c 2d (each
+              fold predicts its own validation cases on the card);
+              predict_from_modelfolder -f 0 1 -chk checkpoint_final.pkl
+              --save_probabilities and predict with the same folds, side by
+              side (masks bit-equal). Through cli.main in this process:
+              accumulate_crossval_results (cases = both folds', finite Dice),
+              ensemble of both folds with fold 0 alone (masks = the argmax of
+              the mean of the two npz payloads, the npz = that mean) and of
+              run B's region predictions (-d 2, painted by the label
+              manager), export_model of the final checkpoints (in a thread,
+              beside the two predict processes) / install_model /
+              download_model file:// (the installed and downloaded files =
+              the zip's names), plot_overlays, move_plans,
+              convert_msd and convert_old_dataset on small generated inputs;
+              predict_from_modelfolder of the installed model, profiled, with
+              cuDNN's TF32 as users have it (masks bit-equal to the user
+              process's); train -f 1 --epochs 3 --c (the resume from epoch
+              2, the loaded momentum bit-equal to the checkpoint's). Also the
+              device-side rotation + scaling of augment_batch on the card
+              against the CPU from the same draws (data 1e-4, labels >=
+              99.5%). Figures
+              (``{"workflow": ...}`` line): each command's wall seconds, CV
+              prediction s a case, find_best s, predict_from_modelfolder
+              s/ROI, ensemble s a case, export/install/download s and the
+              zip's bytes, the spatial DA's device ms, the profiled call's
+              idle share.
+ 10. vol:     the volumetric pathway at the planner's full 3D width. First
               the 3D pieces tiny and f32 on cuda against the CPU (one trainer
               step of a cascade-width plan, the volumes' device DA with the
               same draws, the 3D sliding window's logits; SEG_TINY_TOL, 1e-4).
@@ -126,6 +157,7 @@ JSON. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import dataclasses
 import gc
@@ -2188,6 +2220,369 @@ def phase_cli(work, seed):
 
 
 # ---------------------------------------------------------------------------
+# the segmentor workflow after training
+# ---------------------------------------------------------------------------
+
+WF_TRAINER = "nnUNetTrainerDA5"  # run A's recipe
+# the spatial DA card vs CPU from the same draws: f32 on both sides, the data
+# within the cuda-vs-CPU bound of the other pieces; a label moves only where
+# a sample point sits within rounding of a half pixel
+WF_SPATIAL_TOL = 1e-4
+WF_LABEL_AGREEMENT = 0.995
+
+
+def workflow_inputs(work, seed, user):
+    """Run A's datasets, plans, fold 0 and fold 0's predictions of imagesTs
+    with their probabilities: the cli phase's when it ran in this
+    invocation, else made here the same way. Returns (raw, pp, res, fold 0's
+    predictions, the dataset build's figures or None)."""
+    raw, pp, res = (os.path.join(work, f"cli_{s}") for s in ("raw", "pp", "res"))
+    out_a = os.path.join(work, "cli_pred_a")
+    if os.path.isdir(out_a):
+        return raw, pp, res, out_a, None
+    _, build = cli_datasets(work, seed)
+    user("plan_and_preprocess", "plan_and_preprocess", "-d", "1")
+    user("train fold 0", "train", "-d", "1", "-c", "2d", "-f", "0", "-tr", WF_TRAINER,
+         "--epochs", "2", "--iters", "4", "--npz")
+    user("predict fold 0", "predict", "-i", os.path.join(raw, "Dataset001_Ignore", "imagesTs"),
+         "-o", out_a, "-d", "1", "-f", "0", "-tr", WF_TRAINER, "--save_probabilities")
+    return raw, pp, res, out_a, build
+
+
+def read_pngs(folder):
+    """{file: array} of a folder's PNGs."""
+    import numpy as np
+    from PIL import Image
+
+    out = {}
+    for f in sorted(os.listdir(folder)):
+        if f.endswith(".png"):
+            with Image.open(os.path.join(folder, f)) as im:
+                out[f] = np.asarray(im)
+    return out
+
+
+def read_npz(folder, name):
+    import numpy as np
+
+    with np.load(os.path.join(folder, name)) as z:
+        return z["probabilities"]
+
+
+def workflow_small_inputs(root, plans_json):
+    """Small generated inputs of the host commands: two datasets and a
+    plans.json (move_plans), an MSD task folder (convert_msd), an old-format
+    dataset (convert_old_dataset)."""
+    import shutil
+
+    import numpy as np
+
+    from ldiffusion_tpu_torch.data.converters import generate_integration_test_dataset
+
+    for i in (5, 6):
+        generate_integration_test_dataset(os.path.join(root, "raw", f"Dataset00{i}_Test"),
+                                          n_cases=2, size=32, num_classes=3)
+    os.makedirs(os.path.join(root, "pp", "Dataset005_Test"))
+    shutil.copy(plans_json, os.path.join(root, "pp", "Dataset005_Test", "plans.json"))
+    msd, old = os.path.join(root, "Task09_Spleen"), os.path.join(root, "Task02_Old")
+    for folder, subs in ((msd, ("imagesTr", "labelsTr", "imagesTs")), (old, ("imagesTr",
+                                                                              "labelsTr"))):
+        for sub in subs:
+            os.makedirs(os.path.join(folder, sub))
+            for i in range(2):
+                np.save(os.path.join(folder, sub, f"case{i}.npy"), np.full((4, 8, 8), i, np.int16))
+    with open(os.path.join(msd, "dataset.json"), "w") as f:
+        json.dump({"name": "Spleen", "modality": {"0": "CT"}, "numTraining": 2,
+                   "labels": {"0": "background", "1": "spleen"}}, f)
+    with open(os.path.join(old, "dataset.json"), "w") as f:
+        json.dump({"name": "Old", "modality": {"0": "MR", "1": "T2"}, "tensorImageSize": "4D",
+                   "labels": {"0": "background", "1": "tumor"}, "numTraining": 2,
+                   "numTest": 0, "training": [], "test": []}, f)
+    return msd, old
+
+
+def phase_workflow(work, seed):
+    """The nnU-Net workflow after training on the card (module docstring,
+    phase 9)."""
+    import shutil
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.checkpoint import load_pytree
+    from ldiffusion_tpu_torch.data.augment import (
+        AugmentConfig,
+        apply_augment,
+        augment_batch,
+        draw_augment_params,
+    )
+    from ldiffusion_tpu_torch.models.convert import dynunet_from_flax, flatten_tree
+    from ldiffusion_tpu_torch.segmentor import cli
+    from ldiffusion_tpu_torch.segmentor.label_manager import label_manager_from_dataset_json
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant
+
+    raw, pp, res = (os.path.join(work, f"cli_{s}") for s in ("raw", "pp", "res"))
+    env = {**os.environ, "LDIFFUSION_RAW": raw, "LDIFFUSION_PREPROCESSED": pp,
+           "LDIFFUSION_RESULTS": res, "PYTHONPATH": HERE}
+    commands = {}
+
+    def start(name, *argv):  # the command as users call it: a process of its own
+        log_path = os.path.join(work, f"wf_{name.replace(' ', '_')}.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "ldiffusion_tpu_torch.segmentor",
+                                     *argv], env=env, cwd=HERE, stdout=log,
+                                    stderr=subprocess.STDOUT, text=True)
+        return name, argv, log_path, proc, t0
+
+    def finish(started):
+        name, argv, log_path, proc, t0 = started
+        rc = proc.wait(timeout=600)
+        commands[name] = time.perf_counter() - t0
+        if rc:
+            with open(log_path) as f:
+                raise AssertionError(f"workflow: {' '.join(argv)} exited {rc}:\n"
+                                     f"{f.read()[-6000:]}")
+
+    def user(name, *argv):
+        finish(start(name, *argv))
+
+    def inproc(name, *argv):  # a host command through cli.main in this process
+        t0 = time.perf_counter()
+        out = cli.main(list(argv), device="cuda")
+        commands[name] = time.perf_counter() - t0
+        return out
+
+    t_phase = time.perf_counter()
+    reset_counters()  # the workflow's device part: the dataset build when it runs here
+    raw, pp, res, out_a, build = workflow_inputs(work, seed, user)
+    d1 = os.path.join(raw, "Dataset001_Ignore")
+    ts = os.path.join(d1, "imagesTs")
+    cfg_dir = os.path.join(res, "Dataset001_Ignore", f"{WF_TRAINER}__ldPlans__2d")
+    final = ("-chk", "checkpoint_final.pkl")
+
+    # ---- 2-4: the second fold, the cross-validation summary, the best configuration
+    user("train fold 1", "train", "-d", "1", "-c", "2d", "-f", "1", "-tr", WF_TRAINER,
+         "--epochs", "2", "--iters", "4", "--npz")
+    cv = inproc("accumulate_crossval_results", "accumulate_crossval_results", "-m", cfg_dir)
+    per_fold = []
+    for f in (0, 1):
+        with open(os.path.join(cfg_dir, f"fold_{f}", "validation", "summary.json")) as fh:
+            per_fold.append(len(json.load(fh)["metric_per_case"]))
+    if len(cv["metric_per_case"]) != sum(per_fold) or \
+            not math.isfinite(cv["foreground_mean"]["Dice"]):
+        raise AssertionError(f"workflow: the CV summary holds {len(cv['metric_per_case'])} "
+                             f"cases (folds {per_fold}), Dice {cv['foreground_mean']['Dice']}")
+    user("find_best_configuration", "find_best_configuration", "-d", "1", "-c", "2d",
+         "-tr", WF_TRAINER)
+    with open(os.path.join(res, "Dataset001_Ignore", "inference_information.json")) as f:
+        info = json.load(f)
+    if info["best_configuration"] != "2d" or not math.isfinite(info["score"]) or \
+            not isinstance(info["postprocessing"], list):
+        raise AssertionError(f"workflow: inference_information.json {info}")
+
+    # ---- 5: predict_from_modelfolder against predict, both folds, the final checkpoints,
+    # side by side; meanwhile (step 7) the zip of those checkpoints is deflated on a host
+    # core in a thread of this process (zlib lets go of the interpreter lock)
+    share = os.path.join(work, "wf_share", os.path.basename(cfg_dir))
+    for rel in ("plans.json", "dataset.json", "fold_0/checkpoint_final.pkl",
+                "fold_1/checkpoint_final.pkl", "fold_0/postprocessing.json",
+                "fold_1/postprocessing.json"):
+        os.makedirs(os.path.dirname(os.path.join(share, rel)), exist_ok=True)
+        shutil.copy(os.path.join(cfg_dir, rel), os.path.join(share, rel))
+    zip_path = os.path.join(work, "wf_model.zip")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        export = pool.submit(inproc, "export_model", "export_model", share, "-o", zip_path)
+        out_m, out_p = os.path.join(work, "wf_modelfolder"), os.path.join(work, "wf_predict")
+        both = [start("predict_from_modelfolder", "predict_from_modelfolder", "-i", ts,
+                      "-o", out_m, "-m", cfg_dir, "-f", "0", "1", *final,
+                      "--save_probabilities"),
+                start("predict", "predict", "-i", ts, "-o", out_p, "-d", "1", "-f", "0", "1",
+                      "-tr", WF_TRAINER, *final)]
+        for started in both:
+            finish(started)
+        export.result()
+    masks = read_pngs(out_m)
+    if len(masks) != CLI_TEST_ROIS or any(not np.array_equal(m, read_pngs(out_p)[f])
+                                          for f, m in masks.items()):
+        raise AssertionError("workflow: predict_from_modelfolder and predict masks differ")
+    cli_check_npz(out_m, regions=False)
+
+    # ---- 6: ensembles: both folds with fold 0 alone; run B's regions with themselves
+    out_e = os.path.join(work, "wf_ensemble")
+    inproc("ensemble", "ensemble", "-i", out_m, out_a, "-o", out_e, "--save_npz")
+    for f in masks:
+        npz = f[:-4] + ".npz"
+        mean = np.mean(np.stack([read_npz(out_m, npz).astype(np.float32),
+                                 read_npz(out_a, npz).astype(np.float32)]), axis=0)
+        if not (np.array_equal(read_pngs(out_e)[f], np.argmax(mean, axis=-1).astype(np.uint8))
+                and np.array_equal(read_npz(out_e, npz), mean.astype(np.float16))):
+            raise AssertionError(f"workflow: the ensemble of {f} is not the mean's argmax")
+    out_b = os.path.join(work, "cli_pred_b")
+    regions_checked = os.path.isdir(out_b)
+    if regions_checked:
+        out_e2 = os.path.join(work, "wf_ensemble_regions")
+        d2 = os.path.join(raw, "Dataset002_Regions")
+        inproc("ensemble -d 2", "ensemble", "-i", out_b, out_b, "-o", out_e2, "-d", "2",
+               "--raw", raw)
+        lm2 = label_manager_from_dataset_json(cli._read_dataset_json(
+            os.path.join(d2, "dataset.json")))
+        for f, m in read_pngs(out_e2).items():
+            p = read_npz(out_b, f[:-4] + ".npz").astype(np.float32)
+            if not np.array_equal(m, lm2.convert_probabilities_to_segmentation(p)
+                                  .astype(np.uint8)):
+                raise AssertionError(f"workflow: the regions ensemble of {f} is not painted")
+
+    # ---- 7: the model as a zip (exported beside step 5): install, download (file://),
+    # predict again
+    inst = os.path.join(work, "wf_installed", os.path.basename(cfg_dir))
+    inproc("install_model", "install_model", zip_path, "-o", inst)
+    down = os.path.join(work, "wf_downloaded", os.path.basename(cfg_dir))
+    inproc("download_model", "download_model", "file://" + zip_path, "-o", down)
+    with zipfile.ZipFile(zip_path) as z:
+        names = sorted(z.namelist())
+    for folder in (inst, down):
+        got = sorted(os.path.relpath(os.path.join(r, f), folder)
+                     for r, _, fs in os.walk(folder) for f in fs)
+        if got != names:
+            raise AssertionError(f"workflow: {folder} holds {got}, the zip {names}")
+    # the installed model predicts in this process, profiled, cuDNN's TF32 as users have it
+    out_i = os.path.join(work, "wf_installed_pred")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        prof = device_profile(lambda: cli.main(
+            ["predict_from_modelfolder", "-i", ts, "-o", out_i, "-m", inst, "-f", "0", "1",
+             *final], device="cuda"))
+        commands["predict_from_modelfolder (installed, profiled)"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    if any(not np.array_equal(m, masks[f]) for f, m in read_pngs(out_i).items()) or \
+            len(read_pngs(out_i)) != len(masks):
+        raise AssertionError("workflow: the installed model's masks differ")
+
+    # ---- 8: overlays, plans moved, datasets converted, on small generated inputs
+    small = os.path.join(work, "wf_small")
+    msd, old = workflow_small_inputs(small, os.path.join(cfg_dir, "plans.json"))
+    inproc("plot_overlays", "plot_overlays", ts, out_m, "-o", os.path.join(small, "overlays"))
+    overlays = read_pngs(os.path.join(small, "overlays"))
+    if sorted(overlays) != sorted(masks) or \
+            any(o.shape != masks[k].shape + (3,) for k, o in overlays.items()):
+        raise AssertionError("workflow: plot_overlays wrote "
+                             f"{ {k: v.shape for k, v in overlays.items()} }")
+    inproc("move_plans", "move_plans", "-s", "5", "-t", "6", "--raw",
+           os.path.join(small, "raw"), "--preprocessed", os.path.join(small, "pp"))
+    with open(os.path.join(small, "pp", "Dataset006_Test", "plans.json")) as f, \
+            open(os.path.join(cfg_dir, "plans.json")) as g:
+        if f.read() != g.read():
+            raise AssertionError("workflow: move_plans did not copy the plans")
+    msd_out, old_out = os.path.join(small, "Dataset009_Spleen"), os.path.join(small,
+                                                                            "Dataset002_Old")
+    inproc("convert_msd", "convert_msd", "-i", msd, "-o", msd_out)
+    inproc("convert_old_dataset", "convert_old_dataset", "-i", old, "-o", old_out,
+           "--file_ending", ".npy")
+    with open(os.path.join(msd_out, "dataset.json")) as f:
+        dj_msd = json.load(f)
+    with open(os.path.join(old_out, "dataset.json")) as f:
+        dj_old = json.load(f)
+    if dj_msd["labels"] != {"background": 0, "spleen": 1} or \
+            dj_old["labels"] != {"background": 0, "tumor": 1} or \
+            dj_old["channel_names"] != {"0": "MR", "1": "T2"} or "training" in dj_old or \
+            np.load(os.path.join(msd_out, "labelsTr", "case1.npy")).shape != (4, 8, 8):
+        raise AssertionError(f"workflow: converted dataset.json {dj_msd} {dj_old}")
+
+    # ---- 9: resume fold 1 with --c; the spatial DA on the card against the CPU
+    latest = os.path.join(cfg_dir, "fold_1", "checkpoint_latest.pkl")
+    ck = load_pytree(latest)
+    plan = SegPlan.load(os.path.join(cfg_dir, "plans.json"))
+    variant = get_variant(WF_TRAINER)
+    lm1 = label_manager_from_dataset_json(cli._read_dataset_json(os.path.join(cfg_dir,
+                                                                              "dataset.json")))
+    with tempfile.TemporaryDirectory() as out:
+        tr = SegmentorTrainer(plan, variant.config, output_dir=out, variant=variant,
+                              label_manager=lm1, device="cuda")
+        tr.load_checkpoint(latest)
+        want = dynunet_from_flax(ck["opt_state"]["momentum"], tr.net_config)
+        got = tr._opt_buffers("momentum_buffer")
+        loaded_equal = all(torch.equal(got[k].cpu(), want[k]) for k in want)
+        momentum_max = max(float(v.abs().max()) for v in want.values())
+        del tr, got
+    if not loaded_equal or not momentum_max > 0:
+        raise AssertionError("workflow: the loaded momentum is not the checkpoint's "
+                             f"(max |m| {momentum_max})")
+    inproc("train --c", "train", "-d", "1", "-c", "2d", "-f", "1", "-tr", WF_TRAINER,
+           "--epochs", "3", "--iters", "4", "--c", "--raw", raw, "--preprocessed", pp,
+           "--results", res)
+    with open(os.path.join(cfg_dir, "fold_1", "training_log.txt")) as f:
+        resumed = "resumed from checkpoint_latest.pkl at epoch 2" in f.read()
+    ck3 = load_pytree(os.path.join(cfg_dir, "fold_1", "checkpoint_final.pkl"))
+    losses = ck3["logger"]["data"]["train_loss"]
+    m3, m2 = (flatten_tree(c["opt_state"]["momentum"]) for c in (ck3, ck))
+    moved = max(float(np.abs(m3[k] - m2[k]).max()) for k in m2)
+    if not resumed or ck3["epoch"] != 3 or len(losses) != 3 or \
+            not all(math.isfinite(v) for v in losses) or not moved > 0:
+        raise AssertionError(f"workflow: --c resumed {resumed}, epoch {ck3['epoch']}, losses "
+                             f"{losses}, momentum moved {moved}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 10)
+    cfg = AugmentConfig(p_rotation=1.0, p_scaling=1.0)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 1024, 1024)).astype(np.float32))
+    s = torch.from_numpy(np.stack([np.kron(rng.integers(0, 7, (16, 16)),
+                                           np.ones((64, 64), np.int64)) for _ in range(2)]))
+    drawn = draw_augment_params(x.shape, cfg, torch.Generator().manual_seed(seed))
+    d_cpu, s_cpu = apply_augment(x, s, drawn, cfg)
+    d_gpu, s_gpu = apply_augment(x.cuda(), s.cuda(), {k: v.cuda() for k, v in drawn.items()},
+                                 cfg)
+    spatial_err = per_tensor_err([d_gpu], [d_cpu])
+    label_agreement = float((s_gpu.cpu() == s_cpu).float().mean())
+    if not spatial_err <= WF_SPATIAL_TOL or label_agreement < WF_LABEL_AGREEMENT:
+        raise AssertionError(f"workflow: spatial DA card vs CPU: data {spatial_err}, labels "
+                             f"{label_agreement}")
+    xg, sg = x.cuda(), s.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    spatial_only = dataclasses.replace(cfg, **{k: 0.0 for k in (
+        "p_noise", "p_blur", "p_brightness", "p_contrast", "p_lowres", "p_gamma_invert",
+        "p_gamma", "p_mirror")})
+    spatial_ms = profiled_device_ms(lambda: augment_batch(xg, sg, spatial_only, gen), 5)
+    del x, s, xg, sg, d_gpu, s_gpu
+
+    launches, routes = read_counters(), read_routes()
+    cv_cases = len(cv["metric_per_case"])
+    row = {"gpu": gpu_line(), "commands_s": commands,
+           "command_s_total": sum(commands.values()),
+           "side_by_side": ["export_model", "predict_from_modelfolder", "predict"],
+           "phase_s": time.perf_counter() - t_phase,
+           "built_datasets_here": build is not None, "build": build,
+           "cv_cases": cv_cases, "cv_foreground_dice": cv["foreground_mean"]["Dice"],
+           "find_best_s": commands["find_best_configuration"],
+           "cv_prediction_s_per_case_command_wall": commands["find_best_configuration"]
+           / cv_cases,
+           "inference_information": info,
+           "predict_from_modelfolder_s_per_roi_command_wall":
+               commands["predict_from_modelfolder"] / CLI_TEST_ROIS,
+           "ensemble_s_per_case": commands["ensemble"] / CLI_TEST_ROIS,
+           "regions_ensemble_checked": regions_checked,
+           "export_s": commands["export_model"], "install_s": commands["install_model"],
+           "download_s": commands["download_model"], "zip_bytes": os.path.getsize(zip_path),
+           "zip_names": names,
+           "resume": {"momentum_loaded_bit_equal": loaded_equal, "epochs": ck3["epoch"],
+                      "train_loss": losses, "momentum_moved_max": moved},
+           "spatial_da": {"data_rel_err_card_vs_cpu": spatial_err, "tol": WF_SPATIAL_TOL,
+                          "label_agreement": label_agreement,
+                          "device_ms_per_batch_2x3x1024x1024": spatial_ms},
+           "profiled_predict_from_modelfolder": prof,
+           "launches": launches}
+    log(json.dumps({"workflow": row}))
+    return {"launches": launches, "launches_by_route": routes, "built": build is not None,
+            "row": row}
+
+
+# ---------------------------------------------------------------------------
 # the volumetric (3D) segmentor pathway
 # ---------------------------------------------------------------------------
 
@@ -2336,7 +2731,7 @@ def vol_profile_window(pp_dir, seed, n=3):
 
 def phase_vol(work, seed):
     """The volumetric nnU-Net command line on the card at the planner's full
-    3D width (module docstring, phase 9)."""
+    3D width (module docstring, phase 10)."""
     import numpy as np
 
     from ldiffusion_tpu_torch.core.checkpoint import load_pytree
@@ -2635,8 +3030,9 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli,vol",
-                    help="comma-separated subset of kernels,tiny,full,train,seg,cell,cli,vol")
+    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli,workflow,vol",
+                    help="comma-separated subset of "
+                         "kernels,tiny,full,train,seg,cell,cli,workflow,vol")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2713,6 +3109,13 @@ def main(argv=None) -> int:
                 if name not in launches:
                     launches[name] = cli_out["launches"][name]
                     routes[name] = cli_out["launches_by_route"][name]
+        if "workflow" in phases:  # run A after training; its datasets' build when alone
+            wf = phase_workflow(work, args.seed)
+            by_path["workflow"] = wf["launches"]
+            for name in INFERENCE_KERNELS:
+                if name not in launches and wf["built"]:
+                    launches[name] = wf["launches"][name]
+                    routes[name] = wf["launches_by_route"][name]
         if "vol" in phases:  # the 3D pathway: cuDNN convolutions, none of our kernels
             by_path["vol"] = phase_vol(work, args.seed)["launches"]
 

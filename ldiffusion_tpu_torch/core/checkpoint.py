@@ -7,7 +7,9 @@ leaves, but the segmentor's checkpoint also holds its optax ``opt_state``
 jax or flax. A plain ``pickle.load`` would import them. Here every class from
 those packages (and from ``ldiffusion_tpu``) unpickles as an inert stand-in,
 so the loaded tree holds only numpy arrays, Python values and stand-ins;
-callers read ``params`` and ``plan`` and ignore the rest.
+callers read ``params`` and ``plan``, and the segmentor trainer walks the
+stand-ins of the optax ``opt_state`` (their ``args``, the namedtuples'
+fields in order) to resume from it.
 """
 from __future__ import annotations
 

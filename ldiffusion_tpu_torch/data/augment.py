@@ -29,8 +29,15 @@ computed for the whole batch and selected per sample; the median filters,
 the stack's costliest, run only when a sample picked one (one host read of
 the flags).
 
-Layout: data (B, C, H, W) float32, seg (B, H, W) int. Rotation/scaling run
-on the host only.
+Rotation and scaling in one resample (``augment_batch`` with ``p_rotation``
+or ``p_scaling`` above 0, ``ldiffusion_tpu/data/augment.py:214-236,336-347``)
+also run on the device, for callers of the public function: the inverse
+map about the patch centre, bilinear for the data and nearest (half-way
+rounded away from zero) for the labels, 0 outside, through gathers; one
+draw decides both. The trainer keeps them on the host and sets their p to 0
+on the device.
+
+Layout: data (B, C, H, W) float32, seg (B, H, W) int.
 
 Volumes (``ldiffusion_tpu/data/augment.py:124-198, 540-566, 637-730``): the
 host applies an Euler rotation (±30° about each axis by default,
@@ -334,7 +341,23 @@ def draw_augment_params(shape: Sequence[int], cfg: AugmentConfig,
         if 1 in cfg.mirror_axes:
             p["mirror_w"] = flag(8, cfg.p_mirror)
     p.update(_draw_da5(shape, cfg, g, device))
+    p.update(_draw_spatial(B, cfg, g, device))
     return p
+
+
+def _draw_spatial(B: int, cfg: AugmentConfig, g, device) -> Dict[str, torch.Tensor]:
+    """The rotation and scaling draws, last, so the stream of a stack without
+    them is unchanged: an angle where the rotation fires (else 0), a scale
+    where the scaling fires (else 1), and ``spatial_on`` where either does."""
+    if not (cfg.p_rotation > 0 or cfg.p_scaling > 0):
+        return {}
+    u = torch.rand((B, 2), generator=g, device=device)
+    rotate, scale = u[:, 0] < cfg.p_rotation, u[:, 1] < cfg.p_scaling
+    angle = _uniform(-cfg.rotation_max, cfg.rotation_max, B, g, device)
+    factor = _uniform(*cfg.scale_range, B, g, device)
+    return {"spatial_on": rotate | scale,
+            "angle": torch.where(rotate, angle, torch.zeros_like(angle)),
+            "scale": torch.where(scale, factor, torch.ones_like(factor))}
 
 
 def _draw_da5(shape, cfg: AugmentConfig, g, device) -> Dict[str, torch.Tensor]:
@@ -521,12 +544,71 @@ def local_gamma(x, bump, g, channels):
     return torch.pow(xn.clamp_min(1e-7), expnt) * (mx - mn) + mn
 
 
+def affine_coords(h: int, w: int, angle, scale):
+    """(B,) angles and scales → the (B, H, W) rows and columns each output
+    pixel samples: rotation by ``angle`` and scaling by ``scale`` about the
+    patch centre, as the inverse map (output → input), in float32
+    (``_affine_coords``)."""
+    yy = torch.arange(h, dtype=torch.float32, device=angle.device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=angle.device)[None, :]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    y, x = yy - cy, xx - cx
+    cos, sin = (f(angle.float()).view(-1, 1, 1) for f in (torch.cos, torch.sin))
+    s = scale.float().view(-1, 1, 1)
+    return (cos * y + sin * x) / s + cy, (-sin * y + cos * x) / s + cx
+
+
+def _round_half_away(x):
+    r = torch.round(x)  # half to even; ties move away from zero instead
+    t = torch.trunc(x)
+    return torch.where((x - t).abs() == 0.5, t + torch.sign(x), r)
+
+
+def map_coordinates(img, sy, sx, order: int):
+    """``img`` (B, C, H, W) sampled at rows ``sy`` and columns ``sx`` (B, OH,
+    OW): order 1 bilinear, order 0 nearest with half-way coordinates rounded
+    away from zero; a tap outside the image reads 0. The taps and their sum
+    in ``jax.scipy.ndimage.map_coordinates(mode="constant", cval=0)``'s order."""
+    B, C, H, W = img.shape
+    flat = img.reshape(B, C, H * W)
+
+    def taps(coord):
+        if order == 0:
+            return [(_round_half_away(coord).long(), None)]
+        lower = torch.floor(coord)
+        upper = coord - lower
+        return [(lower.long(), 1 - upper), (lower.long() + 1, upper)]
+
+    out = None
+    for iy, wy in taps(sy):
+        for ix, wx in taps(sx):
+            valid = ((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W))[:, None]
+            idx = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(B, 1, -1)
+            v = torch.gather(flat, 2, idx.expand(B, C, -1)).reshape(B, C, *sy.shape[1:])
+            term = torch.where(valid, v, torch.zeros_like(v))
+            if wy is not None:
+                term = (wy * wx)[:, None] * term
+            out = term if out is None else out + term
+    return out
+
+
+def spatial_transform(data, seg, angle, scale):
+    """Rotation + scaling in one resample: data bilinear, labels nearest."""
+    sy, sx = affine_coords(data.shape[-2], data.shape[-1], angle, scale)
+    d = map_coordinates(data, sy, sx, 1)
+    s = map_coordinates(seg[:, None].float(), sy, sx, 0)[:, 0].to(seg.dtype)
+    return d, s
+
+
 def apply_augment(data, seg, p: Dict[str, torch.Tensor], cfg: AugmentConfig):
-    """Apply drawn parameters in the JAX stack's order: (DA5) rot90 and
-    transpose; noise, blur (or DA5's median), brightness, contrast, low
-    resolution, inverted gamma, gamma, mirroring; (DA5) blank rectangles,
-    brightness gradient, local gamma, sharpening."""
+    """Apply drawn parameters in the JAX stack's order: rotation + scaling;
+    (DA5) rot90 and transpose; noise, blur (or DA5's median), brightness,
+    contrast, low resolution, inverted gamma, gamma, mirroring; (DA5) blank
+    rectangles, brightness gradient, local gamma, sharpening."""
     h, w = data.shape[-2:]
+    if "spatial_on" in p:
+        d, s = spatial_transform(data, seg, p["angle"], p["scale"])
+        data, seg = _sel(p["spatial_on"], d, data), _sel(p["spatial_on"], s, seg)
     if "rot90_on" in p:
         rd, rs = data, seg
         for k in (1, 2, 3):
@@ -592,11 +674,9 @@ def apply_augment(data, seg, p: Dict[str, torch.Tensor], cfg: AugmentConfig):
 
 def augment_batch(data, seg, cfg: AugmentConfig = AugmentConfig(),
                   generator: Optional[torch.Generator] = None):
-    """The device stack on (B, C, H, W) data and (B, H, W) labels; the
-    spatial transform runs on the host (``HostSpatialAugmenter``)."""
-    if cfg.p_rotation > 0 or cfg.p_scaling > 0:
-        raise NotImplementedError("device-side rotation/scaling is not ported; the "
-                                  "trainer runs them on the host (HostSpatialAugmenter)")
+    """The device stack on (B, C, H, W) data and (B, H, W) labels (the
+    trainer runs rotation and scaling on the host, ``HostSpatialAugmenter``,
+    and passes a config with their p at 0)."""
     return apply_augment(data, seg, draw_augment_params(data.shape, cfg, generator,
                                                         data.device), cfg)
 

@@ -1,6 +1,7 @@
 """PUMA label maps: grayscale PNG values → class ids (the port's copy of
 ``convert_labels`` in ``ldiffusion_tpu/data/labels.py``). Tissue: 7
-classes; cell: 11. A 256-entry lookup table; unmapped values → 0."""
+classes; cell: 11; "rgbd", the remote-sensing masks of ``data/rgbd.py``: 4.
+A 256-entry lookup table; unmapped values → 0."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,10 +11,15 @@ PIXEL_TO_LABEL_TISSUE = {0: 0, 100: 1, 150: 2, 50: 3, 200: 4, 250: 5, 255: 6}
 # reference dataset.py:20-32
 PIXEL_TO_LABEL_CELL = {0: 0, 25: 1, 50: 2, 75: 3, 100: 4, 125: 5, 150: 6,
                        175: 7, 200: 8, 225: 9, 250: 10}
+# reference dataset.py:34-40 (the remote-sensing RGB-D path)
+ID_TO_CLASS_RGBD = {0: 0, 60: 1, 120: 2, 180: 3, 255: 0}
+
+NUM_CLASSES = {"tissue": 7, "cell": 11}
 
 
 def label_lut(level: str) -> np.ndarray:
-    mapping = {"tissue": PIXEL_TO_LABEL_TISSUE, "cell": PIXEL_TO_LABEL_CELL}.get(level)
+    mapping = {"tissue": PIXEL_TO_LABEL_TISSUE, "cell": PIXEL_TO_LABEL_CELL,
+               "rgbd": ID_TO_CLASS_RGBD}.get(level)
     if mapping is None:
         raise ValueError("Unsupported level. Use 'tissue' or 'cell'.")
     lut = np.zeros(256, np.uint8)

@@ -30,9 +30,15 @@ back and writes it through the dataset's reader.
 
 Also here: ``extract_fingerprint`` / ``plan_experiment`` / ``preprocess``
 (2D datasets, as in the JAX package), ``evaluate_folder``,
-``determine_postprocessing``, ``apply_postprocessing``. The other
-subcommands are in the parser and raise ``NotImplementedError`` (ROADMAP
-queue 1, *The remaining CLI commands*).
+``determine_postprocessing``, ``apply_postprocessing``, and the workflow
+after training: ``accumulate_crossval_results`` (the folds' validation
+summaries merged), ``find_best_configuration`` (the 2D configurations and
+their pairwise ensembles scored by cross-validation predictions on the
+card, ``inference_information.json``), ``predict_from_modelfolder``,
+``ensemble`` (the mean of ``--save_probabilities`` folders),
+``export_model`` / ``install_model`` / ``download_model`` (zip archives),
+``convert_msd``, ``convert_old_dataset``, ``plot_overlays`` and
+``move_plans``.
 """
 from __future__ import annotations
 
@@ -848,12 +854,248 @@ def cmd_apply_postprocessing(args):
     print(f"{len(files)} files postprocessed → {args.o}")
 
 
-def _not_ported(name: str):
-    def cmd(args):
-        raise NotImplementedError(f"the {name} subcommand is not ported yet "
-                                  "(ROADMAP queue 1, *The remaining CLI commands*)")
+def cmd_ensemble(args):
+    """The mean of the ``--save_probabilities`` npz payloads of several
+    prediction folders (reference ``ensemble.py:entry_point_ensemble_folders``):
+    ``-d`` paints the mean through the dataset's label manager (the regions
+    need it), else its argmax is the mask; ``--save_npz`` keeps the mean."""
+    from PIL import Image
 
-    return cmd
+    from ldiffusion_tpu_torch.segmentor.best_config import ensemble_probabilities
+
+    lm = None
+    if args.d is not None:
+        lm, _ = _label_manager(find_dataset_dir(_roots(args, "raw"), args.d))
+    os.makedirs(args.o, exist_ok=True)
+    names = sorted(f for f in os.listdir(args.i[0]) if f.endswith(".npz"))
+    if not names:
+        raise SystemExit(f"no .npz probability files in {args.i[0]} — predict with "
+                         "--save_probabilities first")
+    for n in names:
+        probs = []
+        for d in args.i:
+            with np.load(os.path.join(d, n)) as z:
+                probs.append(z["probabilities"].astype(np.float32))
+        mean = ensemble_probabilities(probs)
+        seg = lm.convert_probabilities_to_segmentation(mean) if lm is not None \
+            else np.argmax(mean, axis=-1)
+        Image.fromarray(seg.astype(np.uint8)).save(os.path.join(args.o, n[:-4] + ".png"))
+        if args.save_npz:
+            np.savez_compressed(os.path.join(args.o, n), probabilities=mean.astype(np.float16))
+    print(f"ensembled {len(names)} cases from {len(args.i)} folders → {args.o}")
+
+
+def cmd_find_best_configuration(args):
+    """Score the trained 2D configurations by their cross-validation
+    predictions, each fold predicting its own validation cases on the card,
+    and their pairwise ensembles; write ``inference_information.json``
+    (reference ``find_best_configuration_entry_point``). The JAX command
+    reads the 2D store and loads each configuration's plans as a 2D plan,
+    so a volumetric configuration is refused here."""
+    import shutil
+
+    from ldiffusion_tpu_torch.segmentor.best_config import find_best_configuration_from_folds
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedDataset
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant, inference_mirror_config
+
+    volumetric = [c for c in args.c if c != "2d"]
+    if volumetric:
+        raise SystemExit(f"find_best_configuration -c {' '.join(volumetric)}: only the 2d "
+                         "configuration is scored, as in the JAX package, which reads the 2D "
+                         "store ldPlans_2d and each configuration's plans as a 2D plan")
+    raw_root, pp_root, results_root = _roots(args, "raw", "preprocessed", "results")
+    ds_dir = find_dataset_dir(raw_root, args.d)
+    pp_dir = _pp_dataset_dir(pp_root, ds_dir)
+    ds = PreprocessedDataset.load(os.path.join(pp_dir, "ldPlans_2d"))
+    lm, _ = _label_manager(pp_dir)
+    configs = {}
+    for c in args.c:
+        cfg_dir = _results_config_dir(results_root, os.path.basename(ds_dir), args.tr, c)
+        src = os.path.join(pp_dir, "splits_final.json")  # the folds' validation cases
+        if os.path.exists(src):
+            shutil.copy(src, os.path.join(cfg_dir, "splits_final.json"))
+        configs[c] = (SegPlan.load(os.path.join(cfg_dir, "plans.json")), cfg_dir)
+    mirror, axes = inference_mirror_config(get_variant(args.tr), 2)
+    info = find_best_configuration_from_folds(
+        configs, ds, num_classes=lm.num_segmentation_heads,
+        output_json=os.path.join(results_root, os.path.basename(ds_dir),
+                                 "inference_information.json"),
+        use_mirroring=(not args.disable_tta) and mirror, mirror_axes=axes, label_manager=lm,
+        device=args.device)
+    print(f"best configuration: {info['best_configuration']} (fg dice {info['score']:.4f})")
+    return info
+
+
+def cmd_predict_from_modelfolder(args):
+    """Predict a PNG folder from an explicit model folder holding plans.json,
+    dataset.json and ``fold_*`` checkpoints (reference
+    ``predict_entry_point_modelfolder``): the trainer's mirror restrictions
+    come from the folder's name (``<trainer>__<plans>__<config>``), ``-f``
+    skips untrained folds with a warning."""
+    from PIL import Image
+
+    from ldiffusion_tpu_torch.data.io import group_channel_files
+    from ldiffusion_tpu_torch.segmentor.export import save_probabilities_npz
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.predictor import (
+        SlidingWindowPredictor,
+        find_fold_checkpoints,
+    )
+    from ldiffusion_tpu_torch.segmentor.variants import (
+        KNOWN_VARIANT_NAMES,
+        get_variant,
+        inference_mirror_config,
+    )
+
+    cfg_dir = args.m
+    plan = SegPlan.load(os.path.join(cfg_dir, "plans.json"))
+    lm, _ = _label_manager(cfg_dir)
+    ckpts = find_fold_checkpoints(cfg_dir, folds=args.f, checkpoint_name=args.chk)
+    tr_name = os.path.basename(os.path.normpath(cfg_dir)).split("__")[0]
+    variant = get_variant(tr_name) if tr_name in KNOWN_VARIANT_NAMES else None
+    mirror, axes = inference_mirror_config(variant, len(plan.patch_size))
+    predictor = SlidingWindowPredictor.from_checkpoints(
+        plan, ckpts, use_mirroring=(not args.disable_tta) and mirror, mirror_axes=axes,
+        label_manager=lm, tile_step_size=args.step_size, device=args.device)
+    os.makedirs(args.o, exist_ok=True)
+    n = 0
+    for case, files in sorted(group_channel_files(args.i, ".png").items()):
+        logits = predictor.predict_logits(_load_png_channels([os.path.join(args.i, f)
+                                                              for f in files]))
+        Image.fromarray(lm.convert_logits_to_segmentation(logits).astype(np.uint8)).save(
+            os.path.join(args.o, f"{case}.png"))
+        if args.save_probabilities:
+            save_probabilities_npz(logits, os.path.join(args.o, f"{case}.npz"),
+                                   label_manager=lm)
+        n += 1
+    print(f"{n} predictions → {args.o}")
+    return args.o
+
+
+def cmd_accumulate_crossval_results(args):
+    """The folds' validation summaries merged into one cross-validation
+    summary (reference ``accumulate_cv_results``): the per-case entries
+    concatenated, each entry's Dice and IoU averaged without NaNs."""
+    cfg_dir = args.m
+    folds = sorted(d for d in os.listdir(cfg_dir) if d.startswith("fold_"))
+    per_case = []
+    for d in folds:
+        p = os.path.join(cfg_dir, d, "validation", "summary.json")
+        if os.path.exists(p):
+            with open(p) as f:
+                per_case.extend(json.load(f)["metric_per_case"])
+    if not per_case:
+        raise SystemExit(f"no fold validation summaries under {cfg_dir}")
+    entries = list(per_case[0]["metrics"].keys())
+    mean = {}
+    for e in entries:
+        mean[e] = {}
+        for key in ("Dice", "IoU"):
+            vals = [c["metrics"][e][key] for c in per_case
+                    if not (isinstance(c["metrics"][e][key], float)
+                            and np.isnan(c["metrics"][e][key]))]
+            mean[e][key] = float(np.mean(vals)) if vals else float("nan")
+    fg = [mean[e]["Dice"] for e in entries if e != "0" and not np.isnan(mean[e]["Dice"])]
+    summary = {"metric_per_case": per_case, "mean": mean,
+               "foreground_mean": {"Dice": float(np.mean(fg)) if fg else float("nan")}}
+    out = args.o or os.path.join(cfg_dir, "crossval_results_summary.json")
+    with open(out, "w") as f:
+        json.dump(summary, f, indent=2)
+    print(f"CV summary over {len(folds)} folds ({len(per_case)} cases) → {out}")
+    return summary
+
+
+def cmd_export_model(args):
+    from ldiffusion_tpu_torch.segmentor.model_sharing import export_model
+
+    export_model(args.model_dir, args.o)
+    print(f"model exported → {args.o}")
+
+
+def cmd_install_model(args):
+    from ldiffusion_tpu_torch.segmentor.model_sharing import import_model
+
+    print(f"model installed → {import_model(args.zip, args.o)}")
+
+
+def cmd_download_model(args):
+    from ldiffusion_tpu_torch.segmentor.model_sharing import download_and_install_from_url
+
+    print(f"model downloaded and installed → {download_and_install_from_url(args.url, args.o)}")
+
+
+def cmd_convert_msd(args):
+    from ldiffusion_tpu_torch.data.converters import convert_msd_dataset
+
+    print(f"MSD dataset converted → {convert_msd_dataset(args.i, args.o)}")
+
+
+def cmd_convert_old_dataset(args):
+    """An old (v1) nnU-Net raw dataset in the current layout (reference
+    ``convert_raw_dataset_from_old_nnunet_format.py:8-40``): the image and
+    label folders copied, dataset.json translated (``modality`` →
+    ``channel_names``, id → name labels → name → id, the case lists dropped,
+    ``file_ending`` added)."""
+    import shutil
+
+    src, dst = args.i, args.o
+    for sub in ("imagesTr", "labelsTr", "imagesTs", "labelsTs"):
+        s = os.path.join(src, sub)
+        if os.path.isdir(s):
+            shutil.copytree(s, os.path.join(dst, sub), dirs_exist_ok=True)
+    with open(os.path.join(src, "dataset.json")) as f:
+        dj = json.load(f)
+    for k in ("tensorImageSize", "numTest", "training", "test"):
+        dj.pop(k, None)
+    if "modality" in dj:
+        dj["channel_names"] = dj.pop("modality")
+    if dj.get("labels") and all(str(k).lstrip("-").isdigit() for k in dj["labels"]):
+        dj["labels"] = {v: int(k) for k, v in dj["labels"].items()}
+    dj.setdefault("file_ending", args.file_ending)
+    os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(dst, "dataset.json"), "w") as f:
+        json.dump(dj, f, indent=2)
+    print(f"old-format dataset converted → {dst}")
+    return dst
+
+
+def cmd_plot_overlays(args):
+    """Each image (``<case>_0000.png`` or ``<case>.png``) with its case's mask
+    blended over it (reference ``overlay_plots.py``)."""
+    from PIL import Image
+
+    from ldiffusion_tpu_torch.utils import save_segmentation_overlay
+
+    os.makedirs(args.o, exist_ok=True)
+    segs = {f[:-4]: f for f in os.listdir(args.seg_folder) if f.lower().endswith(".png")}
+    n = 0
+    for f in sorted(os.listdir(args.image_folder)):
+        if not f.lower().endswith(".png"):
+            continue
+        case = f[:-9] if f.endswith("_0000.png") else f[:-4]
+        if case not in segs:
+            continue
+        with Image.open(os.path.join(args.image_folder, f)) as im:
+            img = np.asarray(im.convert("RGB"))
+        with Image.open(os.path.join(args.seg_folder, segs[case])) as im:
+            seg = np.asarray(im, np.uint8)
+        save_segmentation_overlay(img, seg, os.path.join(args.o, f"{case}.png"))
+        n += 1
+    print(f"{n} overlays → {args.o}")
+
+
+def cmd_move_plans(args):
+    """Copy a dataset's plans.json into another dataset's preprocessed folder
+    (reference ``move_plans_between_datasets``)."""
+    import shutil
+
+    pp_root, raw_root = _roots(args, "preprocessed", "raw")
+    src = _pp_dataset_dir(pp_root, find_dataset_dir(raw_root, args.s))
+    dst = _pp_dataset_dir(pp_root, find_dataset_dir(raw_root, args.t))
+    os.makedirs(dst, exist_ok=True)
+    shutil.copy(os.path.join(src, "plans.json"), os.path.join(dst, "plans.json"))
+    print(f"plans moved {src} → {dst}")
 
 
 # ---------------------------------------------------------------------------
@@ -998,14 +1240,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="postprocessing.json from determine_postprocessing")
     ap.set_defaults(fn=cmd_apply_postprocessing)
 
-    # not ported: the parser keeps their flags (ROADMAP queue 1, *The remaining
-    # CLI commands*)
     en = sub.add_parser("ensemble", help="nnUNetv2_ensemble analog")
     en.add_argument("-i", nargs="+", required=True, help="prediction folders")
     en.add_argument("-o", required=True)
     en.add_argument("-d", type=int, default=None)
     en.add_argument("--raw", default=None)
     en.add_argument("--save_npz", action="store_true")
+    en.set_defaults(fn=cmd_ensemble)
     bc = sub.add_parser("find_best_configuration",
                         help="nnUNetv2_find_best_configuration analog")
     common(bc)
@@ -1013,6 +1254,7 @@ def build_parser() -> argparse.ArgumentParser:
     bc.add_argument("-tr", default="nnUNetTrainer")
     bc.add_argument("--results", default=None)
     bc.add_argument("--disable_tta", action="store_true")
+    bc.set_defaults(fn=cmd_find_best_configuration)
     pm = sub.add_parser("predict_from_modelfolder",
                         help="nnUNetv2_predict_from_modelfolder analog")
     pm.add_argument("-i", required=True)
@@ -1023,41 +1265,44 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("-step_size", type=float, default=0.5)
     pm.add_argument("--save_probabilities", action="store_true")
     pm.add_argument("--disable_tta", action="store_true")
+    pm.set_defaults(fn=cmd_predict_from_modelfolder)
     ac = sub.add_parser("accumulate_crossval_results",
                         help="nnUNetv2_accumulate_crossval_results analog")
     ac.add_argument("-m", required=True, help="model (config) folder with fold_*")
     ac.add_argument("-o", default=None)
+    ac.set_defaults(fn=cmd_accumulate_crossval_results)
     ex = sub.add_parser("export_model", help="nnUNetv2_export_model_to_zip analog")
     ex.add_argument("model_dir")
     ex.add_argument("-o", required=True)
+    ex.set_defaults(fn=cmd_export_model)
     im = sub.add_parser("install_model", help="nnUNetv2_install_pretrained_model_from_zip analog")
     im.add_argument("zip")
     im.add_argument("-o", required=True)
+    im.set_defaults(fn=cmd_install_model)
     dl = sub.add_parser("download_model", help="nnUNetv2_download_pretrained_model_by_url analog")
     dl.add_argument("url")
     dl.add_argument("-o", required=True, help="install target directory")
+    dl.set_defaults(fn=cmd_download_model)
     ms = sub.add_parser("convert_msd", help="nnUNetv2_convert_MSD_dataset analog")
     ms.add_argument("-i", required=True)
     ms.add_argument("-o", required=True)
+    ms.set_defaults(fn=cmd_convert_msd)
     co = sub.add_parser("convert_old_dataset", help="nnUNetv2_convert_old_nnUNet_dataset analog")
     co.add_argument("-i", required=True, help="old-format dataset folder")
     co.add_argument("-o", required=True, help="target DatasetXXX_Name folder")
     co.add_argument("--file_ending", default=".nii.gz")
+    co.set_defaults(fn=cmd_convert_old_dataset)
     ov = sub.add_parser("plot_overlays", help="nnUNetv2_plot_overlay_pngs analog")
     ov.add_argument("image_folder")
     ov.add_argument("seg_folder")
     ov.add_argument("-o", required=True)
+    ov.set_defaults(fn=cmd_plot_overlays)
     mv = sub.add_parser("move_plans", help="nnUNetv2_move_plans_between_datasets analog")
     mv.add_argument("-s", type=int, required=True, help="source dataset id")
     mv.add_argument("-t", type=int, required=True, help="target dataset id")
     mv.add_argument("--raw", default=None)
     mv.add_argument("--preprocessed", default=None)
-    for name, sp in (("ensemble", en), ("find_best_configuration", bc),
-                     ("predict_from_modelfolder", pm), ("accumulate_crossval_results", ac),
-                     ("export_model", ex), ("install_model", im), ("download_model", dl),
-                     ("convert_msd", ms), ("convert_old_dataset", co),
-                     ("plot_overlays", ov), ("move_plans", mv)):
-        sp.set_defaults(fn=_not_ported(name))
+    mv.set_defaults(fn=cmd_move_plans)
     return p
 
 

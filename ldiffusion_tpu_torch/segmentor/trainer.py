@@ -47,9 +47,17 @@ BatchNorm net's running statistics as flax's ``mean``/``var`` collection,
 else ``{}``), ``step``, ``epoch``, ``best_ema``, ``logger``, ``plan``; the
 JAX package's ``load_pytree`` and predictor read them. ``opt_state`` holds
 the port's own optimizer buffers in the flax layout (``momentum``;
-``exp_avg``/``exp_avg_sq``; ``m``/``v``/``n``/``prev_grad``), so only the
-port resumes from them (ROADMAP queue 1, *The remaining CLI commands*).
-Multi-process validation waits for *Distribution*.
+``exp_avg``/``exp_avg_sq``; ``m``/``v``/``n``/``prev_grad``) and the
+learning rate. ``load_checkpoint`` also resumes from a checkpoint of the
+JAX trainer, whose ``opt_state`` is optax's (``InjectStatefulHyperparamsState``
+over the chain's states), read through ``core/checkpoint.py``'s stand-ins:
+``TraceState.trace`` → SGD's ``momentum_buffer`` (nesterov, no dampening:
+the same buffer), ``ScaleByAdamState`` (count, mu, nu) → Adam's ``step``,
+``exp_avg``, ``exp_avg_sq``, the JAX ``AdanState`` (count, m, v, n,
+prev_grad) → the port's Adan buffers, ``hyperparams["learning_rate"]`` →
+each group's ``lr``. A checkpoint of another optimizer family than the
+recipe's raises ``NotImplementedError``, as it cannot be resumed in JAX
+either. Multi-process validation waits for *Distribution*.
 """
 from __future__ import annotations
 
@@ -63,7 +71,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ldiffusion_tpu_torch.core.checkpoint import load_pytree, save_pytree
+from ldiffusion_tpu_torch.core.checkpoint import Inert, load_pytree, save_pytree
 from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.core.logging import EpochLogger, TextLogger, dump_debug_json
@@ -94,6 +102,44 @@ from ldiffusion_tpu_torch.segmentor.variants import inference_mirror_config, lr_
 # optimizer → the names of its per-parameter buffers in the checkpoint
 _OPT_BUFFERS = {"sgd": ("momentum_buffer",), "adam": ("exp_avg", "exp_avg_sq"),
                 "adan": ("m", "v", "n", "prev_grad")}
+# each recipe's optax state class in a JAX checkpoint; its fields after the
+# step count are that optimizer's buffers, in ``_OPT_BUFFERS`` order
+_OPTAX_CLASS = {"sgd": "TraceState", "adam": "ScaleByAdamState", "adan": "AdanState"}
+
+
+def _walk_optax(state):
+    """Every node of an optax state read by ``load_pytree``: the stand-ins'
+    constructor arguments and tuples, not the parameter trees below them."""
+    yield state
+    if isinstance(state, Inert):
+        children = state.args
+    elif isinstance(state, (tuple, list)):
+        children = state
+    else:
+        return
+    for child in children:
+        yield from _walk_optax(child)
+
+
+def optax_to_port_state(opt_state: Inert, opt_name: str, path: str) -> dict:
+    """The JAX trainer's optax ``opt_state`` as the port's checkpoint
+    ``opt_state``: {"learning_rate": the injected rate, buffer key: flax tree}."""
+    cls, names = _OPTAX_CLASS[opt_name], _OPT_BUFFERS[opt_name]
+    nodes = list(_walk_optax(opt_state))
+    found = {n.origin.rsplit(".", 1)[-1] for n in nodes if isinstance(n, Inert)}
+    state = next((n for n in nodes if isinstance(n, Inert) and n.origin.endswith("." + cls)),
+                 None)
+    hyper = next((a for n in nodes if isinstance(n, Inert) for a in n.args
+                  if isinstance(a, dict) and "learning_rate" in a), None)
+    if state is None or hyper is None:
+        raise NotImplementedError(
+            f"{path}: the recipe's optimizer is {opt_name!r} ({cls}), the checkpoint's optax "
+            f"state holds {sorted(found)}: another optimizer family cannot be resumed")
+    fields = state.args[-len(names):]  # after the count, where the state has one
+    out = {"learning_rate": float(np.asarray(hyper["learning_rate"]))}
+    for name, tree in zip(names, fields):
+        out["momentum" if name == "momentum_buffer" else name] = tree
+    return out
 
 
 def poly_lr(initial_lr: float, epoch: int, max_epochs: int, exponent: float = 0.9) -> float:
@@ -629,16 +675,19 @@ class SegmentorTrainer:
         return transferred
 
     def load_checkpoint(self, path: str):
-        """Resume from a checkpoint this trainer wrote."""
+        """Resume from a checkpoint of this trainer or of the JAX trainer
+        (its optax state mapped onto this optimizer's buffers)."""
         ck = load_pytree(path)
         opt_state = ck.get("opt_state")
+        if isinstance(opt_state, Inert):
+            opt_state = optax_to_port_state(opt_state, self.opt_name, path)
         names = _OPT_BUFFERS[self.opt_name]
         keys = ["momentum" if n == "momentum_buffer" else n for n in names]
         if not (isinstance(opt_state, dict) and all(k in opt_state for k in keys)):
             raise NotImplementedError(
-                f"{path}: resuming from another optimizer's state or the JAX package's "
-                "optax state is not ported (ROADMAP queue 1, *The remaining CLI "
-                "commands*); its params load through the predictor")
+                f"{path}: the recipe's optimizer is {self.opt_name!r}, the checkpoint holds "
+                f"the buffers {sorted(opt_state) if isinstance(opt_state, dict) else opt_state}: "
+                "another optimizer family cannot be resumed")
         self.net.load_state_dict(dynunet_from_flax(ck["params"], self.net_config,
                                                    ck.get("batch_stats")))
         for name, key in zip(names, keys):

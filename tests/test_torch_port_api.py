@@ -207,6 +207,15 @@ from ldiffusion_tpu_torch.segmentor.variants import get_variant
 build_parser().parse_args(["train", "-d", "1", "-tr", "nnUNetTrainerDA5"])
 assert get_variant("nnUNetTrainerAdan").optimizer == "adan"
 assert LabelManager({"background": 0, "a": (1, 2)}, [1]).has_regions
+# the workflow after training: a Laplace draw, a Canny map, a best configuration
+import torch
+from ldiffusion_tpu_torch.core.prng import fold_in_step, laplace
+from ldiffusion_tpu_torch.data.rgbd import canny_edges
+from ldiffusion_tpu_torch.segmentor.best_config import find_best_configuration
+assert laplace(fold_in_step(0, 1, 2), (4,), 0.5).shape == (4,)
+canny_edges(np.zeros((8, 8), np.uint8))
+probs = [np.random.default_rng(0).random((8, 8, 2))]
+assert find_best_configuration({"2d": probs}, [np.zeros((8, 8), int)], 2)["members"] == ["2d"]
 # every module of the package, both training slices' included
 names = [m.name for m in pkgutil.walk_packages(ldiffusion_tpu_torch.__path__,
                                                "ldiffusion_tpu_torch.")]
@@ -220,7 +229,9 @@ for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
              "core.optim", "data.io", "segmentor.label_manager", "segmentor.variants",
              "segmentor.pretrained", "segmentor.export", "segmentor.cli",
              "segmentor.__main__", "ldiffusion", "models.dynunet3d", "segmentor.resample",
-             "segmentor.planner3d", "segmentor.plans_file"):
+             "segmentor.planner3d", "segmentor.plans_file", "segmentor.best_config",
+             "segmentor.model_sharing", "segmentor.batch_running", "data.converters",
+             "data.public_converters", "data.rgbd", "core.prng", "utils"):
     assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu",

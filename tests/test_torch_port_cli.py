@@ -2,7 +2,8 @@
 CPU on tiny PNG datasets: ``plan_and_preprocess → train → predict →
 evaluate_folder`` for the plain, ignore-label, regions and regions+ignore
 regimes, both planners, the trainer recipes through ``train -tr``,
-``-pretrained_weights``, the unported subcommands, and ``api.parse_args``.
+``-pretrained_weights``, the workflow subcommands on bad input (the same
+exception type as the JAX CLI), and ``api.parse_args``.
 
 Tolerances:
 - plans.json, splits_final.json, the preprocessed store (npz arrays and
@@ -358,19 +359,29 @@ def test_each_recipe_trains_through_the_cli(preprocessed, name):
     ["plot_overlays", "a", "b", "-o", "c"], ["move_plans", "-s", "1", "-t", "2"],
     ["train", "-d", "1", "-c", "3d_fullres"], ["predict", "-i", "a", "-o", "b", "-d", "1",
                                               "-c", "3d_lowres"]])
-def test_unported_subcommands_raise_naming_the_roadmap(argv, monkeypatch):
-    """The subcommands still to port raise naming their ROADMAP item. The 3D
-    configurations are ported (``test_torch_port_cli_3d``): ``train -c
-    3d_fullres`` and ``predict -c 3d_lowres`` go on to look for their
-    dataset's roots, which are unset here."""
+def test_unported_subcommands_raise_naming_the_roadmap(argv, monkeypatch, tmp_path):
+    """The subcommands of the workflow after training raised before they were
+    ported; now they run (``test_torch_port_workflow``), and on the same bad
+    input (folders that do not exist, roots that are unset) the port's CLI
+    raises the exception type the JAX CLI raises. The 3D configurations are
+    ported (``test_torch_port_cli_3d``): ``train -c 3d_fullres`` and
+    ``predict -c 3d_lowres`` go on to look for their dataset's roots, which
+    are unset here."""
+    for name in ("LDIFFUSION_RAW", "nnUNet_raw", "LDIFFUSION_PREPROCESSED",
+                 "nnUNet_preprocessed", "LDIFFUSION_RESULTS", "nnUNet_results"):
+        monkeypatch.delenv(name, raising=False)
     if "-c" in argv and argv[argv.index("-c") + 1].startswith("3d_"):
-        for name in ("LDIFFUSION_RAW", "nnUNet_raw", "LDIFFUSION_RESULTS", "nnUNet_results"):
-            monkeypatch.delenv(name, raising=False)
         with pytest.raises(SystemExit, match="LDIFFUSION_(RAW|RESULTS) is not set"):
             tcli.main(argv, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(argv, device="cpu")
+    for side in ("j", "t"):  # relative folders land in a directory of each side's own
+        (tmp_path / side).mkdir()
+    monkeypatch.chdir(tmp_path / "j")
+    with pytest.raises(BaseException) as want:  # SystemExit included
+        jcli.main(list(argv))
+    monkeypatch.chdir(tmp_path / "t")
+    with pytest.raises(want.type):
+        tcli.main(list(argv), device="cpu")
 
 
 def test_volumetric_dataset_raises(tmp_path):

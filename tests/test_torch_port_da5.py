@@ -2,11 +2,13 @@
 float32, with fixed draws: this file replays the JAX stack's own draws (the
 same key splits and samplers as ``ldiffusion_tpu/data/augment.py:321-530``)
 into the port's parameter dict, so ``apply_augment`` must give the batch
-``jaug.augment_batch`` gives for that key.
+``jaug.augment_batch`` gives for that key. The device-side rotation and
+scaling (``:214-236,336-347``) are replayed the same way.
 
 Tolerance: 5e-5 absolute on data of O(1)-O(5) (float32 on both sides; the
 power and exponential functions and the order of sums differ); labels
-exactly.
+exactly. The spatial resample: data 1e-5 absolute (bilinear weights from
+the same float32 coordinates), labels exactly.
 """
 import dataclasses
 
@@ -182,3 +184,68 @@ def test_da5_draws_come_from_the_generator():
     out, _ = taug.augment_batch(torch.randn(2, 3, 8, 8), torch.zeros(2, 8, 8, dtype=torch.long),
                                 cfg, torch.Generator().manual_seed(2))
     assert torch.isfinite(out).all()
+
+
+SPATIAL_TOL = 1e-5
+NO_STACK = dict.fromkeys(("p_noise", "p_blur", "p_brightness", "p_contrast", "p_lowres",
+                          "p_gamma_invert", "p_gamma", "p_mirror"), 0.0)
+
+
+def spatial_draws(key, b, cfg):
+    """The rotation and scaling draws of ``_augment_one`` for each of ``b``
+    samples, in the port's parameter names."""
+    rows = []
+    for k in jax.random.split(key, b):
+        ks = jax.random.split(k, 16)
+        u = np.asarray(jax.random.uniform(ks[0], (12,)))
+        angle = float(jax.random.uniform(ks[1], (), minval=-cfg.rotation_max,
+                                         maxval=cfg.rotation_max))
+        scale = float(jax.random.uniform(ks[2], (), minval=cfg.scale_range[0],
+                                         maxval=cfg.scale_range[1]))
+        rot, sc = u[0] < cfg.p_rotation, u[1] < cfg.p_scaling
+        rows.append((rot or sc, angle if rot else 0.0, scale if sc else 1.0))
+    on, angle, scale = zip(*rows)
+    return {"spatial_on": torch.tensor(on), "angle": torch.tensor(angle, dtype=torch.float32),
+            "scale": torch.tensor(scale, dtype=torch.float32)}
+
+
+@pytest.mark.parametrize("seed,p", [(0, 1.0), (1, 1.0), (2, 0.5), (3, 0.2)])
+def test_spatial_branch_with_the_jax_draws(seed, p):
+    """Rotation ±180° and scaling 0.7-1.4 about the patch centre on the
+    device: bilinear data, nearest labels, 0 outside; where only one of the
+    two fires the other stays at 0° or 1x, and a sample with neither is
+    untouched."""
+    cfg = taug.AugmentConfig(p_rotation=p, p_scaling=p, **NO_STACK)
+    jcfg = jaug.AugmentConfig(**dataclasses.asdict(cfg))
+    rng = np.random.default_rng(seed)
+    data = (rng.normal(size=(6, 20, 16, 2)) * 2 + 1).astype(np.float32)
+    seg = rng.integers(0, 5, (6, 20, 16)).astype(np.int32)
+    key = jax.random.key(seed)
+    jd, js = jaug.augment_batch(key, jnp.asarray(data), jnp.asarray(seg), jcfg)
+    drawn = spatial_draws(key, 6, cfg)
+    want = taug.draw_augment_params((6, 2, 20, 16), cfg, torch.Generator().manual_seed(0))
+    assert {"spatial_on", "angle", "scale"} <= set(want)
+    p_all = {**{k: v for k, v in want.items() if k not in drawn}, **drawn}
+    d, s = taug.apply_augment(_nchw(data), torch.from_numpy(seg), p_all, cfg)
+    np.testing.assert_allclose(d.permute(0, 2, 3, 1).numpy(), np.asarray(jd),
+                               atol=SPATIAL_TOL, rtol=0)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    off = ~drawn["spatial_on"].numpy()
+    np.testing.assert_array_equal(d.permute(0, 2, 3, 1).numpy()[off], data[off])
+
+
+def test_map_coordinates_rounds_half_away_from_zero_like_jax():
+    """Order 0 at half-way coordinates (the ties jax.scipy's ``lax.round``
+    sends away from zero), order 1 between pixels, and taps outside."""
+    img = np.arange(1, 31, dtype=np.float32).reshape(5, 6)
+    ys = np.array([[-0.5, 0.5, 1.5, 2.5, 3.5, 4.49, 4.5, -0.51]], np.float32)
+    xs = np.array([[0.5, 1.5, 2.5, 3.5, 4.5, 5.5, -0.5, 2.0]], np.float32)
+    for order in (0, 1):
+        want = jax.scipy.ndimage.map_coordinates(jnp.asarray(img), [ys, xs], order=order,
+                                                 mode="constant", cval=0.0)
+        got = taug.map_coordinates(torch.from_numpy(img)[None, None],
+                                   torch.from_numpy(ys), torch.from_numpy(xs), order)
+        np.testing.assert_array_equal(got[0, 0].numpy(), np.asarray(want)[0])
+    sy, sx = taug.affine_coords(7, 6, torch.zeros(1), torch.ones(1))
+    yy, xx = np.meshgrid(np.arange(7), np.arange(6), indexing="ij")
+    assert np.array_equal(sy[0].numpy(), yy) and np.array_equal(sx[0].numpy(), xx)

@@ -347,7 +347,8 @@ def test_whole_augment_batch_with_fixed_draws_matches_jax(on):
 def test_draws_come_from_the_generator_and_da5_raises():
     """The draws repeat from the same generator. The DA5 transforms, which
     raised before they were ported, now run (``test_torch_port_da5`` holds
-    them against the JAX stack); device-side rotation still raises, and a 3D
+    them against the JAX stack); device-side rotation, which raised before it
+    was ported, gives the JAX stack's batch from the same draws; and a 3D
     patch gets the JAX package's spatial-DA plan."""
     cfg = taug.AugmentConfig(p_rotation=0.0, p_scaling=0.0)
     a = taug.draw_augment_params((2, 3, 8, 8), cfg, torch.Generator().manual_seed(1))
@@ -361,9 +362,28 @@ def test_draws_come_from_the_generator_and_da5_raises():
         out, _ = taug.augment_batch(x, torch.zeros(2, 8, 8, dtype=torch.long), da5,
                                     torch.Generator())
         assert out.shape == x.shape and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError):
-        taug.augment_batch(x, torch.zeros(2, 8, 8, dtype=torch.long), taug.AugmentConfig(),
-                           torch.Generator())
+    # device-side rotation and scaling: the default config's spatial branch,
+    # with the draws of its JAX key, gives the JAX stack's batch
+    spatial = taug.AugmentConfig(**{k: 0.0 for k in (
+        "p_noise", "p_blur", "p_brightness", "p_contrast", "p_lowres", "p_gamma_invert",
+        "p_gamma", "p_mirror")}, p_rotation=1.0)
+    rng = np.random.default_rng(6)
+    img = rng.normal(size=(2, 8, 8, 3)).astype(np.float32)
+    lab = rng.integers(0, 4, (2, 8, 8)).astype(np.int32)
+    key = jax.random.key(6)
+    jd, js = jaug.augment_batch(key, jnp.asarray(img), jnp.asarray(lab),
+                                jaug.AugmentConfig(**dataclasses.asdict(spatial)))
+    drawn = taug.draw_augment_params((2, 3, 8, 8), spatial, torch.Generator().manual_seed(1))
+    assert {"spatial_on", "angle", "scale"} <= set(drawn)
+    for i, k in enumerate(jax.random.split(key, 2)):
+        ks = jax.random.split(k, 16)
+        drawn["angle"][i] = float(jax.random.uniform(ks[1], (), minval=-np.pi, maxval=np.pi))
+        drawn["scale"][i] = (float(jax.random.uniform(ks[2], (), minval=0.7, maxval=1.4))
+                             if float(jax.random.uniform(ks[0], (12,))[1]) < 0.2 else 1.0)
+    drawn["spatial_on"][:] = True
+    d, s = taug.apply_augment(_nchw(img), torch.from_numpy(lab), drawn, spatial)
+    np.testing.assert_allclose(_nhwc(d), np.asarray(jd), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     # a 3D patch is ported: ±30° about each axis, the JAX package's plan
     plan3d = taug.configure_spatial_da((8, 8, 8))
     assert dataclasses.asdict(plan3d) == dataclasses.asdict(jaug.configure_spatial_da((8, 8, 8)))
