@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tissue inference, stage-1 training,
 stage-2 segmentor training, the cell level, the 2D segmentor command line,
-its workflow after training and its volumetric (3D) pathway on one NVIDIA
-GPU.
+its workflow after training, its volumetric (3D) pathway and the generation
+tail on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -151,6 +151,31 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               a volume by step and network forwards (the ``timing predict``
               line), and one profiled window of fullres iterations (device
               idle share; none of the port's own kernels runs there).
+ 11. gen:     the generation tail. First tiny and f32 on cuda (TF32 off)
+              against the CPU, the same weights and draws: 5-step DDIM and
+              LMS loops over the tiny UNet, ``multimodal_augment`` with a
+              tiny ControlNet whose zero convolutions are drawn non-zero,
+              both conductor nets in eval mode (GEN_TINY_TOL). Then, counters
+              reset before and read after (the tools' processes report
+              theirs; the two tools run side by side):
+              ``python -m ldiffusion_tpu_torch.tools.sample`` on an
+              SD-v1.5-width diffusers directory (the cell phase's when it ran
+              in this invocation, else written the same way), one 512² image,
+              5 PLMS steps, 6 PNGs; ``python -m
+              ldiffusion_tpu_torch.tools.pixel_latent_vector`` on the same
+              directory and 2 synthetic 1024² PUMA pairs, 25 inference steps
+              (6 timesteps), 2 x 4096 CSV rows; ``multimodal_augment`` of 4
+              synthetic 256² RGB/DTM/mask triplets read by
+              ``RgbDtmMaskDataset``, one bf16 batch, seeded random SD-v1.5
+              components and an SD-width ControlNet (conditioning 16-32-96-
+              256). Every forward launch on wgmma, every GroupNorm launch on
+              its gn_route route. Then TissueSegNet (ConvNeXt-Tiny 96-768, 7
+              classes) on a 1024² ROI, TissueSegWithDepthHeatmap on the
+              augmented batch with its DTMs and CombinedLoss on the result,
+              eval mode, cuDNN's TF32 as shipped. Figures (``{"gen": ...}``
+              line): each command's wall, s a sampling step (the PNGs' write
+              times), the augment's s a batch and peak memory, one profiled
+              augment call's device busy ms and idle share, the conductor ms.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -158,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -351,6 +377,18 @@ GN_PATH_SHAPES = [(1, 16, 16, 1280, True, 1e-5), (1, 16, 16, 2560, True, 1e-5),
                   (1, 128, 128, 960, True, 1e-5), (1, 256, 256, 256, True, 1e-6),
                   (1, 256, 256, 512, True, 1e-6), (1, 512, 512, 256, True, 1e-6),
                   (1, 1024, 1024, 128, True, 1e-6), (1, 1024, 1024, 128, False, 1e-5)]
+# the generation tail's shapes at SD-v1.5 width: tools.sample's 512² image
+# (K1 at the UNet's level 0 and 1, 4096 and 1024 tokens; K2 at the VAE
+# mid-block, 4096 tokens, d = 512), then the multimodal augment of four 256²
+# RGB-D pairs (K1 at the UNet's and the ControlNet's level 0, 1024 tokens,
+# d = 40; K2 at the VAE mid-block, 1024 tokens); GroupNorm over the augment's
+# batch-4 maps (B, H, W, C, silu, eps)
+GEN_ATTN_SHAPES = [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 4096, 1, 512),
+                   (4, 1024, 8, 40), (4, 1024, 1, 512)]
+GEN_GN_SHAPES = [(4, 32, 32, 320, True, 1e-5), (4, 32, 32, 320, False, 1e-6),
+                 (4, 8, 8, 2560, True, 1e-5), (4, 64, 64, 512, True, 1e-6),
+                 (4, 128, 128, 256, True, 1e-6), (4, 256, 256, 128, True, 1e-6),
+                 (4, 256, 256, 256, True, 1e-6)]
 # ((B, H, W, C, G), dtype, scale/bias dtype, element offset of x): f32, odd
 # channel counts, bf16 scale/bias, batches > 1, ragged rows; C·itemsize not a
 # multiple of 16 (36 bf16) and x off the 16-byte grid take the scalar variant
@@ -643,9 +681,15 @@ def phase_kernels(seed: int):
     for shape, dtype in ATTN_EXTRA:
         r = attn_row(*shape, dtype, gen, iters=0)
         log("kernel flash_attention_fwd", json.dumps(r))
+    for b, s, h, d in GEN_ATTN_SHAPES:  # after the path rows: KERNEL_META's per_call skips them
+        attn.append(attn_row(b, s, h, d, "bfloat16", gen, iters=5))
+        log("kernel gen_shapes flash_attention_fwd", json.dumps(attn[-1]))
     for b, hh, ww, c, silu, eps in GN_PATH_SHAPES:
         gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
         log("kernel groupnorm_silu", json.dumps(gn[-1]))
+    for b, hh, ww, c, silu, eps in GEN_GN_SHAPES:
+        gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
+        log("kernel gen_shapes groupnorm_silu", json.dumps(gn[-1]))
     for (b, hh, ww, c, groups), dtype, sdtype, offset in GN_EXTRA:
         for silu in (True, False):
             r = gn_row(b, hh, ww, c, groups, silu, 1e-5, dtype, gen, iters=0, sdtype=sdtype,
@@ -2849,6 +2893,343 @@ def phase_vol(work, seed):
     return {"launches": prof["launches"], "row": row}
 
 
+# ---------------------------------------------------------------------------
+# the generation tail
+# ---------------------------------------------------------------------------
+
+GEN_TINY_TOL = TINY_TRANSFORM_TOL  # f32 both sides, TF32 off: summation order only
+GEN_TINY_EMBED = (8, 16)           # the tiny VAE halves the image: one stride-2 stage
+GEN_EMBED = (16, 32, 96, 256)      # SD-v1.5 width: three stride-2 stages, 256² → 32²
+GEN_SAMPLE_STEPS = 5               # tools.sample: PLMS 5 steps visit 6 timesteps, 6 PNGs
+GEN_PLV_STEPS = 25                 # tools.pixel_latent_vector: 25 // 5 = 5 steps, 6 timesteps
+GEN_PAIRS = 2                      # synthetic PUMA pairs for pixel_latent_vector
+GEN_BATCH, GEN_SIZE = 4, 256       # the multimodal augment: four 256² RGB-D triplets
+GEN_ROI, GEN_CLASSES = 1024, 7     # TissueSegNet on one 1024² ROI, 7 classes
+GEN_MASK_IDS = (0, 60, 120, 180)   # the RGB-D masks' pixel ids (data/rgbd.py's map)
+
+# A tool run as ``python -m`` runs it (``runpy.run_module``), in a process of
+# its own, with the kernel wrappers' counts and the GroupNorm route watch of
+# this script around it; the counts come back on the last line.
+COUNTED_RUN = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+module, sys.argv = sys.argv[2], [sys.argv[2]] + sys.argv[3:]
+cs.reset_counters()
+with cs.GnRouteWatch() as watch:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+print("LAUNCHES " + json.dumps({"launches": cs.read_counters(), "routes": cs.read_routes(),
+                                "gn_expected": watch.expected, "gn_shapes": watch.shapes}))
+"""
+
+
+def gen_tiny(seed):
+    """5-step DDIM and LMS loops over the tiny UNet, ``multimodal_augment``
+    with a tiny ControlNet (every weight drawn, zero convolutions included),
+    and both conductor nets in eval mode: f32 on cuda (TF32 off) against the
+    CPU, the same weights and draws. Errors are max abs over max(1, max|cpu|)."""
+    import torch
+
+    from ldiffusion_tpu_torch.diffusion.multimodal import multimodal_augment
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents, trajectory_text_emb
+    from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise, make_scheduler
+    from ldiffusion_tpu_torch.models.conductor import (
+        TissueSegNet,
+        TissueSegNetConfig,
+        TissueSegWithDepthHeatmap,
+    )
+    from ldiffusion_tpu_torch.models.controlnet import ControlNet
+    from ldiffusion_tpu_torch.models.layers import init_random_
+
+    gen = torch.Generator().manual_seed(seed)
+    comps = SDComponents.random(seed=seed, device="cpu")
+    tiny = TissueSegNetConfig.tiny(GEN_CLASSES)
+    nets = {"controlnet": ControlNet(comps.unet_config, conditioning_embed_channels=GEN_TINY_EMBED),
+            "seg": TissueSegNet(tiny),
+            "depth": TissueSegWithDepthHeatmap(GEN_CLASSES, tiny.backbone_dims,
+                                               tiny.backbone_depths)}
+    for net in nets.values():
+        init_random_(net, gen).eval()
+    latents = torch.randn((1, 4, 32, 32), generator=gen)
+    rgb, dtm = torch.rand((2, 64, 64, 3), generator=gen), torch.rand((2, 64, 64, 1), generator=gen)
+    enc, lap = torch.randn((2, 32, 32, 4), generator=gen), laplace_noise((2, 32, 32, 4), gen)
+    image, depth = torch.randn((2, 3, 64, 64), generator=gen), torch.rand((2, 1, 64, 64), generator=gen)
+    outs = {}
+    reset_counters()
+    for dev in ("cuda", "cpu"):
+        comps.to(device=dev)
+        for net in nets.values():
+            net.to(dev)
+        o = {}
+        with torch.inference_mode():
+            emb = trajectory_text_emb(comps, 1)
+            for name in ("ddim", "lms"):
+                sch = make_scheduler(name)
+                ts = sch.set_timesteps(5)
+                state, z = sch.init_state(), latents.to(dev)
+                for i, t in enumerate(ts.values):
+                    idx = i if name == "lms" else t
+                    eps = comps.unet(sch.scale_model_input(z, idx), t, emb)
+                    z, state = sch.step(ts, state, eps, idx, z)
+                o[f"{name}_5_steps"] = comps.vae.decode_latents(z)
+            o["multimodal_augment"] = multimodal_augment(
+                comps, nets["controlnet"], rgb.to(dev), dtm.to(dev), enc_noise=enc.to(dev),
+                noise=lap.to(dev))
+            o["tissue_seg_net"] = nets["seg"](image.to(dev))["out"]
+            for k, v in nets["depth"](image.to(dev), depth.to(dev)).items():
+                o[f"depth_heatmap_{k}"] = v
+        outs[dev] = {k: v.float().cpu() for k, v in o.items()}
+        if dev == "cuda":
+            launched = read_counters()
+    errors = {k: float((outs["cuda"][k] - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+              for k, ref in outs["cpu"].items()}
+    row = {"errors": errors, "tol": GEN_TINY_TOL, "cuda_launches": launched}
+    log("gen tiny", json.dumps(row))
+    for k, err in errors.items():
+        if not bool(torch.isfinite(outs["cuda"][k]).all()) or not err <= GEN_TINY_TOL:
+            raise AssertionError(f"gen tiny: {k} cuda vs cpu differs by {err}")
+    if min(launched[k] for k in INFERENCE_KERNELS) == 0:
+        raise AssertionError(f"gen tiny: a kernel was not launched on cuda: {launched}")
+    return row
+
+
+def gen_rgbd(root, rng):
+    """GEN_BATCH synthetic GEN_SIZE² RGB / DTM / mask TIF triplets under
+    ``root/train/{rgb,dtm,masks}``, the RGB-D dataset's layout."""
+    import numpy as np
+    from PIL import Image
+
+    dirs = {sub: os.path.join(root, "train", sub) for sub in ("rgb", "dtm", "masks")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(GEN_BATCH):
+        tissue_like(rng, GEN_SIZE, GEN_SIZE).save(os.path.join(dirs["rgb"], f"tile_{i}.tif"))
+        tissue_like(rng, GEN_SIZE, GEN_SIZE).convert("L").save(
+            os.path.join(dirs["dtm"], f"tile_{i}.tif"))
+        ids = np.asarray(GEN_MASK_IDS, np.uint8)[rng.integers(0, 4, (16, 16))]
+        Image.fromarray(ids).resize((GEN_SIZE, GEN_SIZE), Image.NEAREST).save(
+            os.path.join(dirs["masks"], f"tile_{i}.tif"))
+    return root
+
+
+def gen_augment(work, seed, rng):
+    """``multimodal_augment`` of one batch of GEN_BATCH RGB-D triplets read
+    by ``RgbDtmMaskDataset``, SD-v1.5-width bf16 components and ControlNet
+    from seeded random weights: one call, three timed, one profiled."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.data.rgbd import RgbDtmMaskDataset
+    from ldiffusion_tpu_torch.diffusion.multimodal import multimodal_augment
+    from ldiffusion_tpu_torch.models.controlnet import ControlNet
+    from ldiffusion_tpu_torch.models.layers import init_random_
+
+    t0 = time.perf_counter()
+    ds = RgbDtmMaskDataset(gen_rgbd(os.path.join(work, "gen_rgbd"), rng), "train",
+                           mask_size=GEN_SIZE, image_size=GEN_SIZE)
+    items = [ds[i] for i in range(len(ds))]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items])) for k in ("rgb", "dtm", "mask")}
+    data_s = time.perf_counter() - t0
+    rgb, dtm = batch["rgb"].cuda(), batch["dtm"].cuda()
+    comps = sd15_components(seed, torch.bfloat16)
+    with torch.device("meta"):
+        cn = ControlNet(comps.unet_config, conditioning_embed_channels=GEN_EMBED)
+    cn = init_random_(cn.to_empty(device="cuda"), torch.Generator(device="cuda").manual_seed(seed + 1))
+    cn = cn.to(dtype=torch.bfloat16, memory_format=torch.channels_last).eval()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def call():
+        return multimodal_augment(comps, cn, rgb, dtm, generator=gen)
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(call)
+    if tuple(out.shape) != (GEN_BATCH, GEN_SIZE, GEN_SIZE, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"gen: the augment gave {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    row = {"batch": GEN_BATCH, "size": GEN_SIZE, "dtype": "bfloat16",
+           "controlnet_parameters": sum(p.numel() for p in cn.parameters()),
+           "dataset_read_s": data_s, "first_call_s": first,
+           "s_per_batch_median": float(np.median(times)), "s_per_batch_runs": times,
+           "max_memory_allocated": peak, "profiled_call": prof}
+    del comps, cn
+    return out, batch, row
+
+
+def gen_conductor(recon, batch, rng, seed):
+    """TissueSegNet on one GEN_ROI² ROI, TissueSegWithDepthHeatmap on the
+    augmented batch with its DTMs, CombinedLoss on the result; eval mode,
+    ConvNeXt-Tiny 96-768, seeded random weights, cuDNN's TF32 as shipped."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
+    from ldiffusion_tpu_torch.losses.dice import CombinedLoss
+    from ldiffusion_tpu_torch.models.conductor import (
+        TissueSegNet,
+        TissueSegNetConfig,
+        TissueSegWithDepthHeatmap,
+    )
+    from ldiffusion_tpu_torch.models.layers import init_random_
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    seg = init_random_(TissueSegNet(TissueSegNetConfig(GEN_CLASSES)).cuda(), g).eval()
+    dep = init_random_(TissueSegWithDepthHeatmap(GEN_CLASSES).cuda(), g).eval()
+    roi = np.asarray(tissue_like(rng, GEN_ROI, GEN_ROI), np.float32) / 255.0
+    x = torch.from_numpy((roi - IMAGENET_MEAN) / IMAGENET_STD).permute(2, 0, 1)[None].cuda()
+    rgb = recon.permute(0, 3, 1, 2).contiguous()
+    depth = batch["dtm"].permute(0, 3, 1, 2).cuda()
+    masks = batch["mask"].cuda()
+    loss_fn = CombinedLoss(GEN_CLASSES)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN: as shipped
+    try:
+        with torch.inference_mode():
+            out = seg(x)["out"]
+            heads = dep(rgb, depth)
+            loss = loss_fn(heads["seg"], masks)
+            row = {"tissue_seg_net_ms": cuda_ms(lambda: seg(x), 3),
+                   "depth_heatmap_ms": cuda_ms(lambda: dep(rgb, depth), 3),
+                   "combined_loss_ms": cuda_ms(lambda: loss_fn(heads["seg"], masks), 3)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    shapes = {"out": tuple(out.shape), **{k: tuple(v.shape) for k, v in heads.items()}}
+    want = {"out": (1, GEN_CLASSES, GEN_ROI, GEN_ROI),
+            "seg": (GEN_BATCH, GEN_CLASSES, GEN_SIZE, GEN_SIZE),
+            "heatmap": (GEN_BATCH, GEN_CLASSES, GEN_SIZE, GEN_SIZE)}
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *heads.values(), loss))
+    if shapes != want or not finite:
+        raise AssertionError(f"gen: conductor outputs {shapes}, finite {finite}")
+    row.update({"combined_loss": float(loss),
+                "tissue_seg_net_parameters": sum(p.numel() for p in seg.parameters()),
+                "depth_heatmap_parameters": sum(p.numel() for p in dep.parameters())})
+    return row
+
+
+def phase_gen(work, seed):
+    """The generation tail on the card (module docstring, phase 11)."""
+    import csv
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    row = {"gpu": gpu_line(), "tiny": gen_tiny(seed)}
+    sd_dir = os.path.join(work, "sd15_dir")  # the cell phase's, when it ran
+    row["sd_dir_from_cell_phase"] = os.path.isdir(sd_dir)
+    if not row["sd_dir_from_cell_phase"]:
+        t0 = time.perf_counter()
+        write_sd_dir(sd_dir, sd15_components(seed, torch.bfloat16))
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["sd_dir_write_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 11)
+    roi = os.path.join(work, "gen_roi.png")
+    tissue_like(rng, 512, 512).save(roi)
+    pairs = seg_pairs(os.path.join(work, "gen_pairs"), GEN_PAIRS, rng)
+    env = {**os.environ, "PYTHONPATH": HERE}
+    commands, by_process = {}, {}
+
+    def start(module, *argv):  # the tool as users call it, a process of its own, counted
+        log_path = os.path.join(work, f"gen_{module.rsplit('.', 1)[-1]}.log")
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen([sys.executable, "-c", COUNTED_RUN, HERE, module, *argv],
+                                    env=env, cwd=work, stdout=out, stderr=subprocess.STDOUT,
+                                    text=True)
+        return proc, log_path, time.perf_counter()
+
+    def finish(started):  # each process's own wall, taken when it exits
+        deadline = time.perf_counter() + 600
+        while any(name not in commands for name in started):
+            for name, (proc, _, t0) in started.items():
+                if name not in commands and proc.poll() is not None:
+                    commands[name] = time.perf_counter() - t0
+            if time.perf_counter() > deadline:
+                for proc, _, _ in started.values():
+                    proc.kill()
+                raise AssertionError(f"gen: the tools ran past 600 s: {sorted(started)}")
+            time.sleep(0.05)
+        for name, (proc, log_path, _) in started.items():
+            with open(log_path) as f:
+                out = f.read()
+            if proc.returncode:
+                raise AssertionError(f"gen: {name} exited {proc.returncode}:\n{out[-6000:]}")
+            counted = json.loads([ln for ln in out.splitlines()
+                                  if ln.startswith("LAUNCHES ")][-1][len("LAUNCHES "):])
+            check_bf16_routes(f"gen {name}", counted["routes"])
+            if counted["routes"]["groupnorm_silu"] != counted["gn_expected"]:
+                raise AssertionError(f"gen {name}: groupnorm_silu launched "
+                                     f"{counted['routes']['groupnorm_silu']} by "
+                                     f"route, gn_route names {counted['gn_expected']}")
+            by_process[name] = counted
+
+    reset_counters()  # the generation path starts here (and in each tool's process)
+    # the two tools side by side, as a user's shell would run them
+    out_dir = os.path.join(work, "gen_sample")
+    csv_path = os.path.join(work, "gen_pixel_latent_vectors.csv")
+    finish({"sample": start("ldiffusion_tpu_torch.tools.sample", "--diffusion-path", sd_dir,
+                            "--image", roi, "--num-steps", str(GEN_SAMPLE_STEPS),
+                            "--out-dir", out_dir),
+            "pixel_latent_vector": start(
+                "ldiffusion_tpu_torch.tools.pixel_latent_vector", "--diffusion-path", sd_dir,
+                "--image-dir", pairs.image_dir, "--label-dir", pairs.label_dir,
+                "--num-inference-steps", str(GEN_PLV_STEPS), "--out", csv_path)})
+    pngs = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir))
+    if len(pngs) != GEN_SAMPLE_STEPS + 1 or not all(p.endswith(".png") for p in pngs):
+        raise AssertionError(f"gen: tools.sample wrote {pngs}")
+    for p in pngs:
+        with Image.open(p) as im:
+            if im.size != (512, 512) or im.mode != "RGB":
+                raise AssertionError(f"gen: {p} is {im.size} {im.mode}")
+    written = [os.stat(p).st_mtime_ns / 1e9 for p in pngs]  # one PNG a visit, in order
+    step_s = np.diff(written).tolist()
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+    header = ["image", "y", "x", "label"] + [f"step_{t}" for t in range(GEN_PLV_STEPS // 5 + 1)]
+    if rows[0] != header or len(rows) != 1 + GEN_PAIRS * 64 * 64 or \
+            not np.isfinite(np.asarray([r[4:] for r in rows[1:]], np.float64)).all():
+        raise AssertionError(f"gen: the CSV's header {rows[0]}, {len(rows)} lines")
+
+    with GnRouteWatch() as watch:
+        recon, batch, row["augment"] = gen_augment(work, seed, rng)
+    launched, routes = read_counters(), read_routes()
+    watch.check("gen augment", routes)
+    check_bf16_routes("gen augment", routes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["conductor"] = gen_conductor(recon, batch, rng, seed)
+
+    launches = {k: n + sum(p["launches"][k] for p in by_process.values())
+                for k, n in launched.items()}
+    by_route = {k: {r: n + sum(p["routes"][k][r] for p in by_process.values())
+                    for r, n in rs.items()} for k, rs in routes.items()}
+    if min(launches[k] for k in INFERENCE_KERNELS) == 0:
+        raise AssertionError(f"gen: a kernel of the path was not launched: {launches}")
+    row.update({"commands_s": commands, "sample_pngs": len(pngs),
+                "sample_s_per_step_median": float(np.median(step_s)), "sample_step_s": step_s,
+                "pixel_latent_vector_rows": len(rows) - 1,
+                "launches_by_process": {**{k: p["launches"] for k, p in by_process.items()},
+                                        "augment (this process)": launched},
+                "gn_shapes_by_process": {**{k: p["gn_shapes"] for k, p in by_process.items()},
+                                         "augment (this process)": watch.shapes},
+                "launches": launches, "launches_by_route": by_route,
+                "phase_wall_s": time.perf_counter() - t_phase})
+    log(json.dumps({"gen": row}))
+    return {"launches": launches, "launches_by_route": by_route, "row": row}
+
+
 def tr_batch(rng, size):
     """A (images, labels) batch of one synthetic size² ROI with 64² labels."""
     import numpy as np
@@ -3030,9 +3411,9 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli,workflow,vol",
+    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen",
                     help="comma-separated subset of "
-                         "kernels,tiny,full,train,seg,cell,cli,workflow,vol")
+                         "kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3055,7 +3436,8 @@ def main(argv=None) -> int:
     log(gpu_line())  # the card's name and power limit, as nvidia-smi gives them
     t0 = time.perf_counter()
     _build.build()
-    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(_build.SOURCES)} "
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.3f} s (nvcc, sm_90a, {len(_build.SOURCES)} "
         "sources in parallel)")
     for name in _build.SOURCES:
         log(f"--- ptxas {name}\n" + (_build.BUILD_DIR / f"{name}.log").read_text())
@@ -3068,19 +3450,31 @@ def main(argv=None) -> int:
 
     kernel_rows, launches, routes = {}, {}, {}
     by_path = {}  # each main path's launches, counted from 0 just before it
+    walls = {"build": build_s}  # each phase's wall s, to trace the run's time
+
+    @contextlib.contextmanager
+    def wall(name):
+        t0 = time.perf_counter()
+        yield
+        walls[name] = time.perf_counter() - t0
+
     if "kernels" in phases:
-        kernel_rows = phase_kernels(args.seed)
+        with wall("kernels"):
+            kernel_rows = phase_kernels(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         if "tiny" in phases:
-            phase_tiny(work, args.seed)
+            with wall("tiny"):
+                phase_tiny(work, args.seed)
         if "full" in phases:  # the inference path's kernels: their launches there
-            full = phase_full(work, args.seed)
+            with wall("full"):
+                full = phase_full(work, args.seed)
             by_path["full"] = full["launches"]
             launches.update({k: full["launches"][k] for k in INFERENCE_KERNELS})
             for name in INFERENCE_KERNELS:
                 routes[name] = full["launches_by_route"][name]
         if "train" in phases:  # the training path's kernels: their launches there
-            train, train_routes = phase_train(work, args.seed)
+            with wall("train"):
+                train, train_routes = phase_train(work, args.seed)
             by_path["train"] = train
             log("train_launches", json.dumps({"launches": train,
                                               "launches_by_route": train_routes}))
@@ -3089,36 +3483,50 @@ def main(argv=None) -> int:
             for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
                 routes[name] = train_routes[name]
         if "seg" in phases:  # stage 2 runs the inference kernels in its dataset build
-            seg = phase_seg(work, args.seed)
+            with wall("seg"):
+                seg = phase_seg(work, args.seed)
             by_path["seg"] = seg["launches"]
             for name in INFERENCE_KERNELS:
                 if name not in launches:
                     launches[name] = seg["launches"][name]
                     routes[name] = seg["launches_by_route"][name]
         if "cell" in phases:  # the cell level transforms every ROI it sees
-            cell = phase_cell(work, args.seed)
+            with wall("cell"):
+                cell = phase_cell(work, args.seed)
             by_path["cell"] = cell["launches"]
             for name in INFERENCE_KERNELS:
                 if name not in launches:
                     launches[name] = cell["launches"][name]
                     routes[name] = cell["launches_by_route"][name]
         if "cli" in phases:  # the segmentor CLI's dataset is built by the transform
-            cli_out = phase_cli(work, args.seed)
+            with wall("cli"):
+                cli_out = phase_cli(work, args.seed)
             by_path["cli"] = cli_out["launches"]
             for name in INFERENCE_KERNELS:
                 if name not in launches:
                     launches[name] = cli_out["launches"][name]
                     routes[name] = cli_out["launches_by_route"][name]
         if "workflow" in phases:  # run A after training; its datasets' build when alone
-            wf = phase_workflow(work, args.seed)
+            with wall("workflow"):
+                wf = phase_workflow(work, args.seed)
             by_path["workflow"] = wf["launches"]
             for name in INFERENCE_KERNELS:
                 if name not in launches and wf["built"]:
                     launches[name] = wf["launches"][name]
                     routes[name] = wf["launches_by_route"][name]
         if "vol" in phases:  # the 3D pathway: cuDNN convolutions, none of our kernels
-            by_path["vol"] = phase_vol(work, args.seed)["launches"]
+            with wall("vol"):
+                by_path["vol"] = phase_vol(work, args.seed)["launches"]
+        if "gen" in phases:  # the generation tail: the SD blocks at batch 1 and 4
+            with wall("gen"):
+                gen = phase_gen(work, args.seed)
+            by_path["gen"] = gen["launches"]
+            for name in INFERENCE_KERNELS:
+                if name not in launches:
+                    launches[name] = gen["launches"][name]
+                    routes[name] = gen["launches_by_route"][name]
 
+    log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes, by_path)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

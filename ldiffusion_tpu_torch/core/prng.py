@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ldiffusion_tpu_torch.diffusion.pipeline import laplace_noise
+from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise
 
 _MIX = 0x9E3779B97F4A7C15  # the 64-bit golden-ratio constant (splitmix64)
 _MASK = (1 << 64) - 1

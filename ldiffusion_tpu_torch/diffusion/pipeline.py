@@ -11,7 +11,7 @@ mean (not scaled by 0.18215) while ``decode_latents`` divides by 0.18215.
 clean latents plus Laplace noise scaled by sqrt(1 − ᾱ_t) go through the
 UNet, whose raw output is decoded as latents (``vae.decode``, not as an
 epsilon prediction), resized to 64² and reduced to gray; the grays stack
-along channels. The noise is an input (``laplace_noise`` draws it from a
+along channels. The noise is an input (``schedulers.laplace_noise`` draws it from a
 generator), so ``torch.utils.checkpoint`` recomputes a timestep from the same
 values, and tests can hand in the JAX package's draws.
 
@@ -82,6 +82,7 @@ class SDComponents:
     proj: nn.Linear
     scheduler: PNDMScheduler = dataclasses.field(default_factory=PNDMScheduler)
     prompt_ids: tuple = DEFAULT_PROMPT_IDS
+    tokenizer: Optional[CLIPTokenizer] = None
 
     @staticmethod
     def _configs(unet_config, vae_config, text_config):
@@ -148,6 +149,7 @@ class SDComponents:
         except FileNotFoundError:  # no tokenizer files: DEFAULT_PROMPT_IDS
             pass
         else:
+            comps.tokenizer = tokenizer
             comps.prompt_ids = tuple(tokenizer([DEFAULT_PROMPT])["input_ids"][0])
         comps.to(dtype=dtype)
         if unet_override_dir is not None:
@@ -195,6 +197,19 @@ class SDComponents:
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
 
+    def text_embeddings(self, batch_size: int = 1, prompt: Optional[str] = None):
+        """CLIP last_hidden_state → learned projection, (batch_size, S, D)
+        (reference ``segmentor.py:54-60``): the fixed prompt's ids unless
+        ``prompt`` is another text, which needs the directory's tokenizer."""
+        if prompt is not None and prompt != DEFAULT_PROMPT:
+            if self.tokenizer is None:
+                raise ValueError("an arbitrary prompt needs tokenizer files")
+            ids = self.tokenizer([prompt] * batch_size)["input_ids"]
+        else:
+            ids = [list(self.prompt_ids)] * batch_size
+        ids = torch.tensor(ids, dtype=torch.long, device=self.device)
+        return apply_proj(self.proj, self.text(ids))
+
     @property
     def latent_factor(self) -> int:
         """Image size / latent size of the VAE (8 for SD v1.5)."""
@@ -211,14 +226,6 @@ def trajectory_text_emb(components: SDComponents, batch_size: int):
         hidden = components.text(ids)
     emb = apply_proj(components.proj, hidden)
     return emb.expand((batch_size,) + emb.shape[1:])
-
-
-def laplace_noise(shape, generator: torch.Generator, device=None, dtype=torch.float32):
-    """Laplace(0, 1) samples by the inverse CDF, as ``jax.random.laplace``:
-    u ~ U(−1 + ε, 1), x = sign(u)·log1p(−|u|)."""
-    u = torch.empty(shape, device=device, dtype=dtype)
-    u.uniform_(-1.0 + torch.finfo(dtype).eps / 2, 1.0, generator=generator)
-    return torch.sign(u) * torch.log1p(-u.abs())
 
 
 def trajectory_timesteps(components: SDComponents, num_inference_steps: int):

@@ -1,11 +1,21 @@
-"""PNDM (PLMS) scheduler, counterpart of ``PNDMScheduler`` in
-``ldiffusion_tpu/diffusion/schedulers.py``. PyTorch runs eagerly, so the
+"""PNDM (PLMS), DDIM and LMS schedulers, counterparts of
+``ldiffusion_tpu/diffusion/schedulers.py``. PyTorch runs eagerly, so each
 state's counter is a Python int and the branch on it is a Python ``if``; the
-per-step scalars are float32 as in the JAX package. DDIM and LMS wait
-(ROADMAP queue 1, *The generation tail*).
+per-step scalars are float32 as in the JAX package.
 
-Quirk kept: with one inference step PNDM visits t=1 with prev_t=-999, whose
-alpha_bar is ``final_alpha_cumprod`` (alpha_bar[0] in the SD v1.5 config).
+- PNDM with skip_prk_steps=True (PLMS), SD v1.5's scheduler. Quirk kept:
+  with one inference step it visits t=1 with prev_t=-999, whose alpha_bar is
+  ``final_alpha_cumprod`` (alpha_bar[0] in the SD v1.5 config).
+- DDIM, deterministic (eta = 0).
+- LMS (diffusers' LMSDiscreteScheduler): sigmas interpolated at the visited
+  timesteps and the linear-multistep coefficients integrated with scipy's
+  ``quad`` on the host at ``set_timesteps``, the same calls as the JAX
+  package's, so the table is bit-equal; ``step`` and ``scale_model_input``
+  take the loop index, not the timestep.
+
+Laplace noise (``add_laplace_noise``) is an explicit tensor or is drawn from a
+``torch.Generator``; a generator cannot replay a JAX key, so tests hand in
+the JAX package's draws.
 """
 from __future__ import annotations
 
@@ -13,8 +23,18 @@ import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ldiffusion_tpu_torch.diffusion.schedule import NoiseSchedule, sd15_schedule
+
+
+def laplace_noise(shape, generator: Optional[torch.Generator], device=None,
+                  dtype=torch.float32):
+    """Laplace(0, 1) samples by the inverse CDF, as ``jax.random.laplace``:
+    u ~ U(−1 + ε, 1), x = sign(u)·log1p(−|u|)."""
+    u = torch.empty(shape, device=device, dtype=dtype)
+    u.uniform_(-1.0 + torch.finfo(dtype).eps / 2, 1.0, generator=generator)
+    return torch.sign(u) * torch.log1p(-u.abs())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +48,10 @@ class Timesteps:
     def __len__(self) -> int:
         return len(self.values)
 
+    @property
+    def array(self) -> np.ndarray:
+        return np.asarray(self.values, dtype=np.int32)
+
 
 class PNDMState(NamedTuple):
     ets: List               # model outputs kept for the multistep formula, newest last
@@ -35,8 +59,17 @@ class PNDMState(NamedTuple):
     cur_sample: Optional[object]  # the sample stashed at counter 0 for the counter-1 fixup
 
 
-class PNDMScheduler:
-    """PLMS (PNDM with skip_prk_steps=True), SD v1.5's default scheduler."""
+class DDIMState(NamedTuple):
+    counter: int
+
+
+class LMSState(NamedTuple):
+    derivatives: List       # the last ``order`` derivatives, newest last
+    counter: int
+
+
+class _SchedulerBase:
+    order = 1
 
     def __init__(self, schedule: Optional[NoiseSchedule] = None):
         self.schedule = schedule or sd15_schedule()
@@ -46,6 +79,22 @@ class PNDMScheduler:
         if t >= 0:
             return np.float32(self.schedule.alphas_cumprod[min(t, self.schedule.num_train_timesteps - 1)])
         return np.float32(self.schedule.final_alpha_cumprod)
+
+    def add_laplace_noise(self, sample, t: int, noise=None,
+                          generator: Optional[torch.Generator] = None):
+        """sample + Laplace(0, sqrt(1 − alpha_bar_t)): ``noise`` is a unit
+        Laplace draw of the sample's shape, else drawn from ``generator``."""
+        scale = float(np.sqrt(np.float32(1.0) - self._alpha(t)))
+        if noise is None:
+            noise = laplace_noise(sample.shape, generator, sample.device, sample.dtype)
+        return sample + noise.to(sample.device, sample.dtype) * scale
+
+    def scale_model_input(self, sample, t=None):
+        return sample  # identity for PNDM and DDIM
+
+
+class PNDMScheduler(_SchedulerBase):
+    """PLMS (PNDM with skip_prk_steps=True), SD v1.5's default scheduler."""
 
     def set_timesteps(self, num_inference_steps: int) -> Timesteps:
         T = self.schedule.num_train_timesteps
@@ -91,3 +140,102 @@ class PNDMScheduler:
         sample_coeff = np.sqrt(a_prev / a_t)
         denom = a_t * np.sqrt(b_prev) + np.sqrt(a_t * b_t * a_prev)
         return float(sample_coeff) * sample - float(a_prev - a_t) * model_output / float(denom)
+
+
+class DDIMScheduler(_SchedulerBase):
+    """Deterministic DDIM (eta = 0)."""
+
+    def set_timesteps(self, num_inference_steps: int) -> Timesteps:
+        T = self.schedule.num_train_timesteps
+        ratio = T // num_inference_steps
+        tsv = (np.arange(0, num_inference_steps) * ratio).round()[::-1].astype(np.int64)
+        tsv += self.schedule.steps_offset
+        return Timesteps(tuple(int(t) for t in tsv), num_inference_steps, ratio)
+
+    def init_state(self) -> DDIMState:
+        return DDIMState(counter=0)
+
+    def step(self, ts: Timesteps, state: DDIMState, model_output, t: int, sample):
+        a_t, a_prev = self._alpha(t), self._alpha(t - ts.step_ratio)
+        one = np.float32(1.0)
+        pred_x0 = (sample - float(np.sqrt(one - a_t)) * model_output) / float(np.sqrt(a_t))
+        direction = float(np.sqrt(one - a_prev)) * model_output
+        prev = float(np.sqrt(a_prev)) * pred_x0 + direction
+        return prev, DDIMState(counter=state.counter + 1)
+
+
+class LMSScheduler(_SchedulerBase):
+    """Linear multistep (k-diffusion style) over interpolated sigmas, as
+    diffusers' LMSDiscreteScheduler. ``set_timesteps`` keeps the sigmas and
+    the coefficient table on the scheduler for the steps that follow."""
+
+    def __init__(self, schedule: Optional[NoiseSchedule] = None, order: int = 4):
+        super().__init__(schedule)
+        self.lms_order = order
+
+    def set_timesteps(self, num_inference_steps: int) -> Timesteps:
+        tsv, sigmas, coeffs = self._tables(num_inference_steps)
+        # the steps read float32 tables, as the JAX package's do
+        self._sigmas = sigmas.astype(np.float32)
+        self._coeffs = coeffs.astype(np.float32)
+        T = self.schedule.num_train_timesteps
+        return Timesteps(tuple(int(round(t)) for t in tsv), num_inference_steps,
+                         max(1, T // num_inference_steps))
+
+    def _tables(self, n: int):
+        """float64 (timesteps (n,), sigmas (n + 1,), coefficients (n, order))."""
+        T = self.schedule.num_train_timesteps
+        tsv = np.linspace(0, T - 1, n, dtype=np.float64)[::-1]
+        sigmas = np.interp(tsv[::-1], np.arange(T), self.schedule.sigmas)[::-1]
+        sigmas = np.concatenate([sigmas, [0.0]]).astype(np.float64)
+        return tsv, sigmas, self._lms_coeff_table(sigmas, n)
+
+    def _lms_coeff_table(self, sigmas: np.ndarray, n: int) -> np.ndarray:
+        """(n, order) float64: ``[step, cur]`` multiplies derivative step − cur."""
+        from scipy import integrate
+
+        table = np.zeros((n, self.lms_order), dtype=np.float64)
+        for step in range(n):
+            order = min(step + 1, self.lms_order)
+            for cur in range(order):
+                def fn(tau, cur=cur, step=step, order=order):
+                    prod = 1.0
+                    for k in range(order):
+                        if cur == k:
+                            continue
+                        prod *= (tau - sigmas[step - k]) / (sigmas[step - cur] - sigmas[step - k])
+                    return prod
+
+                table[step, cur] = integrate.quad(
+                    fn, sigmas[step], sigmas[step + 1], epsrel=1e-4)[0]
+        return table
+
+    def init_state(self) -> LMSState:
+        return LMSState(derivatives=[], counter=0)
+
+    def scale_model_input(self, sample, step_index: int):
+        sigma = self._sigmas[step_index]
+        return sample / float(np.sqrt(sigma ** 2 + np.float32(1.0)))
+
+    def step(self, ts: Timesteps, state: LMSState, model_output, step_index: int, sample):
+        """``step_index`` is the loop index (0..n-1), not the timestep value."""
+        sigma = float(self._sigmas[step_index])
+        pred_x0 = sample - sigma * model_output
+        deriv = (sample - pred_x0) / sigma
+        derivs = (state.derivatives + [deriv])[-self.lms_order:]
+        coeffs = self._coeffs[step_index]
+        # the JAX package sums all ``order`` terms over a zero-padded history;
+        # the missing terms are 0·0 and change nothing
+        contrib = sum(float(coeffs[cur]) * derivs[-1 - cur] for cur in range(len(derivs)))
+        return sample + contrib, LMSState(derivatives=derivs, counter=state.counter + 1)
+
+
+def make_scheduler(name: str = "pndm", schedule: Optional[NoiseSchedule] = None):
+    name = name.lower()
+    if name in ("pndm", "plms"):
+        return PNDMScheduler(schedule)
+    if name == "ddim":
+        return DDIMScheduler(schedule)
+    if name in ("lms", "lmsdiscrete"):
+        return LMSScheduler(schedule)
+    raise ValueError(f"unknown scheduler: {name}")

@@ -5,9 +5,10 @@ soft Dice over (batch and) spatial axes without the background class, robust
 cross-entropy, their sum, TopK cross-entropy (the hardest k% pixels, optional
 label smoothing), focal loss and DC+focal; for the regions regime the sigmoid
 family (BCE, sigmoid soft Dice, DC+BCE, sigmoid focal, DC+sigmoid focal); the
-deep-supervision weighting (1/2^i, the lowest scale zeroed, normalised); and
-the cell level's evaluation metric, ``micro_dice``
-(``ldiffusion_tpu/losses/dice.py:179-194``).
+deep-supervision weighting (1/2^i, the lowest scale zeroed, normalised); the
+conductor nets' ``micro_dice_soft``, ``CombinedLoss`` and
+``kl_div_multichannel`` (``:159-210, 285-291``); and the cell level's
+evaluation metric, ``micro_dice`` (``ldiffusion_tpu/losses/dice.py:179-194``).
 
 Layout: logits (B, C, *spatial), channels first; targets (B, *spatial) int,
 or (B, R, *spatial) region maps for the sigmoid family; ``loss_mask``
@@ -211,3 +212,52 @@ def micro_dice(pred_labels, true_labels, num_classes: int):
     dice = torch.where(tp + fp + fn == 0, torch.ones_like(tp),
                        2 * tp / torch.clamp(2 * tp + fp + fn, min=1e-8))
     return dice, dice.mean()
+
+
+def micro_dice_soft(logits, targets, num_classes: int, class_weights=None,
+                    fp_weight: float = 0.3, fn_weight: float = 0.7, smooth: float = 1e-5):
+    """The differentiable micro-Dice of the conductor nets
+    (``ldiffusion_tpu/losses/dice.py:159-179``; reference MicroDiceLoss,
+    ``model/loss.py:128-171``): softmax probabilities, tp/fp/fn summed over
+    the batch and space, FP weighted 0.3 and FN 0.7, absent classes scored 0,
+    ``class_weights`` padded with ones (or cut) to ``num_classes``."""
+    probs = torch.softmax(logits.float(), dim=1)
+    onehot = _one_hot(targets, num_classes)
+    axes = (0,) + tuple(range(2, probs.dim()))
+    tp = (probs * onehot).sum(dim=axes)
+    fp = (probs * (1 - onehot)).sum(dim=axes)
+    fn = ((1 - probs) * onehot).sum(dim=axes)
+    present = (onehot.sum(dim=axes) + fp) > 0
+    dice = 2 * tp / (2 * tp + fp_weight * fp + fn_weight * fn + smooth)
+    dice = torch.where(present, dice, torch.zeros_like(dice))
+    if class_weights is not None:
+        cw = torch.as_tensor(class_weights, dtype=torch.float32, device=dice.device)
+        if cw.shape[0] < num_classes:
+            cw = torch.cat([cw, cw.new_ones(num_classes - cw.shape[0])])
+        dice = dice * cw[:num_classes]
+    return 1.0 - dice.mean()
+
+
+class CombinedLoss:
+    """Weighted soft micro-Dice (class weights 1, 2, 2, 1, the rest 1) plus
+    cross-entropy ignoring label 255 (reference ``model/loss.py:173-186``)."""
+
+    def __init__(self, num_classes: int = 7, dice_weight: float = 1.0, ce_weight: float = 1.0):
+        self.num_classes = num_classes
+        self.dice_weight = dice_weight
+        self.ce_weight = ce_weight
+        self.class_weights = (1.0, 2.0, 2.0, 1.0)
+
+    def __call__(self, logits, targets):
+        dice = micro_dice_soft(logits, targets, self.num_classes, self.class_weights)
+        ce = robust_cross_entropy(logits, targets, loss_mask=targets != 255)
+        return self.dice_weight * dice + self.ce_weight * ce
+
+
+def kl_div_multichannel(pred_logits, target_logits):
+    """KL(softmax(target) ‖ softmax(pred)) over dim 1, batchmean (reference
+    ``model/loss.py:206-214``)."""
+    logp = torch.log_softmax(pred_logits.float(), dim=1)
+    q = torch.softmax(target_logits.float(), dim=1)
+    logq = torch.log_softmax(target_logits.float(), dim=1)
+    return (q * (logq - logp)).sum() / pred_logits.shape[0]

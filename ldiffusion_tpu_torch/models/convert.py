@@ -9,6 +9,10 @@ names on the torch side). Layouts: conv OIHW ↔ HWIO, dense (out, in) ↔
 ``nn.ConvTranspose`` (padding "SAME", ``transpose_kernel=False``) is a
 correlation with the kernel as stored, where torch's ``ConvTranspose2d``
 convolves: its (in, out, kh, kw) weight is the flax kernel spatially flipped.
+The ControlNet (``controlnet_rows``) shares the UNet's encoder rows; the
+conductor nets' BatchNorm rows (kind ``bn``) also carry flax's
+``batch_stats`` as the running statistics, and a ConvNeXt block's ``gamma``
+is a bare parameter (kind ``param``).
 
 Also reads the two artifacts the JAX trainers write: the fine-tuned UNet
 directory (``unet_params.npz`` + ``unet_config.json`` + ``proj_weights.npz``)
@@ -43,7 +47,8 @@ from ldiffusion_tpu_torch.models.vae import VAEConfig
 # kind → (torch leaf, flax leaf)
 _LEAVES = {"conv": ("weight", "kernel"), "convT": ("weight", "kernel"),
            "linear": ("weight", "kernel"), "norm": ("weight", "scale"),
-           "embed": ("weight", "embedding")}
+           "bn": ("weight", "scale"), "embed": ("weight", "embedding"),
+           "param": ("gamma", "gamma")}
 Row = Tuple[str, str, str]  # (torch prefix, flax path, kind)
 
 
@@ -138,10 +143,11 @@ def _transformer2d(rows, tp, fp, depth: int = 1):
     rows.append((f"{tp}.proj_out", f"{fp}/proj_out", "conv"))
 
 
-def unet_rows(config: UNet2DConditionConfig) -> List[Row]:
-    rows: List[Row] = [("conv_in", "conv_in", "conv"),
-                       ("time_embedding.linear_1", "time_embedding/linear_1", "linear"),
-                       ("time_embedding.linear_2", "time_embedding/linear_2", "linear")]
+def _unet_encoder_rows(rows, config: UNet2DConditionConfig) -> None:
+    """time embedding, the down path and the mid block: the UNet's and the
+    ControlNet's alike."""
+    rows += [("time_embedding.linear_1", "time_embedding/linear_1", "linear"),
+             ("time_embedding.linear_2", "time_embedding/linear_2", "linear")]
     n = len(config.block_out_channels)
     in_ch = config.block_out_channels[0]
     for i, btype in enumerate(config.down_block_types):
@@ -158,6 +164,12 @@ def unet_rows(config: UNet2DConditionConfig) -> List[Row]:
     _resnet(rows, "mid_block.resnets.0", "mid_resnet_0", True, False)
     _transformer2d(rows, "mid_block.attentions.0", "mid_attn")
     _resnet(rows, "mid_block.resnets.1", "mid_resnet_1", True, False)
+
+
+def unet_rows(config: UNet2DConditionConfig) -> List[Row]:
+    rows: List[Row] = [("conv_in", "conv_in", "conv")]
+    _unet_encoder_rows(rows, config)
+    n = len(config.block_out_channels)
     for i, btype in enumerate(config.up_block_types):
         for j in range(config.layers_per_block + 1):
             _resnet(rows, f"up_blocks.{i}.resnets.{j}", f"up_{i}_resnet_{j}", True, True)
@@ -166,6 +178,25 @@ def unet_rows(config: UNet2DConditionConfig) -> List[Row]:
         if i < n - 1:
             rows.append((f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}_upsample/conv", "conv"))
     rows += [("conv_norm_out", "conv_norm_out", "norm"), ("conv_out", "conv_out", "conv")]
+    return rows
+
+
+def controlnet_rows(config: UNet2DConditionConfig,
+                    conditioning_embed_channels: Tuple[int, ...]) -> List[Row]:
+    """``models/controlnet.py``'s names ↔ ``ldiffusion_tpu/models/controlnet.py``'s:
+    the conditioning stages ``blocks.{2i, 2i+1}`` ↔ ``cond_{i}_{a, b}``, the
+    zero convolutions ``controlnet_down_blocks.k`` ↔ ``zero_conv_k``."""
+    e = "controlnet_cond_embedding"
+    rows: List[Row] = [(f"{e}.conv_in", "cond_in", "conv")]
+    for i in range(len(conditioning_embed_channels) - 1):
+        rows += [(f"{e}.blocks.{2 * i}", f"cond_{i}_a", "conv"),
+                 (f"{e}.blocks.{2 * i + 1}", f"cond_{i}_b", "conv")]
+    rows += [(f"{e}.conv_out", "cond_out", "conv"), ("conv_in", "conv_in", "conv")]
+    _unet_encoder_rows(rows, config)
+    n = len(config.block_out_channels)
+    n_zero = 1 + n * config.layers_per_block + (n - 1)  # conv_in, each layer, each downsample
+    rows += [(f"controlnet_down_blocks.{k}", f"zero_conv_{k}", "conv") for k in range(n_zero)]
+    rows.append(("controlnet_mid_block", "zero_conv_mid", "conv"))
     return rows
 
 
@@ -370,6 +401,107 @@ def resnet_to_flax(state_dict, config: ResNetConfig) -> dict:
             for t, f in (("running_mean", "mean"), ("running_var", "var")):
                 _set(stats, f"{fp}/{f}", state_dict[f"{tp}.{t}"].detach().float().cpu().numpy())
     return {"params": to_flax(rows, state_dict), "batch_stats": stats}
+
+
+def _basic_conv(rows, tp, fp):
+    rows += [(f"{tp}.conv", f"{fp}/conv", "conv"), (f"{tp}.bn", f"{fp}/bn", "bn")]
+
+
+def _convnext_rows(rows, tp, fp, dims, depths):
+    rows += [(f"{tp}.stem_conv", f"{fp}/stem_conv", "conv"),
+             (f"{tp}.stem_norm", f"{fp}/stem_norm", "norm")]
+    for i, depth in enumerate(depths):
+        if i > 0:
+            rows += [(f"{tp}.down_{i}_norm", f"{fp}/down_{i}_norm", "norm"),
+                     (f"{tp}.down_{i}_conv", f"{fp}/down_{i}_conv", "conv")]
+        for j in range(depth):
+            b, fb = f"{tp}.stage_{i}_block_{j}", f"{fp}/stage_{i}_block_{j}"
+            rows += [(f"{b}.dwconv", f"{fb}/dwconv", "conv"), (f"{b}.norm", f"{fb}/norm", "norm"),
+                     (f"{b}.pwconv1", f"{fb}/pwconv1", "linear"),
+                     (f"{b}.pwconv2", f"{fb}/pwconv2", "linear"), (b, fb, "param")]
+
+
+def _cbam_aspp_rows(rows, n_dilations: int = 4):
+    rows += [("cbam.channel_att.fc1", "cbam/channel_att/fc1", "linear"),
+             ("cbam.channel_att.fc2", "cbam/channel_att/fc2", "linear"),
+             ("cbam.spatial_att.conv", "cbam/spatial_att/conv", "conv")]
+    for name in [f"branch_{i}" for i in range(n_dilations)] + ["global_branch", "project"]:
+        _basic_conv(rows, f"aspp.{name}", f"aspp/{name}")
+
+
+def tissue_seg_net_rows(config) -> List[Row]:
+    """``models/conductor.py``'s ``TissueSegNet`` ↔ the JAX module's (the same
+    names; ConvNeXt ``gamma`` a bare parameter; BatchNorm rows of kind
+    ``bn``, whose running statistics are flax's ``batch_stats``)."""
+    rows: List[Row] = []
+    _convnext_rows(rows, "backbone", "backbone", config.backbone_dims, config.backbone_depths)
+    _cbam_aspp_rows(rows)
+    _basic_conv(rows, "decoder_conv", "decoder_conv")
+    rows.append(("decoder_out", "decoder_out", "conv"))
+    return rows
+
+
+def tissue_seg_with_depth_rows(backbone_dims, backbone_depths) -> List[Row]:
+    rows: List[Row] = []
+    _convnext_rows(rows, "rgb_backbone", "rgb_backbone", backbone_dims, backbone_depths)
+    for name in ("depth_0", "depth_1", "depth_2", "depth_3", "depth_proj", "hm_0", "hm_1"):
+        _basic_conv(rows, name, name)
+    rows.append(("hm_out", "hm_out", "conv"))
+    _cbam_aspp_rows(rows)
+    for name in ("dec_0", "dec_1"):
+        _basic_conv(rows, name, name)
+    rows.append(("dec_out", "dec_out", "conv"))
+    return rows
+
+
+def _with_batch_stats(rows: List[Row], variables: dict) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` → a state dict with the running statistics."""
+    sd = from_flax(rows, variables["params"])
+    for tp, fp, kind in rows:
+        if kind == "bn":
+            node = _node(variables["batch_stats"], fp)
+            sd[f"{tp}.running_mean"] = torch.tensor(np.asarray(node["mean"], np.float32))
+            sd[f"{tp}.running_var"] = torch.tensor(np.asarray(node["var"], np.float32))
+    return sd
+
+
+def _to_variables(rows: List[Row], state_dict) -> dict:
+    stats: dict = {}
+    for tp, fp, kind in rows:
+        if kind == "bn":
+            for t, f in (("running_mean", "mean"), ("running_var", "var")):
+                _set(stats, f"{fp}/{f}", state_dict[f"{tp}.{t}"].detach().float().cpu().numpy())
+    return {"params": to_flax(rows, state_dict), "batch_stats": stats}
+
+
+def controlnet_from_flax(params, config: UNet2DConditionConfig,
+                         conditioning_embed_channels: Tuple[int, ...]):
+    return from_flax(controlnet_rows(config, conditioning_embed_channels), params)
+
+
+def controlnet_to_flax(state_dict, config: UNet2DConditionConfig,
+                       conditioning_embed_channels: Tuple[int, ...]):
+    return to_flax(controlnet_rows(config, conditioning_embed_channels), state_dict)
+
+
+def tissue_seg_net_from_flax(variables: dict, config) -> Dict[str, torch.Tensor]:
+    return _with_batch_stats(tissue_seg_net_rows(config), variables)
+
+
+def tissue_seg_net_to_flax(state_dict, config) -> dict:
+    return _to_variables(tissue_seg_net_rows(config), state_dict)
+
+
+def tissue_seg_with_depth_from_flax(variables: dict, backbone_dims: Tuple[int, ...],
+                                    backbone_depths: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
+    return _with_batch_stats(tissue_seg_with_depth_rows(backbone_dims, backbone_depths),
+                             variables)
+
+
+def tissue_seg_with_depth_to_flax(state_dict, backbone_dims: Tuple[int, ...],
+                                  backbone_depths: Tuple[int, ...]) -> dict:
+    return _to_variables(tissue_seg_with_depth_rows(backbone_dims, backbone_depths),
+                         state_dict)
 
 
 def proj_from_flax(params) -> Dict[str, torch.Tensor]:

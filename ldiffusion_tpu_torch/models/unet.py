@@ -57,6 +57,49 @@ class _Block(nn.Module):
     ``downsamplers``/``upsamplers`` lists, as in diffusers."""
 
 
+def build_down_blocks(cfg: UNet2DConditionConfig, attn_groups: int):
+    """The down path's blocks (diffusers names) and the channels of each skip
+    they leave, ``conv_in``'s first. ``attn_groups``: the Transformer2D
+    GroupNorm's groups (the UNet's ``norm_num_groups``; the ControlNet's
+    default 32)."""
+    ch0 = cfg.block_out_channels[0]
+    heads, tdim = cfg.attention_head_dim, ch0 * 4
+    skips = [ch0]
+    blocks = nn.ModuleList()
+    cin = ch0
+    for i, (btype, ch) in enumerate(zip(cfg.down_block_types, cfg.block_out_channels)):
+        blk = _Block()
+        blk.resnets = nn.ModuleList()
+        if btype == "CrossAttnDownBlock2D":
+            blk.attentions = nn.ModuleList()
+        for _ in range(cfg.layers_per_block):
+            blk.resnets.append(ResnetBlock(cin, ch, groups=cfg.norm_num_groups,
+                                           temb_channels=tdim))
+            if btype == "CrossAttnDownBlock2D":
+                blk.attentions.append(Transformer2D(ch, heads, ch // heads,
+                                                    cfg.cross_attention_dim,
+                                                    groups=attn_groups))
+            cin = ch
+            skips.append(ch)
+        if i < len(cfg.block_out_channels) - 1:
+            blk.downsamplers = nn.ModuleList([Downsample(ch)])
+            skips.append(ch)
+        blocks.append(blk)
+    return blocks, skips
+
+
+def build_mid_block(cfg: UNet2DConditionConfig, attn_groups: int) -> nn.Module:
+    mid, tdim = cfg.block_out_channels[-1], cfg.block_out_channels[0] * 4
+    heads = cfg.attention_head_dim
+    blk = _Block()
+    blk.resnets = nn.ModuleList(
+        [ResnetBlock(mid, mid, groups=cfg.norm_num_groups, temb_channels=tdim)
+         for _ in range(2)])
+    blk.attentions = nn.ModuleList(
+        [Transformer2D(mid, heads, mid // heads, cfg.cross_attention_dim, groups=attn_groups)])
+    return blk
+
+
 class UNet2DCondition(nn.Module):
     def __init__(self, config: UNet2DConditionConfig = UNet2DConditionConfig()):
         super().__init__()
@@ -68,35 +111,11 @@ class UNet2DCondition(nn.Module):
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimeEmbedding(ch0, tdim)
 
-        skips = [ch0]
-        self.down_blocks = nn.ModuleList()
-        cin = ch0
-        for i, (btype, ch) in enumerate(zip(cfg.down_block_types, cfg.block_out_channels)):
-            blk = _Block()
-            blk.resnets = nn.ModuleList()
-            if btype == "CrossAttnDownBlock2D":
-                blk.attentions = nn.ModuleList()
-            for _ in range(cfg.layers_per_block):
-                blk.resnets.append(ResnetBlock(cin, ch, groups=groups, temb_channels=tdim))
-                if btype == "CrossAttnDownBlock2D":
-                    blk.attentions.append(Transformer2D(ch, heads, ch // heads, ctx,
-                                                        groups=groups))
-                cin = ch
-                skips.append(ch)
-            if i < n - 1:
-                blk.downsamplers = nn.ModuleList([Downsample(ch)])
-                skips.append(ch)
-            self.down_blocks.append(blk)
-
-        mid = cfg.block_out_channels[-1]
-        self.mid_block = _Block()
-        self.mid_block.resnets = nn.ModuleList(
-            [ResnetBlock(mid, mid, groups=groups, temb_channels=tdim) for _ in range(2)])
-        self.mid_block.attentions = nn.ModuleList(
-            [Transformer2D(mid, heads, mid // heads, ctx, groups=groups)])
+        self.down_blocks, skips = build_down_blocks(cfg, groups)
+        self.mid_block = build_mid_block(cfg, groups)
 
         self.up_blocks = nn.ModuleList()
-        h_ch = mid
+        h_ch = cfg.block_out_channels[-1]
         for i, (btype, ch) in enumerate(zip(cfg.up_block_types,
                                             reversed(cfg.block_out_channels))):
             blk = _Block()
@@ -117,9 +136,13 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = FusedGroupNormSiLU(ch0, groups, 1e-5)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states):
+    def forward(self, sample, timesteps, encoder_hidden_states, down_block_residuals=None,
+                mid_residual=None):
         """sample: (B, C_in, H, W) latents; timesteps: int, () or (B,);
         encoder_hidden_states: (B, S_text, cross_attention_dim).
+        ``down_block_residuals`` / ``mid_residual``: a ControlNet's residuals,
+        added to the skip list after the down path and to the mid block's
+        output (diffusers' ``down_block_additional_residuals``).
         Returns the epsilon prediction (B, C_out, H, W), float32."""
         dtype = self.conv_in.weight.dtype
         t = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
@@ -140,10 +163,14 @@ class UNet2DCondition(nn.Module):
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 residuals.append(h)
+        if down_block_residuals is not None:
+            residuals = [r + extra.to(r.dtype) for r, extra in zip(residuals, down_block_residuals)]
 
         h = self.mid_block.resnets[0](h, temb)
         h = self.mid_block.attentions[0](h, ctx)
         h = self.mid_block.resnets[1](h, temb)
+        if mid_residual is not None:
+            h = h + mid_residual.to(h.dtype)
 
         for blk in self.up_blocks:
             for j, resnet in enumerate(blk.resnets):

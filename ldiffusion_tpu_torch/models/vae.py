@@ -1,8 +1,9 @@
 """SD v1.5 VAE (AutoencoderKL), counterpart of ``ldiffusion_tpu/models/vae.py``,
 with diffusers' state-dict names. ``encode_mean`` is the deterministic encode
-the pipeline uses; ``decode_latents`` divides by the scaling factor 0.18215
-and maps to [0, 1] while ``decode`` does not — the reference mixes the two
-and the fine-tuned UNet is trained around that convention."""
+the pipeline uses, ``encode_sample`` the multimodal augment's draw;
+``decode_latents`` divides by the scaling factor 0.18215 and maps to [0, 1]
+while ``decode`` does not — the reference mixes the two and the fine-tuned
+UNet is trained around that convention."""
 from __future__ import annotations
 
 import dataclasses
@@ -138,6 +139,15 @@ class AutoencoderKL(nn.Module):
 
     def encode_mean(self, x):
         return self.encode_moments(x)[0]
+
+    def encode_sample(self, x, noise=None, generator=None):
+        """A draw of the latent distribution, mean + std·ε: ``noise`` is the
+        standard-normal ε of the latents' shape (B, 4, H/8, W/8), else drawn
+        from ``generator``."""
+        mean, logvar = self.encode_moments(x)
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.device, mean.dtype)
 
     def decode(self, z):
         """Raw decode: latents → image in [-1, 1], float32."""

@@ -30,6 +30,21 @@ def resize_bilinear(x, size, channel_last: bool = True):
     return y.permute(0, 2, 3, 1) if channel_last else y
 
 
+def _nearest_index(n_in: int, n_out: int, device):
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * n_in / n_out
+    return torch.floor(pos).long()
+
+
+def resize_nearest(x, size, channel_last: bool = True):
+    """Nearest resize of the spatial dims to ``size=(H, W)``; x: (..., H, W, C)
+    if ``channel_last`` else (..., C, H, W)."""
+    h_dim, w_dim = (-3, -2) if channel_last else (-2, -1)
+    for dim, n in ((h_dim, size[0]), (w_dim, size[1])):
+        if x.shape[dim] != n:
+            x = x.index_select(dim, _nearest_index(x.shape[dim], n, x.device))
+    return x
+
+
 def rgb_to_gray(x):
     """(..., 3) → (..., 1): 0.2989 R + 0.5870 G + 0.1140 B."""
     w = torch.tensor(GRAY_WEIGHTS, dtype=x.dtype, device=x.device)

@@ -33,10 +33,10 @@ from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
 from ldiffusion_tpu_torch.core.logging import CSVLogger, TextLogger
 from ldiffusion_tpu_torch.diffusion.pipeline import (
     SDComponents,
-    laplace_noise,
     trajectory_features,
     trajectory_timesteps,
 )
+from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise
 from ldiffusion_tpu_torch.losses.infonce import ContrastIndices, InfoNceLoss
 from ldiffusion_tpu_torch.models.convert import save_unet_dir
 

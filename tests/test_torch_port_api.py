@@ -231,7 +231,9 @@ for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
              "segmentor.__main__", "ldiffusion", "models.dynunet3d", "segmentor.resample",
              "segmentor.planner3d", "segmentor.plans_file", "segmentor.best_config",
              "segmentor.model_sharing", "segmentor.batch_running", "data.converters",
-             "data.public_converters", "data.rgbd", "core.prng", "utils"):
+             "data.public_converters", "data.rgbd", "core.prng", "utils",
+             "models.controlnet", "models.conductor", "diffusion.multimodal", "tools",
+             "tools.sample", "tools.pixel_latent_vector"):
     assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu",

@@ -34,7 +34,7 @@ from ldiffusion_tpu_torch.data import converters as tconv
 from ldiffusion_tpu_torch.data import labels as tlabels
 from ldiffusion_tpu_torch.data import public_converters as tpc
 from ldiffusion_tpu_torch.data import rgbd as trgbd
-from ldiffusion_tpu_torch.diffusion.pipeline import laplace_noise
+from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise
 from ldiffusion_tpu_torch.segmentor import batch_running as tbatch
 from ldiffusion_tpu_torch.segmentor import cli as tcli
 from test_public_converters import _make_amos, _make_mnms, _touch

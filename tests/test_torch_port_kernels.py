@@ -85,6 +85,44 @@ def test_flash_kernel_matches_plain_on_gpu(cuda, dtype, shape):
     _assert_close(out, tatt.plain_attention(q, k, v, scale), ATTN_TOL[dtype])
 
 
+# the generation tail's shapes at SD-v1.5 width: tools.sample's 512² image
+# (UNet level-0 and level-1 self-attention, the VAE mid-block's) and the
+# multimodal augment of four 256² RGB-D pairs (UNet + ControlNet level-0
+# self-attention, the VAE mid-block's); GroupNorm over the UNet's, the
+# ControlNet's and the VAE's batch-4 maps
+GEN_ATTN_SHAPES = [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 4096, 1, 512),
+                   (4, 1024, 8, 40), (4, 1024, 1, 512)]
+GEN_GN_SHAPES = [((4, 32, 32, 320), 1e-5, True), ((4, 32, 32, 320), 1e-6, False),
+                 ((4, 8, 8, 2560), 1e-5, True), ((4, 64, 64, 512), 1e-6, True),
+                 ((4, 128, 128, 256), 1e-6, True), ((4, 256, 256, 128), 1e-6, True),
+                 ((4, 256, 256, 256), 1e-6, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GEN_ATTN_SHAPES)
+def test_generation_attention_takes_wgmma_and_matches_plain(cuda, shape):
+    rng = np.random.default_rng(30)
+    q, k, v = (_normal(rng, shape, torch.bfloat16, cuda) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    routes = dict(tatt.flash_attention_fwd.launches_by_route)
+    out = tatt.flash_attention_fwd(q, k, v, scale)
+    assert tatt.flash_attention_fwd.launches_by_route == {**routes, "wgmma": routes["wgmma"] + 1}
+    _assert_close(out, tatt.plain_attention(q, k, v, scale), ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,eps,silu", GEN_GN_SHAPES)
+def test_generation_batch4_groupnorm_takes_its_route_and_matches_plain(cuda, shape, eps, silu):
+    x, scale, bias = _gn_inputs(np.random.default_rng(31), shape, torch.bfloat16, torch.float32,
+                                cuda)
+    routes = dict(tgn.groupnorm_silu.launches_by_route)
+    route = tgn.gn_route(shape[0], shape[1] * shape[2], shape[3], 32, torch.bfloat16, True)
+    out = tgn.groupnorm_silu(x, scale, bias, 32, eps, silu)
+    assert tgn.groupnorm_silu.launches_by_route == {**routes, route: routes[route] + 1}
+    _assert_close(out, tgn.plain_groupnorm_silu(x, scale, bias, 32, eps, silu),
+                  GN_TOL[torch.bfloat16])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_takes_other_key_lengths(cuda, dtype):

@@ -50,6 +50,7 @@ from ldiffusion_tpu_torch.api import LDiffusionModel
 from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
 from ldiffusion_tpu_torch.data import dataset as tdata
 from ldiffusion_tpu_torch.diffusion import pipeline as tpipe
+from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise
 from ldiffusion_tpu_torch.losses.infonce import ContrastIndices, InfoNceLoss
 from ldiffusion_tpu_torch.models.convert import (
     load_unet_dir,
@@ -127,7 +128,7 @@ def test_trajectory_features_match_jax_with_its_noise(jc):
 
 
 def test_laplace_noise_has_unit_laplace_moments():
-    x = tpipe.laplace_noise((200000,), torch.Generator().manual_seed(0))
+    x = laplace_noise((200000,), torch.Generator().manual_seed(0))
     assert torch.isfinite(x).all()
     assert abs(float(x.mean())) < 0.02 and abs(float(x.var()) - 2.0) < 0.05  # Laplace(0, 1)
     assert abs(float(x.abs().mean()) - 1.0) < 0.01

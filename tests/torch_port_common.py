@@ -1,5 +1,6 @@
 """Shared set-up of the ``test_torch_port_*`` files (not a test module)."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,52 @@ def jax_random_components() -> SDComponents:
     }
     return SDComponents(unet_config=ucfg, vae_config=vcfg, text_config=tcfg, unet=unet,
                         vae=vae, text=text, params=params)
+
+
+def jax_components_of(components) -> SDComponents:
+    """The JAX package's components at the tiny configs holding the weights
+    of the port's ``components`` (carried with ``*_to_flax``): no flax init
+    to compile, and the same weights on both sides by construction."""
+    from ldiffusion_tpu_torch.models import convert
+
+    ucfg, vcfg = UNet2DConditionConfig.tiny(), VAEConfig.tiny()
+    tcfg = dataclasses.replace(CLIPTextConfig.tiny(), vocab_size=49408)
+    params = {
+        "unet": convert.unet_to_flax(components.unet.state_dict(), components.unet_config),
+        "vae": convert.vae_to_flax(components.vae.state_dict(), components.vae_config),
+        "text": convert.clip_text_to_flax(components.text.state_dict(), tcfg.num_layers),
+        "proj": convert.proj_to_flax(components.proj.state_dict()),
+    }
+    return SDComponents(unet_config=ucfg, vae_config=vcfg, text_config=tcfg,
+                        unet=UNet2DCondition(ucfg), vae=AutoencoderKL(vcfg),
+                        text=CLIPTextEncoder(tcfg), params=params)
+
+
+class JittedModule:
+    """A flax module whose ``apply`` (each ``method``) is jitted: the JAX
+    tools call ``module.apply`` op by op, which is several times slower on the
+    CPU than one compile."""
+
+    def __init__(self, module):
+        self.module, self.compiled = module, {}
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def apply(self, variables, *args, method=None, **kwargs):
+        name = getattr(method, "__name__", "__call__")
+        if name not in self.compiled:
+            m = self.module
+            self.compiled[name] = jax.jit(
+                lambda v, *a, **k: m.apply(v, *a, method=getattr(m, name), **k))
+        return self.compiled[name](variables, *args, **kwargs)
+
+
+def jitted(components: SDComponents) -> SDComponents:
+    """The same components (configs, params, scheduler) with jitted modules."""
+    return dataclasses.replace(components, unet=JittedModule(components.unet),
+                               vae=JittedModule(components.vae),
+                               text=JittedModule(components.text))
 
 
 def jax_contrast_indices(labels, key, num_negatives, num_anchors, num_classes):
@@ -69,6 +116,29 @@ def jax_laplace_noise(key, n_steps: int, shape):
     stacked: (T, *shape) numpy."""
     return np.stack([np.asarray(jax.random.laplace(k, shape, jnp.float32))
                      for k in jax.random.split(key, n_steps)])
+
+
+def random_params(tree, rng):
+    """A flax tree of the same shapes, every leaf drawn non-zero from ``rng``:
+    kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), running variances in
+    [0.5, 1.5), the rest (biases, running means, ConvNeXt gammas) N(0, 0.1²).
+    A fresh flax init zeroes biases, the ControlNet's zero convolutions and
+    ``cond_out``, and sets gammas to 1e-6, which would hide what they feed."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = random_params(v, rng)
+            continue
+        if k == "kernel":
+            w = rng.normal(size=v.shape) / math.sqrt(math.prod(v.shape[:-1]))
+        elif k == "scale":
+            w = 1.0 + 0.1 * rng.normal(size=v.shape)
+        elif k == "var":
+            w = 0.5 + rng.random(v.shape)
+        else:
+            w = 0.1 * rng.normal(size=v.shape)
+        out[k] = np.asarray(w, np.float32)
+    return out
 
 
 def flat(tree, prefix="", out=None):
