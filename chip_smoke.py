@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tissue inference, stage-1 training,
 stage-2 segmentor training, the cell level, the 2D segmentor command line,
-its workflow after training, its volumetric (3D) pathway and the generation
-tail on one NVIDIA GPU.
+its workflow after training, its volumetric (3D) pathway, the generation
+tail and the int8 W8A8 inference modes on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -20,7 +20,9 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               device work); the forward and backward rows name the route
               they took and time the mma.sync kernels (the previous design)
               on the same inputs; the flash forward with logsumexp also at
-              tools/bench_attn_exp2.py's three shapes. GroupNorm rows take
+              tools/bench_attn_exp2.py's three shapes; the inference kernels
+              also at the generation tail's shapes and at bench.py's batch-8
+              program's (the quant phase's (d)). GroupNorm rows take
               the route gn_route names, repeat bitwise, hold the other route
               (and the resident route at other slice widths) to the same
               tolerance and time it, and time the first GroupNorm kernel
@@ -176,6 +178,29 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               line): each command's wall, s a sampling step (the PNGs' write
               times), the augment's s a batch and peak memory, one profiled
               augment call's device busy ms and idle share, the conductor ms.
+ 12. quant:   the int8 W8A8 modes (ops/quant.py, QConv / QDense). (a) The
+              one-step transform at the tiny UNet with a (64, 256) VAE
+              (whose 256-channel convs pass the shape gate) under none,
+              int8, int8_all and int8_static, f32 on cuda (TF32 off) against
+              the CPU, the same weights, the static scales calibrated on the
+              CPU (QUANT_TRANSFORM_TOL, QUANT_MIN_EFFECT_CORR); int8_conv and
+              int8_matmul on the same int8 codes on both devices (int32
+              accumulators equal, outputs within 1e-6). Then, counters reset
+              before and read after, SD-v1.5-width bf16 components from
+              seeded random weights: (c) ``LDiffusionModel.inference_tissue``
+              on one 1024² ROI under none, int8 and int8_static (scales from
+              ``calibrate_static_scales`` on that ROI): 114 gated sites a
+              ROI, finite output that differs from none; (d) bench.py's
+              program (``laplace_reverse_transform``: 512², batch 8, 5 PNDM
+              steps with Laplace noise) under none and int8_static with
+              bench.py's amax-1.0 stand-in. Every forward launch on wgmma,
+              every GroupNorm launch on its gn_route route. (b) Every distinct
+              gated conv shape of (c) and (d): int8_conv's device ms split
+              into quantize / im2col / _int_mm / dequantize, the bf16 cuDNN
+              conv's device ms (each from CUDA graph replays), the bounds. Figures (``{"quant": ...}`` line): s/ROI,
+              the transform's error and the masks' agreement against none,
+              s a batch, patches/s, peak, the profiled pass's idle share, the
+              per-shape table's sums; a ``quant shape`` line a shape.
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -416,6 +441,19 @@ TRAIN_EXTRA = [((2, 300, 3, 8), "float32"), ((1, 1024, 2, 16), "float32"),
                ((1, 515, 2, 136), "bfloat16"), ((2, 700, 2, 40), "bfloat16")]
 # tools/bench_attn_exp2.py's (BH, S, D) shapes as (B, S, H, D): K7's formulation
 K7_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
+# bench.py's program at SD-v1.5 width (the quant phase's 512², batch 8): K1 at
+# the UNet's level 0 and 1 (4096 and 1024 tokens, 30 launches each a pass),
+# K2 at the VAE mid-blocks (4096 tokens, d = 512, 2 a pass); GroupNorm over
+# its batch-8 maps (B, H, W, C, silu, eps): resident up to 20 MiB (the
+# smallest, 8²×1280; 32²×1280; the largest, 64²×320, with and without SiLU),
+# streamed above (the smallest, 32²×1920; the UNet's 64²×960; the VAE
+# mid-block's 64²×512 without SiLU; 256²×256; 512²×128; the largest, 512²×256)
+BENCH_ATTN_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 4096, 1, 512)]
+BENCH_GN_SHAPES = [(8, 8, 8, 1280, True, 1e-5), (8, 32, 32, 1280, True, 1e-5),
+                   (8, 64, 64, 320, True, 1e-5), (8, 64, 64, 320, False, 1e-6),
+                   (8, 32, 32, 1920, True, 1e-5), (8, 64, 64, 960, True, 1e-5),
+                   (8, 64, 64, 512, False, 1e-6), (8, 256, 256, 256, True, 1e-6),
+                   (8, 512, 512, 128, True, 1e-6), (8, 512, 512, 256, True, 1e-6)]
 
 
 def attn_row(b, s, h, d, dtype, gen, iters):
@@ -684,12 +722,18 @@ def phase_kernels(seed: int):
     for b, s, h, d in GEN_ATTN_SHAPES:  # after the path rows: KERNEL_META's per_call skips them
         attn.append(attn_row(b, s, h, d, "bfloat16", gen, iters=5))
         log("kernel gen_shapes flash_attention_fwd", json.dumps(attn[-1]))
+    for b, s, h, d in BENCH_ATTN_SHAPES:
+        attn.append(attn_row(b, s, h, d, "bfloat16", gen, iters=5))
+        log("kernel bench_shapes flash_attention_fwd", json.dumps(attn[-1]))
     for b, hh, ww, c, silu, eps in GN_PATH_SHAPES:
         gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
         log("kernel groupnorm_silu", json.dumps(gn[-1]))
     for b, hh, ww, c, silu, eps in GEN_GN_SHAPES:
         gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
         log("kernel gen_shapes groupnorm_silu", json.dumps(gn[-1]))
+    for b, hh, ww, c, silu, eps in BENCH_GN_SHAPES:
+        gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
+        log("kernel bench_shapes groupnorm_silu", json.dumps(gn[-1]))
     for (b, hh, ww, c, groups), dtype, sdtype, offset in GN_EXTRA:
         for silu in (True, False):
             r = gn_row(b, hh, ww, c, groups, silu, 1e-5, dtype, gen, iters=0, sdtype=sdtype,
@@ -1165,7 +1209,15 @@ def phase_train(work, seed):
     from ldiffusion_tpu_torch.data.dataset import load_image
     from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
 
+    sections, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):  # the wall of each part of the phase, to trace the run's time
+        now = time.perf_counter()
+        sections[name] = now - t_mark[0]
+        t_mark[0] = now
+
     phase_train_tiny(seed)
+    mark("tiny")
     rng = np.random.default_rng(seed + 2)
     args = train_pairs(os.path.join(work, "train_pairs"), 5, rng)  # 70/30 → 3 steps
     seg = write_segmentor(os.path.join(work, "seg_train"), seg_plan(*FULL_PLAN), seed)
@@ -1183,10 +1235,12 @@ def phase_train(work, seed):
                             work_dir=os.path.join(work, "train_work"), diffusion_config=cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mark("64_setup")
     gn_watch = GnRouteWatch().__enter__()  # closed where the training main path ends
     reset_counters()  # the training main path starts here
     saved = model.train(args, component="ldiffusion")["ldiffusion"]
     torch.cuda.synchronize()
+    mark("64_train_call")
     launches_64 = read_counters()
     peak_64 = torch.cuda.max_memory_allocated()
     tr = model.trainer
@@ -1201,6 +1255,7 @@ def phase_train(work, seed):
     readback = all(torch.equal(p.detach(), master[f"unet.{n}"].to(p.dtype))
                    for n, p in unet.named_parameters())
     row_a.update(readback_equal=readback, readback_mask_shape=list(mask.shape))
+    mark("64_readback")
     log("train_64", json.dumps(row_a))
     if not (all(np.isfinite(row_a["losses"])) and row_a["steps"] == 3 and all(moved.values())):
         raise AssertionError(f"train 64²: {row_a}")
@@ -1227,9 +1282,11 @@ def phase_train(work, seed):
     counts_before = read_counters()
     routes_before = read_routes()
     shapes_before = dict(gn_watch.shapes)
+    mark("512_setup")
     for _ in range(3):
         trainer.train_step(images, labels)
     torch.cuda.synchronize()
+    mark("512_steps")
     total = read_counters()  # the training main path ends here
     routes = read_routes()
     gn_watch.__exit__(None, None, None)
@@ -1252,6 +1309,8 @@ def phase_train(work, seed):
     # one 64² step of the same trainer, profiled (the reference configuration's shapes)
     log("train_64_profiled_step",
         json.dumps(device_profile(lambda: trainer.train_step(*tr_batch(rng, 64)))))
+    mark("profiled_steps")
+    log("train_sections_s", json.dumps(sections))
     if not (all(np.isfinite(row_b["losses"])) and row_b["params_moved"]):
         raise AssertionError(f"train 512²: {row_b}")
     if launches_512["flash_attention_bwd"] != 3 * K6_PER_STEP_512 or \
@@ -3230,6 +3289,377 @@ def phase_gen(work, seed):
     return {"launches": launches, "launches_by_route": by_route, "row": row}
 
 
+# ---------------------------------------------------------------------------
+# the int8 W8A8 modes
+# ---------------------------------------------------------------------------
+
+# The VAE of tests/test_quant_task_ab.py: its 256-channel convs pass the gate.
+QUANT_TINY_VAE = dict(block_out_channels=(64, 256), layers_per_block=1, norm_num_groups=32)
+QUANT_TINY_MODES = ("none", "int8", "int8_all", "int8_static")
+# Quantized transforms, cuda vs CPU: the f32 activations differ by ~1e-6, a
+# code flips where one straddles a rounding edge and the flips cascade
+# through later quantizers (tests/test_torch_port_quant_transform.py, whose
+# bounds these are): max abs below QUANT_TRANSFORM_TOL, and the mode's change
+# of the output (mode − none) correlated above QUANT_MIN_EFFECT_CORR.
+QUANT_TRANSFORM_TOL = 0.1
+QUANT_MIN_EFFECT_CORR = 0.5
+# int8 inputs fed to both devices: their int32 accumulators must be equal.
+# (name, x (B, Cin, H, W), Cout, k, stride, ((top, bottom), (left, right)))
+QUANT_ACC_CONVS = [("3x3_pad1", (1, 256, 32, 32), 256, 3, 1, ((1, 1), (1, 1))),
+                   ("1x1", (2, 512, 16, 16), 256, 1, 1, ((0, 0), (0, 0))),
+                   ("3x3_stride2_pad01", (1, 256, 33, 31), 256, 3, 2, ((0, 1), (0, 1))),
+                   ("k27_padded", (1, 3, 17, 19), 8, 3, 1, ((1, 1), (1, 1)))]
+# (name, M, K, N): a cross-attention key projection of 5 tokens (M ≤ 16: the
+# zero-padded product on the card) and a self-attention projection
+QUANT_ACC_MATMULS = [("to_k_5_tokens", 5, 768, 320), ("to_q_4096_tokens", 4096, 320, 320)]
+QUANT_SITES_SD15 = 114   # gated sites of the one-step transform at SD-v1.5 width
+QUANT_ROI = 1024         # the tissue ROI's side
+QUANT_BENCH_BATCH, QUANT_BENCH_SIZE, QUANT_BENCH_STEPS = 8, 512, 5  # bench.py's defaults
+PEAK_INT8 = 1979e12      # H100 SXM dense int8 tensor-core ops/s
+
+
+def quant_tiny(seed):
+    """(a) The one-step transform at the tiny UNet with QUANT_TINY_VAE under
+    each mode, f32 on cuda (TF32 off) against the CPU, the same weights and
+    image, the static scales calibrated on the CPU; and int8_conv /
+    int8_matmul on the same int8 codes on both devices (accumulators equal)."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.diffusion.pipeline import (
+        SDComponents,
+        one_step_transform,
+        trajectory_text_emb,
+    )
+    from ldiffusion_tpu_torch.models.vae import VAEConfig
+    from ldiffusion_tpu_torch.ops import quant
+
+    comps = SDComponents.random(seed=seed, device="cpu", vae_config=VAEConfig(**QUANT_TINY_VAE))
+    img = torch.from_numpy(np.random.default_rng(seed + 12).normal(
+        size=(1, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        emb = trajectory_text_emb(comps, 1)
+    scales = quant.calibrate_static_scales(lambda x: one_step_transform(comps, x, emb), img)
+    outs, hits = {}, {}
+    try:
+        for dev in ("cpu", "cuda"):
+            comps.to(device=dev)
+            outs[dev] = {}
+            with torch.inference_mode():
+                emb = trajectory_text_emb(comps, 1)
+                for mode in QUANT_TINY_MODES:
+                    quant.set_quant_mode(mode)
+                    quant.set_static_amax(scales)
+                    before = quant.int8_conv.launches + quant.int8_matmul.launches
+                    outs[dev][mode] = one_step_transform(comps, img.to(dev), emb).float().cpu()
+                    hits[mode] = quant.int8_conv.launches + quant.int8_matmul.launches - before
+    finally:
+        quant.set_quant_mode("none")
+        quant.set_static_amax(None)
+    row = {"static_sites": len(scales), "quantized_calls": hits, "modes": {}}
+    for mode in QUANT_TINY_MODES:
+        got, ref = outs["cuda"][mode], outs["cpu"][mode]
+        r = {"max_abs_diff": float((got - ref).abs().max()),
+             "mean_abs_diff": float((got - ref).abs().mean())}
+        if mode != "none":
+            eff_gpu = (got - outs["cuda"]["none"]).flatten().double()
+            eff_cpu = (ref - outs["cpu"]["none"]).flatten().double()
+            r["effect_corr"] = float(torch.corrcoef(torch.stack([eff_gpu, eff_cpu]))[0, 1])
+            r["effect_max_abs"] = float(eff_cpu.abs().max())
+        row["modes"][mode] = r
+
+    gen = torch.Generator().manual_seed(seed)
+    acc = {}
+    for name, (b, cin, h, w), cout, k, stride, pad in QUANT_ACC_CONVS:
+        xq = torch.randint(-127, 128, (b, cin, h, w), dtype=torch.int8, generator=gen)
+        wq = torch.randint(-127, 128, (cout, cin, k, k), dtype=torch.int8, generator=gen)
+        ref = quant.int8_conv_acc(xq, wq, (stride, stride), pad)
+        got = quant.int8_conv_acc(xq.cuda().contiguous(memory_format=torch.channels_last),
+                                  wq.cuda(), (stride, stride), pad).cpu()
+        x = torch.randn((b, cin, h, w), generator=gen)
+        wf = torch.randn((cout, cin, k, k), generator=gen) / math.sqrt(cin * k * k)
+        bias = torch.randn((cout,), generator=gen)
+        yc = quant.int8_conv(x, wf, (stride, stride), pad, bias, out_dtype=torch.float32)
+        yg = quant.int8_conv(x.cuda().contiguous(memory_format=torch.channels_last), wf.cuda(),
+                             (stride, stride), pad, bias.cuda(), out_dtype=torch.float32).cpu()
+        acc[name] = {"acc_equal": bool(torch.equal(got, ref)),
+                     "codes_equal": bool(torch.equal(quant._act_quant(x)[0],
+                                                     quant._act_quant(x.cuda())[0].cpu())),
+                     "out_max_abs_diff": float((yg - yc).abs().max()),
+                     "out_max_abs": float(yc.abs().max())}
+    for name, m, kk, n in QUANT_ACC_MATMULS:
+        a = torch.randint(-127, 128, (m, kk), dtype=torch.int8, generator=gen)
+        bw = torch.randint(-127, 128, (n, kk), dtype=torch.int8, generator=gen)
+        ref = quant.int_mm(a, bw.t())
+        got = quant.int_mm(a.cuda(), bw.cuda().t()).cpu()
+        x = torch.randn((1, m, kk), generator=gen)
+        wf = torch.randn((n, kk), generator=gen) / math.sqrt(kk)
+        yc = quant.int8_matmul(x, wf, None, out_dtype=torch.float32)
+        yg = quant.int8_matmul(x.cuda(), wf.cuda(), None, out_dtype=torch.float32).cpu()
+        acc[name] = {"acc_equal": bool(torch.equal(got, ref)),
+                     "out_max_abs_diff": float((yg - yc).abs().max()),
+                     "out_max_abs": float(yc.abs().max())}
+    row["int8_products_cuda_vs_cpu"] = acc
+    log("quant tiny", json.dumps(row))
+    for mode, r in row["modes"].items():
+        if not bool(torch.isfinite(outs["cuda"][mode]).all()):
+            raise AssertionError(f"quant tiny: {mode}: non-finite output on cuda")
+        if mode == "none":
+            if r["max_abs_diff"] > TINY_TRANSFORM_TOL:
+                raise AssertionError(f"quant tiny: none: cuda vs cpu {r}")
+            continue
+        if r["max_abs_diff"] > QUANT_TRANSFORM_TOL or r["effect_corr"] < QUANT_MIN_EFFECT_CORR \
+                or r["effect_max_abs"] <= 10 * TINY_TRANSFORM_TOL or not hits[mode]:
+            raise AssertionError(f"quant tiny: {mode}: cuda vs cpu {r}, calls {hits[mode]}")
+    for name, r in acc.items():
+        if not r["acc_equal"] or not r.get("codes_equal", True) or \
+                r["out_max_abs_diff"] > 1e-6 * r["out_max_abs"]:
+            raise AssertionError(f"quant tiny: {name}: int8 product cuda vs cpu {r}")
+    return row
+
+
+class QConvShapes:
+    """Records, while open, every int8 convolution a ``QConv`` launches,
+    from the arguments ``models/layers.py`` hands ``int8_conv`` (input
+    shape, Cout, kernel, stride, padding), with a count."""
+
+    def __enter__(self):
+        from ldiffusion_tpu_torch.models import layers
+
+        self.calls, self.layers, self.int8_conv = {}, layers, layers.int8_conv
+
+        def recorded(x, weight, stride, padding, *args, **kwargs):
+            key = (tuple(x.shape), weight.shape[0], weight.shape[2], stride[0], padding)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return self.int8_conv(x, weight, stride, padding, *args, **kwargs)
+
+        layers.int8_conv = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.int8_conv = self.int8_conv
+
+
+GRAPH_REPS, GRAPH_REPLAYS = 5, 2
+
+
+def graph_ms(fn) -> float:
+    """Device ms per call of ``fn``: GRAPH_REPS calls captured into one CUDA
+    graph (after two warm-up calls on a side stream), replayed GRAPH_REPLAYS
+    times between CUDA events. A replay launches the graph's kernels back to
+    back, so no host time falls between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_REPS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(graph.replay, GRAPH_REPLAYS) / (GRAPH_REPS * GRAPH_REPLAYS)
+    del graph
+    return ms
+
+
+def quant_shape_row(shape, cout, k, stride, pad, calls, path, gen):
+    """(b) One gated conv shape: int8_conv's device ms split into its four
+    stages, the whole call, the bf16 cuDNN conv on the same shape (each
+    timed by ``graph_ms``), and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldiffusion_tpu_torch.ops import quant
+
+    b, cin, h, w = shape
+    x = torch.randn(shape, device="cuda", dtype=torch.bfloat16, generator=gen) \
+        .contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn((cout, cin, k, k), device="cuda", generator=gen)
+          / math.sqrt(cin * k * k)).to(torch.bfloat16)
+    bias = torch.zeros(cout, device="cuda", dtype=torch.bfloat16)
+    xq, sx = quant._act_quant(x)
+    wq, sw = quant._sym_quant(wt, dims=(1, 2, 3))
+    cols, (_, ho, wo) = quant.im2col(xq, (k, k), (stride, stride), pad)
+    wcols = quant.weight_cols(wq)
+    acc = quant.int8_conv_acc(xq, wq, (stride, stride), pad)
+    (pt, pb), (pl, pr) = pad
+    if pt != pb or pl != pr or pt != pl:
+        raise AssertionError(f"quant shape {shape}: QConv pads symmetrically, not {pad}")
+    times = {
+        "quantize_ms": graph_ms(lambda: (quant._act_quant(x), quant._sym_quant(wt, (1, 2, 3)))),
+        "im2col_ms": graph_ms(lambda: quant.im2col(xq, (k, k), (stride, stride), pad)),
+        "int_mm_ms": graph_ms(lambda: quant.int_mm(cols, wcols)),
+        "dequantize_ms": graph_ms(lambda: quant.dequantize(
+            acc, sx, sw.reshape(1, -1, 1, 1), bias.reshape(1, -1, 1, 1), torch.bfloat16)),
+        "int8_conv_ms": graph_ms(lambda: quant.int8_conv(x, wt, (stride, stride), pad, bias,
+                                                          out_dtype=torch.bfloat16)),
+        "bf16_cudnn_ms": graph_ms(lambda: F.conv2d(x, wt, bias, stride, pt)),
+    }
+    m, kk, n = b * ho * wo, k * k * cin, cout
+    ops = 2.0 * m * kk * n
+    gemm_bytes = m * kk + kk * n + 4 * m * n           # int8 A, B; int32 C
+    conv_bytes = 2 * (b * cin * h * w + n * kk + m * n)  # bf16 x, w, y: a fused kernel's traffic
+    row = {"path": path, "x": list(shape), "cout": cout, "k": k, "stride": stride,
+           "pad": [list(p) for p in pad], "calls": calls, "M": m, "K": kk, "N": n, **times,
+           "int8_over_bf16": times["int8_conv_ms"] / times["bf16_cudnn_ms"],
+           "int_mm_bound_ms": max(ops / PEAK_INT8, gemm_bytes / PEAK_BYTES) * 1e3,
+           "fused_int8_bound_ms": max(ops / PEAK_INT8, conv_bytes / PEAK_BYTES) * 1e3,
+           "bf16_bound_ms": max(ops / PEAK_BF16, conv_bytes / PEAK_BYTES) * 1e3}
+    return row
+
+
+def phase_quant(work, seed):
+    """The int8 W8A8 modes on the card (module docstring, phase 12)."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.api import LDiffusionModel
+    from ldiffusion_tpu_torch.data.dataset import load_image
+    from ldiffusion_tpu_torch.diffusion.pipeline import (
+        laplace_reverse_transform,
+        one_step_transform,
+        trajectory_text_emb,
+    )
+    from ldiffusion_tpu_torch.ops import quant
+
+    t_phase = time.perf_counter()
+    row = {"gpu": gpu_line(), "tiny": quant_tiny(seed)}
+    rng = np.random.default_rng(seed + 12)
+    roi = os.path.join(work, "quant_roi.png")
+    tissue_like(rng, QUANT_ROI, QUANT_ROI).save(roi)
+    seg = write_segmentor(os.path.join(work, "quant_seg"), seg_plan(*FULL_PLAN), seed)
+    comps = sd15_components(seed, torch.bfloat16)
+    model = LDiffusionModel("sd15-seeded-random", "tissue", components=comps)
+    x = torch.from_numpy(load_image(roi, (QUANT_ROI, QUANT_ROI)))[None].cuda()
+    with torch.inference_mode():
+        emb = trajectory_text_emb(comps, 1)
+    t0 = time.perf_counter()
+    scales = quant.calibrate_static_scales(lambda im: one_step_transform(comps, im, emb), x)
+    row["calibrate_s"] = time.perf_counter() - t0
+    row["calibrated_sites"] = len(scales)
+    if len(scales) != QUANT_SITES_SD15:
+        raise AssertionError(f"quant: calibrated {len(scales)} sites, not {QUANT_SITES_SD15}")
+
+    tissue, transforms, masks, shapes = {}, {}, {}, {}
+    images = torch.from_numpy(rng.normal(size=(QUANT_BENCH_BATCH, QUANT_BENCH_SIZE,
+                                               QUANT_BENCH_SIZE, 3)).astype(np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bench = {}
+    try:
+        with GnRouteWatch() as watch:
+            reset_counters()  # the quantized paths start here
+            # (c) tissue inference at 1024², one ROI, each mode
+            for mode in ("none", "int8", "int8_static"):
+                quant.set_quant_mode(mode)
+                quant.set_static_amax(scales if mode == "int8_static" else None)
+                with QConvShapes() as rec:
+                    model.inference_tissue(roi, None, seg, 7)  # warm-up
+                if mode == "int8":
+                    shapes["tissue_1024"] = rec.calls
+                torch.cuda.synchronize()
+                before = quant.int8_conv.launches
+                t0 = time.perf_counter()
+                _, masks[mode] = model.inference_tissue(roi, None, seg, 7)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                sites = quant.int8_conv.launches - before
+                with torch.inference_mode():
+                    transforms[mode] = one_step_transform(comps, x, emb)[0].float()
+                tissue[mode] = {"s_per_roi": s, "gated_sites_hit": sites}
+            # (d) bench.py's program: 512², batch 8, 5 PNDM steps with Laplace noise
+            for mode in ("none", "int8_static"):
+                quant.set_quant_mode(mode)
+                quant.set_static_amax(None)
+                r = {}
+                with torch.inference_mode():
+                    if mode == "int8_static":
+                        # bench.py:114-125's stand-in: amax 1.0 at every site the
+                        # program hits (listed on a 64² batch of one)
+                        bench_sites = quant.record_quant_sites(
+                            lambda im: laplace_reverse_transform(
+                                comps, im, QUANT_BENCH_STEPS, generator=gen), images[:1, :64, :64])
+                        quant.set_static_amax({k: 1.0 for k in bench_sites})
+                        r["static_sites"] = len(bench_sites)
+                    with QConvShapes() as rec:  # warm-up
+                        out = laplace_reverse_transform(comps, images, QUANT_BENCH_STEPS,
+                                                        generator=gen)
+                    if mode == "int8_static":
+                        shapes["bench_512_b8"] = rec.calls
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    times = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        out = laplace_reverse_transform(comps, images, QUANT_BENCH_STEPS,
+                                                        generator=gen)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                    peak = torch.cuda.max_memory_allocated()
+                    prof = device_profile(lambda: laplace_reverse_transform(
+                        comps, images, QUANT_BENCH_STEPS, generator=gen))
+                if tuple(out.shape) != (QUANT_BENCH_BATCH, QUANT_BENCH_SIZE, QUANT_BENCH_SIZE, 3) \
+                        or not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"quant bench {mode}: output {tuple(out.shape)}")
+                s = float(np.median(times))
+                r.update({"s_per_batch": s, "s_runs": times,
+                          "patches_per_s": QUANT_BENCH_BATCH / s, "max_memory_allocated": peak,
+                          "profiled_wall_s": prof["wall_s"],
+                          "device_busy_ms": prof["device_busy_ms"],
+                          "device_idle_share": prof["device_idle_share"],
+                          "by_family_ms": prof["by_family_ms"]})
+                bench[mode] = r
+            launches, routes = read_counters(), read_routes()  # the quantized paths end here
+    finally:
+        quant.set_quant_mode("none")
+        quant.set_static_amax(None)
+    check_bf16_routes("quant", routes)
+    watch.check("quant", routes)
+    if min(launches[k] for k in INFERENCE_KERNELS) == 0:
+        raise AssertionError(f"quant: a kernel of the path was not launched: {launches}")
+
+    for mode in ("int8", "int8_static"):
+        diff = (transforms[mode] - transforms["none"]).abs()
+        tissue[mode].update({"transform_max_abs_vs_none": float(diff.max()),
+                             "transform_mean_abs_vs_none": float(diff.mean()),
+                             "mask_agreement_vs_none": float(np.mean(masks[mode] ==
+                                                                     masks["none"]))})
+        if tissue[mode]["gated_sites_hit"] != QUANT_SITES_SD15 or not float(diff.max()) > 0:
+            raise AssertionError(f"quant {mode}: {tissue[mode]}")
+    for mode, t in transforms.items():
+        if not bool(torch.isfinite(t).all()) or masks[mode].shape != (QUANT_ROI, QUANT_ROI):
+            raise AssertionError(f"quant {mode}: transform or mask malformed")
+    if tissue["none"]["gated_sites_hit"] != 0:
+        raise AssertionError(f"quant none: {tissue['none']}")
+
+    # (b) every distinct gated conv shape of both programs
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    table = []
+    for path, calls in shapes.items():
+        for (shape, cout, k, stride, pad), n in sorted(calls.items()):
+            table.append(quant_shape_row(shape, cout, k, stride, pad, n, path, gen))
+            log("quant shape", json.dumps(table[-1]))
+    for path in shapes:
+        rows = [r for r in table if r["path"] == path]
+        row[f"convs_{path}"] = {
+            "distinct_shapes": len(rows), "calls": sum(r["calls"] for r in rows),
+            "int8_conv_ms": sum(r["int8_conv_ms"] * r["calls"] for r in rows),
+            "bf16_cudnn_ms": sum(r["bf16_cudnn_ms"] * r["calls"] for r in rows),
+            **{k: sum(r[k] * r["calls"] for r in rows)
+               for k in ("quantize_ms", "im2col_ms", "int_mm_ms", "dequantize_ms")},
+            "shapes_where_int8_wins": sum(r["int8_over_bf16"] < 1 for r in rows)}
+    row.update({"tissue_1024": tissue, "bench_512_b8": bench,
+                "bench_static_scales": "amax 1.0 at every site (bench.py:114-125)",
+                "launches": launches, "launches_by_route": routes,
+                "phase_wall_s": time.perf_counter() - t_phase})
+    log(json.dumps({"quant": row}))
+    return {"launches": launches, "launches_by_route": routes, "row": row}
+
+
 def tr_batch(rng, size):
     """A (images, labels) batch of one synthetic size² ROI with 64² labels."""
     import numpy as np
@@ -3262,12 +3692,14 @@ def kernel_family(name: str) -> str:
 def device_profile(fn):
     """Run ``fn`` once under torch.profiler: wall seconds (host clock, ending in
     a synchronize), device busy ms, idle share, ms by kernel family, top
-    kernels."""
+    kernels. Device activity only: every figure is read from the kernels,
+    and host-op events made a profiled training step cost ~50 s to record
+    and parse."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3411,9 +3843,10 @@ def gpu_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen",
+    ap.add_argument("--phases",
+                    default="kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen,quant",
                     help="comma-separated subset of "
-                         "kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen")
+                         "kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen,quant")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3525,6 +3958,14 @@ def main(argv=None) -> int:
                 if name not in launches:
                     launches[name] = gen["launches"][name]
                     routes[name] = gen["launches_by_route"][name]
+        if "quant" in phases:  # the int8 modes: the same kernels, int8 convs between them
+            with wall("quant"):
+                q = phase_quant(work, args.seed)
+            by_path["quant"] = q["launches"]
+            for name in INFERENCE_KERNELS:
+                if name not in launches:
+                    launches[name] = q["launches"][name]
+                    routes[name] = q["launches_by_route"][name]
 
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes, by_path)}))

@@ -306,8 +306,13 @@ class FlowNetProposer:
         out = self.net(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         flow_l2 = torch.mean((out[..., :2] - flow_targets[..., :2] * 5.0) ** 2)
         logits, tgt = out[..., 2], flow_targets[..., 2]
-        bce = torch.clamp(logits, min=0) - logits * tgt + torch.log1p(torch.exp(-logits.abs()))
-        return flow_l2 + bce.mean()
+        return flow_l2 + optax_sigmoid_bce(logits, tgt).mean()
+
+
+def optax_sigmoid_bce(logits, targets):
+    """Elementwise sigmoid binary cross-entropy on logits, in the stable form
+    of ``optax.sigmoid_binary_cross_entropy``: max(z, 0) − z·t + log1p(e^−|z|)."""
+    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
 
 
 class FlowNetTrainer:

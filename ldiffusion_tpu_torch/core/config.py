@@ -1,10 +1,12 @@
-"""Typed configuration (the port's own copy of what it needs from
-``ldiffusion_tpu/core/config.py``: the stage-1 and stage-2 trainers')."""
+"""Typed configuration (the port's own copy of ``ldiffusion_tpu/core/config.py``):
+the stage-1 and stage-2 trainers' hyperparameters and the top-level
+``LDiffusionConfig`` with its ``MeshConfig`` (the port runs one device until
+distribution is ported, ROADMAP queue 1, *Distribution*)."""
 from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -53,3 +55,59 @@ class SegmentorTrainConfig:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: ``data`` shards the batch (-1: every device the
+    other axes leave), ``fsdp`` parameters and optimizer state; ``tensor`` is
+    reserved (the reference has no tensor parallelism)."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+
+    def resolved(self, n_devices: int) -> "MeshConfig":
+        data = self.data
+        if data == -1:
+            denom = self.fsdp * self.tensor
+            if n_devices % denom:
+                raise ValueError(f"{n_devices} devices do not split into fsdp x tensor {denom}")
+            data = n_devices // denom
+        if data * self.fsdp * self.tensor != n_devices:
+            raise ValueError(f"mesh {data}x{self.fsdp}x{self.tensor} != {n_devices} devices")
+        return MeshConfig(data=data, fsdp=self.fsdp, tensor=self.tensor)
+
+
+@dataclass(frozen=True)
+class LDiffusionConfig:
+    """Top-level configuration of ``LDiffusionModel``, the JAX package's
+    fields and defaults; ``to_json`` / ``from_dict`` as its ``_JsonMixin``
+    (``from_dict`` reads the top-level fields, JSON lists as tuples)."""
+
+    diffusion_path: str = ""
+    level: str = "tissue"             # "tissue" | "cell"
+    num_classes: int = 7
+    image_dir: str = ""
+    label_dir: str = ""
+    train_ratio: float = 0.7          # 70/30 split (reference ldiffusion.py:72,87)
+    work_dir: str = "train_save"
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    diffusion: DiffusionTrainConfig = field(default_factory=DiffusionTrainConfig)
+    segmentor: SegmentorTrainConfig = field(default_factory=SegmentorTrainConfig)
+    seed: int = 0
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LDiffusionConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for k, v in d.items():
+            if k not in names:
+                continue
+            if isinstance(v, list):
+                v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+            kwargs[k] = v
+        return cls(**kwargs)

@@ -1,9 +1,10 @@
-"""Logging (counterpart of ``CSVLogger``, ``TextLogger``, ``EpochLogger`` and
-``dump_debug_json`` in ``ldiffusion_tpu/core/logging.py``). The port runs in
-one process, so every call writes; the JAX package's rank-0 checks wait for
-distribution (ROADMAP queue 1, *Distribution*)."""
+"""Logging (counterpart of ``CSVLogger``, ``TextLogger``, ``EpochLogger``,
+``dump_debug_json`` and ``profiler_trace`` in ``ldiffusion_tpu/core/logging.py``).
+The port runs in one process, so every call writes; the JAX package's rank-0
+checks wait for distribution (ROADMAP queue 1, *Distribution*)."""
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
@@ -124,3 +125,24 @@ def dump_debug_json(path: str, extra: Optional[dict] = None):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(info, f, indent=2, default=str)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """A ``torch.profiler`` trace of the block (host, and the card when there
+    is one) written to ``log_dir`` as a Chrome trace
+    (``trace_<pid>_<ms>.json``); nothing when ``log_dir`` is empty or None."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))

@@ -2,9 +2,10 @@
 reference ``paths.py:21-39``, ``configuration.py:1-11``).
 
 ``LDIFFUSION_RAW`` / ``LDIFFUSION_PREPROCESSED`` / ``LDIFFUSION_RESULTS``,
-with the ``nnUNet_*`` names as fallbacks and a warning when unset; the
-process-count knobs (the port's host side has one prefetch thread) and the
-JAX package's compile-cache switch have no counterpart here.
+with the ``nnUNet_*`` names as fallbacks and a warning when unset, and the
+process-count knobs (``default_num_processes``, ``num_processes_da``; the
+port's host side reads them nowhere yet, as it runs one prefetch thread).
+The JAX package's compile-cache switch has no counterpart here.
 """
 from __future__ import annotations
 
@@ -43,3 +44,16 @@ def results_dir(warn: bool = True) -> Optional[str]:
         warnings.warn("LDIFFUSION_RESULTS is not set; checkpoints default to "
                       "<work_dir>/segmentor")
     return v
+
+
+def default_num_processes() -> int:
+    """``LDIFFUSION_N_PROC`` (or ``nnUNet_def_n_proc``), default 8 (reference
+    ``configuration.py:5``)."""
+    return int(_env("LDIFFUSION_N_PROC", "nnUNet_def_n_proc", default="8"))
+
+
+def num_processes_da() -> int:
+    """``LDIFFUSION_N_PROC_DA`` (or ``nnUNet_n_proc_DA``), default 2
+    (reference ``utilities/default_n_proc_DA.py``): the host prefetch's
+    workers; augmentation runs on the device."""
+    return int(_env("LDIFFUSION_N_PROC_DA", "nnUNet_n_proc_DA", default="2"))

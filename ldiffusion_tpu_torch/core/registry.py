@@ -1,12 +1,16 @@
 """Plugin lookup by name (counterpart of ``ldiffusion_tpu/core/registry.py:24-50``;
 reference ``find_class_by_name.py``): classes register explicitly
 (``@register(kind)``), with a walk over named modules as the fallback for
-classes defined elsewhere. Unknown names raise ``KeyError``."""
+classes defined elsewhere. Unknown names raise ``KeyError``. Also the
+reference's ``collate_outputs`` and ``dummy_context``."""
 from __future__ import annotations
 
+import contextlib
 import importlib
 import pkgutil
 from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
 
 _REGISTRIES: Dict[str, Dict[str, Any]] = {}
 
@@ -35,3 +39,27 @@ def find_class(kind: str, name: str, search_modules: Optional[List[str]] = None)
             if hasattr(sub, name):
                 return getattr(sub, name)
     raise KeyError(f"no {kind} named {name!r} (registered: {sorted(reg)})")
+
+
+def collate_outputs(outputs: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """A list of dicts → one dict: scalars (and 0-d arrays) become an array
+    of them, arrays stack along a new first axis (reference
+    ``collate_outputs``)."""
+    if not outputs:
+        return {}
+    collated: Dict[str, Any] = {}
+    for key in outputs[0]:
+        vals = [o[key] for o in outputs]
+        first = vals[0]
+        if np.isscalar(first) or (hasattr(first, "ndim") and first.ndim == 0):
+            collated[key] = np.array(vals)
+        else:
+            collated[key] = np.stack([np.asarray(v) for v in vals])
+    return collated
+
+
+@contextlib.contextmanager
+def dummy_context():
+    """A context that does nothing (the reference's stand-in for autocast
+    off the GPU)."""
+    yield

@@ -1,7 +1,8 @@
-"""PUMA label maps: grayscale PNG values → class ids (the port's copy of
-``convert_labels`` in ``ldiffusion_tpu/data/labels.py``). Tissue: 7
-classes; cell: 11; "rgbd", the remote-sensing masks of ``data/rgbd.py``: 4.
-A 256-entry lookup table; unmapped values → 0."""
+"""PUMA label maps: grayscale PNG values → class ids and back (the port's
+copy of ``convert_labels`` and ``labels_to_pixels`` in
+``ldiffusion_tpu/data/labels.py``). Tissue: 7 classes; cell: 11; "rgbd",
+the remote-sensing masks of ``data/rgbd.py``: 4. A 256-entry lookup table;
+unmapped values → 0."""
 from __future__ import annotations
 
 import numpy as np
@@ -31,3 +32,13 @@ def label_lut(level: str) -> np.ndarray:
 def convert_labels(gray: np.ndarray, level: str) -> np.ndarray:
     """Grayscale uint8 mask → class-id mask."""
     return label_lut(level)[gray.astype(np.uint8)]
+
+
+def labels_to_pixels(labels: np.ndarray, level: str) -> np.ndarray:
+    """Class ids → the reference's grayscale pixel values, for writing
+    prediction PNGs ("tissue"; any other level takes the cell map)."""
+    mapping = PIXEL_TO_LABEL_TISSUE if level == "tissue" else PIXEL_TO_LABEL_CELL
+    lut = np.zeros(256, np.uint8)
+    for pixel, label in mapping.items():
+        lut[label] = pixel
+    return lut[labels.astype(np.uint8)]

@@ -74,6 +74,12 @@ class PatchSampler:
                        for ax in range(nd))
         return case, lb
 
+    def sample_one(self, force_fg: bool):
+        """One (data (*patch, C), seg (*patch)) crop of a drawn case, through
+        the numpy crop, as the JAX package's ``sample_one``."""
+        case, lb = self.sample_coords(force_fg)
+        return crop_with_pad_numpy(case.data, case.seg, lb, self.patch)
+
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """(data (B, *patch, C) float32, seg (B, *patch) int32) batches."""
         while True:

@@ -15,6 +15,9 @@ along channels. The noise is an input (``schedulers.laplace_noise`` draws it fro
 generator), so ``torch.utils.checkpoint`` recomputes a timestep from the same
 values, and tests can hand in the JAX package's draws.
 
+``laplace_reverse_transform``: ``bench.py``'s program (``bench.py:88-106``),
+encode → PNDM steps with Laplace noise through the UNet → ``decode_latents``.
+
 Public functions take and return NHWC tensors, as the JAX package's do.
 """
 from __future__ import annotations
@@ -278,4 +281,25 @@ def one_step_transform(components: SDComponents, images, text_emb):
     latents = components.vae.encode_mean(x)
     eps = components.unet(latents, t, text_emb)
     latents, _ = sch.step(ts, sch.init_state(), eps, t, latents)
+    return components.vae.decode_latents(latents).permute(0, 2, 3, 1)
+
+
+def laplace_reverse_transform(components: SDComponents, images, num_inference_steps: int = 5,
+                              noise=None, generator: Optional[torch.Generator] = None):
+    """``bench.py``'s program: the fixed prompt's embedding, VAE
+    ``encode_mean``, then at every PNDM visit (n steps visit n + 1
+    timesteps) unit Laplace noise × sqrt(1 − ᾱ_t) added to the current
+    latents, the UNet's prediction from them and the scheduler's step;
+    ``decode_latents`` at the end. images: (B, H, W, 3) ImageNet-normalised;
+    noise: (visits, B, H/f, W/f, 4) unit Laplace draws, else drawn from
+    ``generator``. Returns (B, H, W, 3) in [0, 1], float32."""
+    sch = components.scheduler
+    ts = sch.set_timesteps(num_inference_steps)
+    emb = trajectory_text_emb(components, images.shape[0])
+    latents = components.vae.encode_mean(images.permute(0, 3, 1, 2))
+    state = sch.init_state()
+    for i, t in enumerate(ts.values):
+        draw = None if noise is None else torch.as_tensor(noise[i]).permute(0, 3, 1, 2)
+        eps = components.unet(sch.add_laplace_noise(latents, t, draw, generator), t, emb)
+        latents, state = sch.step(ts, state, eps, t, latents)
     return components.vae.decode_latents(latents).permute(0, 2, 3, 1)

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ldiffusion_tpu_torch.models.layers import TimeEmbedding, timestep_embedding
+from ldiffusion_tpu_torch.models.convert import controlnet_rows
+from ldiffusion_tpu_torch.models.layers import TimeEmbedding, name_quant_sites, timestep_embedding
 from ldiffusion_tpu_torch.models.unet import (
     UNet2DConditionConfig,
     build_down_blocks,
@@ -71,6 +72,8 @@ class ControlNet(nn.Module):
         self.controlnet_down_blocks = nn.ModuleList([nn.Conv2d(c, c, 1) for c in skips])
         mid = cfg.block_out_channels[-1]
         self.controlnet_mid_block = nn.Conv2d(mid, mid, 1)
+        # the encoder's rows are the UNet's: one static scale dict serves both nets
+        name_quant_sites(self, controlnet_rows(cfg, self.conditioning_embed_channels))
 
     def forward(self, sample, timesteps, encoder_hidden_states, controlnet_cond,
                 conditioning_scale: float = 1.0):

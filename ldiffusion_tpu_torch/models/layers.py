@@ -10,6 +10,9 @@ downsample's asymmetric (0, 1) padding.
 
 GroupNorm and long self-attention go through ``ops/`` (the CUDA kernels on
 the card, the plain versions on the CPU); everything else is plain PyTorch.
+``QConv`` / ``QDense`` are ``nn.Conv2d`` / ``nn.Linear`` (same state-dict
+names) with the int8 W8A8 forward of ``ops/quant.py`` under its modes; they
+sit where the JAX package has its QConv / QDense.
 Where autograd needs a gradient (training), they go through the ops'
 ``autograd.Function``s; under ``no_grad``/``inference_mode`` the inference
 path runs the kernels directly.
@@ -26,6 +29,13 @@ from torch import nn
 from ldiffusion_tpu_torch.ops._build import needs_grad
 from ldiffusion_tpu_torch.ops.attention import dot_product_attention
 from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_trainable
+from ldiffusion_tpu_torch.ops.quant import (
+    GATED_MODES,
+    conv_shape_gate,
+    int8_conv,
+    int8_matmul,
+    quant_mode,
+)
 from ldiffusion_tpu_torch.ops.resize import upsample_nearest_2x
 
 
@@ -43,6 +53,58 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w = torch.randn(p.shape, generator=generator, device=p.device)
             p.copy_(w / math.sqrt(p[0].numel()))
     return module
+
+
+class QConv(nn.Conv2d):
+    """``nn.Conv2d`` with the int8 forward of ``ops/quant.py``: under
+    ``"int8"``, ``"int8_record"`` and ``"int8_static"`` when (Cin, Cout)
+    passes ``conv_shape_gate``, under ``"int8_all"`` always; otherwise
+    ``nn.Conv2d``'s forward. ``site``: the call site's key for static
+    calibration, the JAX module's flax path (``name_quant_sites``). The
+    weight quantizes as the module holds it: the JAX package quantizes its
+    f32 master weight, so a module held in bf16 gets other codes and scales
+    (ROADMAP queue 3; ``tests/test_torch_port_quant.py`` measures how many)."""
+
+    site: Optional[str] = None
+
+    def forward(self, x):
+        mode = quant_mode()
+        if mode == "int8_all" or (mode in GATED_MODES and
+                                  conv_shape_gate(self.in_channels, self.out_channels)):
+            site = None
+            if mode in ("int8_record", "int8_static"):
+                if self.site is None:
+                    raise RuntimeError("QConv: no site key for static calibration; build the "
+                                       "model through a class that names its sites")
+                site = self.site
+            ph, pw = self.padding
+            return int8_conv(x, self.weight, self.stride, ((ph, ph), (pw, pw)), self.bias,
+                             out_dtype=self.weight.dtype, site=site)
+        return super().forward(x)
+
+
+class QDense(nn.Linear):
+    """``nn.Linear`` with the int8 forward of ``ops/quant.py`` under
+    ``"int8_all"`` only (the JAX package measured its matmuls at ~1.0× under
+    int8 and quantizes them only in that ablation mode)."""
+
+    def forward(self, x):
+        if quant_mode() == "int8_all":
+            return int8_matmul(x, self.weight, self.bias, out_dtype=self.weight.dtype)
+        return super().forward(x)
+
+
+def name_quant_sites(model: nn.Module, rows) -> nn.Module:
+    """Give each ``QConv`` of ``model`` its site key: the flax path that
+    ``models/convert.py``'s ``rows`` pair with its torch name, which is the
+    JAX QConv's ``scope.path`` — so scales calibrated by either package
+    apply in the other."""
+    modules = dict(model.named_modules())
+    for torch_prefix, flax_path, _ in rows:
+        m = modules.get(torch_prefix)
+        if isinstance(m, QConv):
+            m.site = flax_path
+    return model
 
 
 def to_nhwc(x):
@@ -102,13 +164,13 @@ class ResnetBlock(nn.Module):
                  groups: int = 32, temb_channels: Optional[int] = None):
         super().__init__()
         self.norm1 = FusedGroupNormSiLU(in_channels, groups, eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = QConv(in_channels, out_channels, 3, padding=1)
         if temb_channels is not None:
             self.time_emb_proj = nn.Linear(temb_channels, out_channels)
         self.norm2 = FusedGroupNormSiLU(out_channels, groups, eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = QConv(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.conv_shortcut = QConv(in_channels, out_channels, 1)
 
     def forward(self, x, temb=None):
         h = self.conv1(self.norm1(x))
@@ -125,11 +187,12 @@ class Downsample(nn.Module):
     def __init__(self, channels: int, asymmetric_pad: bool = False):
         super().__init__()
         self.asymmetric_pad = asymmetric_pad
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
-                              padding=0 if asymmetric_pad else 1)
+        self.conv = QConv(channels, channels, 3, stride=2, padding=0 if asymmetric_pad else 1)
 
     def forward(self, x):
         if self.asymmetric_pad:
+            # zeros raise no amax and quantize to 0, so under int8 this equals
+            # the JAX package's padding of the int8 tensor (H, W ≠ 15)
             x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
@@ -137,7 +200,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = QConv(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(to_nchw(upsample_nearest_2x(to_nhwc(x))))
@@ -152,10 +215,10 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=bias)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=bias)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=bias)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_q = QDense(query_dim, inner, bias=bias)
+        self.to_k = QDense(context_dim or query_dim, inner, bias=bias)
+        self.to_v = QDense(context_dim or query_dim, inner, bias=bias)
+        self.to_out = nn.ModuleList([QDense(inner, query_dim)])
 
     def forward(self, x, context=None):
         context = x if context is None else context
@@ -171,7 +234,7 @@ class Attention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = QDense(dim, inner * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -185,7 +248,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), QDense(inner, dim)])
 
     def forward(self, x):
         for layer in self.net:
@@ -218,10 +281,10 @@ class Transformer2D(nn.Module):
                  depth: int = 1, groups: int = 32):
         super().__init__()
         self.norm = FusedGroupNormSiLU(channels, groups, 1e-6, silu=False)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = QConv(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
             [TransformerBlock(channels, heads, head_dim, context_dim) for _ in range(depth)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = QConv(channels, channels, 1)
 
     def forward(self, x, context):
         b, c, h, w = x.shape
@@ -240,10 +303,10 @@ class VAEAttention(nn.Module):
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()
         self.group_norm = FusedGroupNormSiLU(channels, groups, 1e-6, silu=False)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.to_q = QDense(channels, channels)
+        self.to_k = QDense(channels, channels)
+        self.to_v = QDense(channels, channels)
+        self.to_out = nn.ModuleList([QDense(channels, channels)])
 
     def forward(self, x):
         b, c, h, w = x.shape

@@ -20,6 +20,7 @@ from ldiffusion_tpu_torch.models.layers import (
     TimeEmbedding,
     Transformer2D,
     Upsample,
+    name_quant_sites,
     timestep_embedding,
 )
 
@@ -135,6 +136,9 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = FusedGroupNormSiLU(ch0, groups, 1e-5)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        from ldiffusion_tpu_torch.models.convert import unet_rows  # convert imports this module
+
+        name_quant_sites(self, unet_rows(cfg))
 
     def forward(self, sample, timesteps, encoder_hidden_states, down_block_residuals=None,
                 mid_residual=None):

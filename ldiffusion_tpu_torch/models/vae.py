@@ -18,6 +18,7 @@ from ldiffusion_tpu_torch.models.layers import (
     ResnetBlock,
     Upsample,
     VAEAttention,
+    name_quant_sites,
 )
 
 
@@ -127,6 +128,9 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(config)
         self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        from ldiffusion_tpu_torch.models.convert import vae_rows  # convert imports this module
+
+        name_quant_sites(self, vae_rows(config))
 
     def _in(self, x):
         return x.to(self.quant_conv.weight.dtype).contiguous(memory_format=torch.channels_last)

@@ -3,7 +3,8 @@
 ``remove_connected_components.py``): decide on the validation predictions
 which keep-largest-component steps raise the mean foreground Dice
 (``determine_postprocessing``, the whole foreground first, then each class),
-save them as ``postprocessing.json``, and apply them at inference."""
+save them as ``postprocessing.json``, and apply them at inference, to one
+mask or to a folder of PNG masks (``apply_postprocessing_to_folder``)."""
 from __future__ import annotations
 
 import json
@@ -86,3 +87,20 @@ def apply_postprocessing(seg: np.ndarray, steps: Sequence[Dict]) -> np.ndarray:
 def load_postprocessing(path: str) -> List[Dict]:
     with open(path) as f:
         return json.load(f)
+
+
+def apply_postprocessing_to_folder(input_dir: str, output_dir: str, steps_path: str):
+    """Apply the steps of ``steps_path`` to every PNG mask of ``input_dir``,
+    written under the same names in ``output_dir`` (reference
+    ``remove_connected_components.py:300-345``)."""
+    from PIL import Image
+
+    steps = load_postprocessing(steps_path)
+    os.makedirs(output_dir, exist_ok=True)
+    for fn in sorted(os.listdir(input_dir)):
+        if not fn.lower().endswith(".png"):
+            continue
+        with Image.open(os.path.join(input_dir, fn)) as im:
+            seg = np.asarray(im)
+        out = apply_postprocessing(seg.copy(), steps)
+        Image.fromarray(out.astype(np.uint8)).save(os.path.join(output_dir, fn))

@@ -10,8 +10,9 @@ segmentation as one-hot channels of the foreground labels
 cases in memory or as ``<case>.npz`` + ``<case>.json`` in the JAX package's
 layout. ``-preprocessor_name`` resolves through ``get_preprocessor``
 (``ldiffusion_tpu/segmentor/preprocess.py:183-220``). The other
-normalisation schemes are not ported (no planner of either package emits
-them).
+normalisation schemes (CT, rescale to [0, 1], RGB / 255, none) are there by
+name in ``NORMALIZATION_SCHEMES`` for ``normalize``; no planner of either
+package emits them.
 """
 from __future__ import annotations
 
@@ -40,6 +41,50 @@ def zscore_normalize(image: np.ndarray) -> np.ndarray:
     mean = image.mean(axis=(0, 1), keepdims=True)
     std = image.std(axis=(0, 1), keepdims=True)
     return ((image - mean) / np.maximum(std, 1e-8)).astype(np.float32)
+
+
+def ct_normalize(image: np.ndarray, intensity_props: Dict) -> np.ndarray:
+    """``CTNormalization``: each channel clipped to the fingerprint's 0.5 and
+    99.5 percentiles, then z-scored with the fingerprint's mean and std."""
+    out = np.empty_like(image, np.float32)
+    for c in range(image.shape[-1]):
+        p = intensity_props[str(c)]
+        x = np.clip(image[..., c], p["percentile_00_5"], p["percentile_99_5"])
+        out[..., c] = (x - p["mean"]) / max(p["std"], 1e-8)
+    return out
+
+
+def rescale_to_01(image: np.ndarray) -> np.ndarray:
+    """``RescaleTo01Normalization``: per channel, min → 0, max → 1."""
+    mn = image.min(axis=(0, 1), keepdims=True)
+    mx = image.max(axis=(0, 1), keepdims=True)
+    return ((image - mn) / np.maximum(mx - mn, 1e-8)).astype(np.float32)
+
+
+def rgb_to_01(image: np.ndarray) -> np.ndarray:
+    """``RGBTo01Normalization``: uint8-range input / 255."""
+    return (image / 255.0).astype(np.float32)
+
+
+def no_norm(image: np.ndarray) -> np.ndarray:
+    """``NoNormalization``: float32, values as they are."""
+    return image.astype(np.float32)
+
+
+NORMALIZATION_SCHEMES = {
+    "zscore_image": lambda img, props: zscore_normalize(img),
+    "ct": ct_normalize,
+    "rescale_to_01": lambda img, props: rescale_to_01(img),
+    "rgb_to_01": lambda img, props: rgb_to_01(img),
+    "none": lambda img, props: no_norm(img),
+}
+
+
+def normalize(image: np.ndarray, scheme: str = "zscore_image",
+              intensity_props: Optional[Dict] = None) -> np.ndarray:
+    """``image`` (H, W, C) under the named scheme; ``intensity_props`` is
+    the fingerprint's per-channel statistics (the CT scheme reads them)."""
+    return NORMALIZATION_SCHEMES[scheme](image, intensity_props or {})
 
 
 def sample_fg_locations(seg: np.ndarray, num_classes: int, seed: int = 1234,

@@ -216,6 +216,12 @@ assert laplace(fold_in_step(0, 1, 2), (4,), 0.5).shape == (4,)
 canny_edges(np.zeros((8, 8), np.uint8))
 probs = [np.random.default_rng(0).random((8, 8, 2))]
 assert find_best_configuration({"2d": probs}, [np.zeros((8, 8), int)], 2)["members"] == ["2d"]
+# the int8 modes: a quantized forward of the tiny transform's layers
+from ldiffusion_tpu_torch.ops.quant import set_quant_mode
+set_quant_mode("int8_all")
+with torch.no_grad():
+    model._components.vae.encode_mean(torch.zeros(1, 3, 16, 16))
+set_quant_mode("none")
 # every module of the package, both training slices' included
 names = [m.name for m in pkgutil.walk_packages(ldiffusion_tpu_torch.__path__,
                                                "ldiffusion_tpu_torch.")]
@@ -233,7 +239,7 @@ for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
              "segmentor.model_sharing", "segmentor.batch_running", "data.converters",
              "data.public_converters", "data.rgbd", "core.prng", "utils",
              "models.controlnet", "models.conductor", "diffusion.multimodal", "tools",
-             "tools.sample", "tools.pixel_latent_vector"):
+             "tools.sample", "tools.pixel_latent_vector", "ops.quant"):
     assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu",

@@ -98,9 +98,19 @@ GEN_GN_SHAPES = [((4, 32, 32, 320), 1e-5, True), ((4, 32, 32, 320), 1e-6, False)
                  ((4, 256, 256, 256), 1e-6, True)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", GEN_ATTN_SHAPES)
-def test_generation_attention_takes_wgmma_and_matches_plain(cuda, shape):
+# bench.py's program at SD-v1.5 width (512², batch 8): UNet level-0 and
+# level-1 self-attention and the VAE mid-block's (d = 512); GroupNorm over its
+# batch-8 maps, the smallest and largest on each side of the routes' boundary
+# and the VAE mid-block's map without SiLU
+BENCH_ATTN_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 4096, 1, 512)]
+BENCH_GN_SHAPES = [((8, 8, 8, 1280), 1e-5, True), ((8, 32, 32, 1280), 1e-5, True),
+                   ((8, 64, 64, 320), 1e-5, True), ((8, 64, 64, 320), 1e-6, False),
+                   ((8, 32, 32, 1920), 1e-5, True), ((8, 64, 64, 960), 1e-5, True),
+                   ((8, 64, 64, 512), 1e-6, False), ((8, 256, 256, 256), 1e-6, True),
+                   ((8, 512, 512, 128), 1e-6, True), ((8, 512, 512, 256), 1e-6, True)]
+
+
+def _check_attention_takes_wgmma(cuda, shape):
     rng = np.random.default_rng(30)
     q, k, v = (_normal(rng, shape, torch.bfloat16, cuda) for _ in range(3))
     scale = shape[-1] ** -0.5
@@ -110,9 +120,7 @@ def test_generation_attention_takes_wgmma_and_matches_plain(cuda, shape):
     _assert_close(out, tatt.plain_attention(q, k, v, scale), ATTN_TOL[torch.bfloat16])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,eps,silu", GEN_GN_SHAPES)
-def test_generation_batch4_groupnorm_takes_its_route_and_matches_plain(cuda, shape, eps, silu):
+def _check_groupnorm_takes_its_route(cuda, shape, eps, silu):
     x, scale, bias = _gn_inputs(np.random.default_rng(31), shape, torch.bfloat16, torch.float32,
                                 cuda)
     routes = dict(tgn.groupnorm_silu.launches_by_route)
@@ -121,6 +129,30 @@ def test_generation_batch4_groupnorm_takes_its_route_and_matches_plain(cuda, sha
     assert tgn.groupnorm_silu.launches_by_route == {**routes, route: routes[route] + 1}
     _assert_close(out, tgn.plain_groupnorm_silu(x, scale, bias, 32, eps, silu),
                   GN_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GEN_ATTN_SHAPES)
+def test_generation_attention_takes_wgmma_and_matches_plain(cuda, shape):
+    _check_attention_takes_wgmma(cuda, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,eps,silu", GEN_GN_SHAPES)
+def test_generation_batch4_groupnorm_takes_its_route_and_matches_plain(cuda, shape, eps, silu):
+    _check_groupnorm_takes_its_route(cuda, shape, eps, silu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BENCH_ATTN_SHAPES)
+def test_bench_program_attention_takes_wgmma_and_matches_plain(cuda, shape):
+    _check_attention_takes_wgmma(cuda, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,eps,silu", BENCH_GN_SHAPES)
+def test_bench_program_groupnorm_takes_its_route_and_matches_plain(cuda, shape, eps, silu):
+    _check_groupnorm_takes_its_route(cuda, shape, eps, silu)
 
 
 @pytest.mark.gpu

@@ -33,13 +33,14 @@ def jax_random_components() -> SDComponents:
 
 
 def jax_components_of(components) -> SDComponents:
-    """The JAX package's components at the tiny configs holding the weights
-    of the port's ``components`` (carried with ``*_to_flax``): no flax init
-    to compile, and the same weights on both sides by construction."""
+    """The JAX package's components at the port's ``components``' configs
+    holding their weights (carried with ``*_to_flax``): no flax init to
+    compile, and the same weights on both sides by construction."""
     from ldiffusion_tpu_torch.models import convert
 
-    ucfg, vcfg = UNet2DConditionConfig.tiny(), VAEConfig.tiny()
-    tcfg = dataclasses.replace(CLIPTextConfig.tiny(), vocab_size=49408)
+    ucfg = UNet2DConditionConfig(**dataclasses.asdict(components.unet_config))
+    vcfg = VAEConfig(**dataclasses.asdict(components.vae_config))
+    tcfg = CLIPTextConfig(**dataclasses.asdict(components.text_config))
     params = {
         "unet": convert.unet_to_flax(components.unet.state_dict(), components.unet_config),
         "vae": convert.vae_to_flax(components.vae.state_dict(), components.vae_config),
@@ -151,3 +152,59 @@ def flat(tree, prefix="", out=None):
         else:
             out[name] = np.asarray(v)
     return out
+
+
+# The VAE of tests/test_quant_task_ab.py: its 256-channel stage passes the
+# int8 shape gate (the tiny VAE's 32/64 channels never do).
+GATED_VAE = dict(block_out_channels=(64, 256), layers_per_block=1, norm_num_groups=32)
+GATED_VAE_SITES = 14  # its (256, 256) convs: encoder 5, decoder 9
+
+
+def quant_transform_world(modes, calibrate: bool = False) -> dict:
+    """The one-step transform at the tiny UNet with the GATED_VAE, the same
+    weights and 64² image in both packages (f32), under each of ``modes``:
+    ``{"out": {mode: (jax, port)}}`` as numpy. With ``calibrate``, also both
+    packages' ``calibrate_static_scales`` (``"jscales"``, ``"tscales"``);
+    ``"int8_static"`` then runs on the JAX package's scales in both."""
+    import torch
+
+    from ldiffusion_tpu.diffusion import pipeline as jpipe
+    from ldiffusion_tpu.ops import quant as jq
+    from ldiffusion_tpu_torch.diffusion import pipeline as tpipe
+    from ldiffusion_tpu_torch.models.vae import VAEConfig as TVAEConfig
+    from ldiffusion_tpu_torch.ops import quant as tq
+
+    comps = tpipe.SDComponents.random(seed=3, device="cpu", vae_config=TVAEConfig(**GATED_VAE))
+    jc = jax_components_of(comps)
+    img = np.random.default_rng(5).normal(size=(1, 64, 64, 3)).astype(np.float32)
+    with torch.no_grad():  # the embedding's parity is test_torch_port_pipeline's
+        emb = tpipe.trajectory_text_emb(comps, 1)
+    jemb = jnp.asarray(emb.numpy())
+
+    def jax_fn(params, x):
+        return jpipe.one_step_transform(jc, params, x, jemb)
+
+    def port_fn(x):
+        return tpipe.one_step_transform(comps, x, emb)
+
+    world = {"out": {}}
+    if calibrate:
+        world["jscales"] = jq.calibrate_static_scales(lambda x: jax_fn(jc.params, x),
+                                                      jnp.asarray(img))
+        world["tscales"] = tq.calibrate_static_scales(port_fn, torch.from_numpy(img))
+    try:
+        for mode in modes:
+            for m in (jq, tq):
+                m.set_quant_mode(mode)
+                m.set_static_amax(world.get("jscales"))
+            # a fresh function per mode: jax.jit caches by function, and the
+            # mode changes the traced program
+            ref = jax.jit(lambda p, x: jax_fn(p, x))(jc.params, jnp.asarray(img))
+            with torch.no_grad():
+                got = port_fn(torch.from_numpy(img))
+            world["out"][mode] = (np.asarray(ref), got.numpy())
+    finally:
+        for m in (jq, tq):
+            m.set_quant_mode("none")
+            m.set_static_amax(None)
+    return world
