@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's tissue inference, stage-1 training,
 stage-2 segmentor training, the cell level, the 2D segmentor command line,
 its workflow after training, its volumetric (3D) pathway, the generation
-tail and the int8 W8A8 inference modes on one NVIDIA GPU.
+tail, the int8 W8A8 inference modes and distribution on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # only the kernel checks
@@ -196,11 +196,34 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               bench.py's amax-1.0 stand-in. Every forward launch on wgmma,
               every GroupNorm launch on its gn_route route. (b) Every distinct
               gated conv shape of (c) and (d): int8_conv's device ms split
-              into quantize / im2col / _int_mm / dequantize, the bf16 cuDNN
-              conv's device ms (each from CUDA graph replays), the bounds. Figures (``{"quant": ...}`` line): s/ROI,
+              into the activation's quantize / im2col / _int_mm /
+              dequantize (the weight's codes are QConv's, taken once from
+              its f32 weight; their quantize is timed apart), the bf16 cuDNN
+              conv's device ms (each from CUDA graph replays), the bounds.
+              Figures (``{"quant": ...}`` line): s/ROI,
               the transform's error and the masks' agreement against none,
               s a batch, patches/s, peak, the profiled pass's idle share, the
               per-shape table's sums; a ``quant shape`` line a shape.
+ 13. dist:    distribution (core/dist.py). A process group over NCCL at
+              world size 1 (127.0.0.1, a free port; backend and NCCL version
+              printed; no gloo on the card). One stage-1 step at SD-v1.5
+              width on a 512² image through the one-device trainer and
+              through DiffusionWarmupTrainer(mesh=...) under FSDP2, the same
+              seeded weights and draws: the loss, the gradient norm, every
+              gradient and updated parameter held to the one-device step
+              (DIST_*), the route counters (K2-K6, reset before each step)
+              equal; an FSDP2 trainer's state after a step (tiny configs)
+              gathered, saved, loaded and re-sharded bit-equal. One
+              segmentor step at the seg phase's plan under
+              DDP, plain and nnUNetTrainerBN (batch Dice and BatchNorm over
+              the group), against the one-device step. Then ``python -m
+              torch.distributed.run --nproc_per_node 1 -m
+              ldiffusion_tpu_torch.ldiffusion`` on ``random:tiny``: exit 0,
+              the UNet directory and rank 0's loss log. Each step's wall,
+              device ms and peak beside the one-device step's
+              (``{"dist": ...}`` line; the compared steps are first steps
+              timed with CUDA events, their ``device_span_ms`` the device
+              timeline from the first launch to the last).
 The line before the last is the kernels JSON; the last line is the device
 JSON. Imports nothing of JAX or of the JAX package.
 """
@@ -212,6 +235,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
@@ -3490,14 +3514,16 @@ def quant_shape_row(shape, cout, k, stride, pad, calls, path, gen):
     (pt, pb), (pl, pr) = pad
     if pt != pb or pl != pr or pt != pl:
         raise AssertionError(f"quant shape {shape}: QConv pads symmetrically, not {pad}")
-    times = {
-        "quantize_ms": graph_ms(lambda: (quant._act_quant(x), quant._sym_quant(wt, (1, 2, 3)))),
+    times = {  # QConv quantizes its weight once, from f32, before the cast down
+        "quantize_ms": graph_ms(lambda: quant._act_quant(x)),
+        "weight_quantize_ms": graph_ms(lambda: quant._sym_quant(wt, (1, 2, 3))),
         "im2col_ms": graph_ms(lambda: quant.im2col(xq, (k, k), (stride, stride), pad)),
         "int_mm_ms": graph_ms(lambda: quant.int_mm(cols, wcols)),
         "dequantize_ms": graph_ms(lambda: quant.dequantize(
             acc, sx, sw.reshape(1, -1, 1, 1), bias.reshape(1, -1, 1, 1), torch.bfloat16)),
         "int8_conv_ms": graph_ms(lambda: quant.int8_conv(x, wt, (stride, stride), pad, bias,
-                                                          out_dtype=torch.bfloat16)),
+                                                          out_dtype=torch.bfloat16,
+                                                          weight_q=(wq, sw))),
         "bf16_cudnn_ms": graph_ms(lambda: F.conv2d(x, wt, bias, stride, pt)),
     }
     m, kk, n = b * ho * wo, k * k * cin, cout
@@ -3650,7 +3676,8 @@ def phase_quant(work, seed):
             "int8_conv_ms": sum(r["int8_conv_ms"] * r["calls"] for r in rows),
             "bf16_cudnn_ms": sum(r["bf16_cudnn_ms"] * r["calls"] for r in rows),
             **{k: sum(r[k] * r["calls"] for r in rows)
-               for k in ("quantize_ms", "im2col_ms", "int_mm_ms", "dequantize_ms")},
+               for k in ("quantize_ms", "im2col_ms", "int_mm_ms", "dequantize_ms",
+                         "weight_quantize_ms")},
             "shapes_where_int8_wins": sum(r["int8_over_bf16"] < 1 for r in rows)}
     row.update({"tissue_1024": tissue, "bench_512_b8": bench,
                 "bench_static_scales": "amax 1.0 at every site (bench.py:114-125)",
@@ -3658,6 +3685,359 @@ def phase_quant(work, seed):
                 "phase_wall_s": time.perf_counter() - t_phase})
     log(json.dumps({"quant": row}))
     return {"launches": launches, "launches_by_route": routes, "row": row}
+
+
+# ---------------------------------------------------------------------------
+# distribution: NCCL at world size 1, FSDP2 stage 1, DDP stage 2, torchrun
+# ---------------------------------------------------------------------------
+
+# The FSDP2 stage-1 step against the one-device step (bf16 compute over f32
+# masters, the same weights and draws). FSDP2 hands the convolutions
+# contiguous weights where the one-device UNet keeps channels_last ones, so
+# cuDNN may add in another order and the bf16 results differ by rounding:
+# the loss DIST_LOSS_RTOL and the gradient norm DIST_NORM_RTOL relative,
+# each gradient tensor within DIST_GRAD_SHARE of its largest value. AdamW's
+# first step is lr·g/(|g| + eps) = ±lr wherever |g| >> eps, so the updated
+# parameters agree exactly (up to rounding of the f32 parameter, 2^-22·|p|)
+# except where a gradient's sign flips under that rounding; those elements
+# move 2·lr apart at most, and are at most DIST_FLIP_SHARE of all.
+DIST_LOSS_RTOL = 2e-3
+DIST_NORM_RTOL = 2e-2
+DIST_GRAD_SHARE = 5e-2
+DIST_FLIP_SHARE = 1e-2
+# The DDP stage-2 step against the one-device step (bf16 compute, f32
+# parameters, the same weights and draws): DDP at world size 1 averages
+# over one rank. The loss 1e-3 relative; each momentum buffer (the step's
+# clipped gradient plus the decay) within DIST_SEG_MOMENTUM of its largest
+# value (cuDNN's backward may add in another order; a conv bias in front of
+# a norm has a gradient of 0 in exact arithmetic, so its buffer is rounding
+# noise, held absolutely); each parameter's update within that share of
+# lr·(1 + μ)·max|momentum|; BatchNorm's running statistics (the group's sums, where
+# one process takes var_mean) within 1e-3 of their largest value. The BN
+# net's statistics differ in f32 rounding, which bf16 activations turn into
+# gradient differences up to 0.7% of a tensor's largest value (a CPU
+# rehearsal at the tiny plan); DIST_SEG_MOMENTUM leaves 4x. The group's
+# arithmetic itself (two ranks, a factor of W) is held on the CPU by
+# tests/test_torch_port_dist_seg.py.
+DIST_SEG_LOSS_RTOL = 1e-3
+DIST_SEG_MOMENTUM = 3e-2
+DIST_LAUNCH_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_stage1(work, seed, mesh):
+    """One stage-1 step at SD-v1.5 width on a 512² image, through the
+    one-device trainer and through ``DiffusionWarmupTrainer(mesh=...)``
+    under FSDP2, from the same seeded weights and draws; then the FSDP2
+    trainer's state through ``save_state`` / ``load_state``."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    def whole(t):  # a copy on the card (a DTensor gathered), compared there
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
+
+    rng = np.random.default_rng(seed + 13)
+    images, labels = tr_batch(rng, 512)
+    x = torch.as_tensor(images, device="cuda")
+    y = torch.as_tensor(labels, device="cuda").long()
+    cfg = DiffusionTrainConfig(num_inference_steps=25, num_classes=7)
+    runs, draws, ref, sections = {}, None, {}, {}
+    t_mark = [time.perf_counter()]
+
+    def mark(key):  # the wall of each part, to trace the phase's time
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sections[key] = sections.get(key, 0.0) + now - t_mark[0]
+        t_mark[0] = now
+
+    for name in ("one_device", "fsdp2"):
+        comps = sd15_components(seed + 1, torch.float32)
+        mark("components")
+        tr = DiffusionWarmupTrainer(comps, cfg, work_dir=os.path.join(work, f"dist_{name}"),
+                                    mesh=mesh if name == "fsdp2" else None)
+        mark("trainer")
+        if draws is None:
+            draws = tr.draw(x, y)
+            mark("draws")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the compared step, between CUDA events (a profiled 512² step takes
+        # ~15 s to parse; the device's busy ms are the train phase's)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with GnRouteWatch() as watch:
+            reset_counters()  # the step's launches, counted from 0
+            t0 = time.perf_counter()
+            start.record()
+            loss, _ = tr.loss_and_grads(x, y, *draws)
+            grads = [whole(m.grad) for m in tr.master]  # before the clip scales them
+            norm = tr.apply_update()
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, routes = read_counters(), read_routes()
+        mark("step")
+        check_bf16_routes(f"dist {name}", routes)
+        watch.check(f"dist {name}", routes)
+        params = [whole(m) for m in tr.master]
+        run = {"loss": float(loss), "grad_norm": float(norm), "step_wall_s": wall,
+               "device_span_ms": start.elapsed_time(end),
+               "peak_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+               "launches_by_route": routes}
+        if name == "one_device":
+            ref["params"], ref["grads"] = params, grads
+        else:
+            run["sharded_params"] = sum(hasattr(m, "to_local") for m in tr.master)
+            # the gradients and the parameters after the step, against the one-device step's
+            lr, grad_share, flips, moved, n = cfg.learning_rate, 0.0, 0, 0.0, 0
+            for g0, g1, a, b in zip(ref["grads"], grads, ref["params"], params):
+                grad_share = max(grad_share, float((g1 - g0).abs().max()
+                                                   / g0.abs().max().clamp_min(1e-30)))
+                d = ((a - b).abs() - 2.0 ** -22 * a.abs()).clamp_min(0.0)
+                flips += int((d > 0.1 * lr).sum())
+                moved = max(moved, float(d.max()) / lr)
+                n += d.numel()
+            run["vs_one_device"] = {"grad_share": grad_share, "flipped_share": flips / n,
+                                    "largest_param_diff_over_lr": moved, "elements": n}
+        mark("gather_and_compare")
+        runs[name] = run
+        log(f"dist stage1 {name}", json.dumps(run))
+        del tr, comps, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("free")
+    one, sharded = runs["one_device"], runs["fsdp2"]
+    out = {"images": [512, 512], "labels": [64, 64], "dtype": "bfloat16 compute, f32 masters",
+           "one_device": one, "fsdp2": sharded, "sections_s": sections,
+           "loss_rel_diff": abs(sharded["loss"] - one["loss"]) / abs(one["loss"]),
+           "grad_norm_rel_diff": abs(sharded["grad_norm"] - one["grad_norm"]) / one["grad_norm"]}
+    if out["loss_rel_diff"] > DIST_LOSS_RTOL or out["grad_norm_rel_diff"] > DIST_NORM_RTOL:
+        raise AssertionError(f"dist stage1: FSDP2 step off the one-device step: {out}")
+    diff = sharded["vs_one_device"]
+    if diff["grad_share"] > DIST_GRAD_SHARE or diff["flipped_share"] > DIST_FLIP_SHARE or \
+            diff["largest_param_diff_over_lr"] > 2.0 + 1e-3:
+        raise AssertionError(f"dist stage1: gradients or updated parameters apart: {diff}")
+    if one["launches"] != sharded["launches"] or \
+            one["launches_by_route"] != sharded["launches_by_route"]:
+        raise AssertionError(f"dist stage1: the kernels' launches differ under FSDP2: "
+                             f"{one['launches_by_route']} vs {sharded['launches_by_route']}")
+    if min(sharded["launches"].values()) == 0 or not sharded["sharded_params"]:
+        raise AssertionError(f"dist stage1: {sharded['launches']}, "
+                             f"{sharded['sharded_params']} DTensor parameters")
+    return out
+
+
+def dist_checkpoint_round_trip(work, seed, mesh):
+    """Gather, save (rank 0), load and re-shard an FSDP2 trainer's state
+    after a step (the tiny configs, f32, a 64² image: at SD-v1.5 width the
+    file is 10.3 GB, 81 s of host I/O a round trip, dist run 1): the
+    parameters and the AdamW moments come back bit-equal."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    comps = SDComponents.random(seed=seed, device="cuda")
+    tr = DiffusionWarmupTrainer(comps, DiffusionTrainConfig(num_inference_steps=25,
+                                                            compute_dtype="float32",
+                                                            num_classes=7),
+                                work_dir=os.path.join(work, "dist_ck"), mesh=mesh)
+    tr.train_step(*tr_batch(np.random.default_rng(seed + 16), 64))
+    state = tr.opt.state
+    before = [(m.to_local().clone(), state[m]["exp_avg"].to_local().clone(),
+               state[m]["exp_avg_sq"].to_local().clone()) for m in tr.master]
+    path = os.path.join(work, "dist_state.pkl")
+    t0 = time.perf_counter()
+    tr.save_state(path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    with torch.no_grad():
+        for m in tr.master:
+            m.zero_()
+    state.clear()
+    t0 = time.perf_counter()
+    tr.load_state(path)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    equal = all(torch.equal(a, m.to_local()) and torch.equal(b, state[m]["exp_avg"].to_local())
+                and torch.equal(c, state[m]["exp_avg_sq"].to_local())
+                for (a, b, c), m in zip(before, tr.master))
+    if not equal or not all(hasattr(m, "to_local") for m in tr.master):
+        raise AssertionError("dist: the sharded checkpoint did not round-trip bit-equal")
+    return {"config": "tiny, f32", "bytes": size, "save_s": save_s, "load_s": load_s,
+            "bit_equal": equal, "tensors": 3 * len(before)}
+
+
+def dist_stage2(work, seed, mesh):
+    """One segmentor step at the seg phase's plan (1024², batch 2, bf16)
+    under DDP, plain and nnUNetTrainerBN (batch Dice and the BatchNorm over
+    the group), against the one-device step from the same weights and
+    draws."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
+    from ldiffusion_tpu_torch.models.convert import dynunet_batch_stats_to_flax
+    from ldiffusion_tpu_torch.models.convert import flatten_tree
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant
+
+    plan = seg_plan(*FULL_PLAN)
+    rng = np.random.default_rng(seed + 14)
+    data = rng.normal(size=(plan.batch_size, *plan.patch_size, 3)).astype(np.float32)
+    seg = np.stack([train_labels(rng, size=plan.patch_size[0])
+                    for _ in range(plan.batch_size)]).astype(np.int32)
+    out = {}
+    for variant in (None, "nnUNetTrainerBN"):
+        runs = {}
+        for name, m in (("one_device", None), ("ddp", mesh)):
+            config = SegmentorTrainConfig()
+            v = get_variant(variant, base=config) if variant else None
+            tr = SegmentorTrainer(plan, config, output_dir=os.path.join(work, "dist_seg", name),
+                                  variant=v, device="cuda", mesh=m)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = float(tr.train_step(data, seg, lr=0.01))
+            torch.cuda.synchronize()
+            runs[name] = {"loss": loss, "step_wall_s": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "momentum": {k: b.detach().float().cpu()
+                                       for k, b in tr._momentum_state().items()},
+                          "params": {k: p.detach().float().cpu()
+                                     for k, p in tr.net.named_parameters()},
+                          "stats": {k: torch.as_tensor(a) for k, a in flatten_tree(
+                              dynunet_batch_stats_to_flax(tr.net.state_dict(),
+                                                          tr.net_config)).items()}}
+            if m is not None:
+                runs[name]["wrapped"] = type(tr.model).__name__
+            del tr
+        one, ddp = runs["one_device"], runs["ddp"]
+
+        def scale(k, t):  # a conv bias in front of a norm has a gradient of 0: rounding noise
+            return t.abs().max().clamp_min(1.0 if k.endswith("conv.bias") else 1e-30)
+
+        def worst(a, b):
+            return max(float((a[k] - b[k]).abs().max() / scale(k, b[k])) for k in b) \
+                if b else 0.0
+
+        mom = worst(ddp["momentum"], one["momentum"])
+        # SGD-nesterov's first step moves a parameter by lr·(1 + μ)·buffer
+        step = 0.01 * (1 + SegmentorTrainConfig().momentum)
+        upd = max(float((ddp["params"][k] - one["params"][k]).abs().max()
+                        / (step * scale(k, one["momentum"][k]))) for k in one["params"])
+        row = {"loss_one_device": one["loss"], "loss_ddp": ddp["loss"],
+               "loss_rel_diff": abs(ddp["loss"] - one["loss"]) / abs(one["loss"]),
+               "momentum_diff": mom, "update_diff": upd,
+               "running_stats_diff": worst(ddp["stats"], one["stats"]),
+               "batch_norm_tensors": len(one["stats"]), "wrapped": ddp["wrapped"],
+               "step_wall_s": {k: r["step_wall_s"] for k, r in runs.items()},
+               "peak_bytes": {k: r["peak_bytes"] for k, r in runs.items()}}
+        key = variant or "default"
+        out[key] = row
+        log(f"dist stage2 {key}", json.dumps(row))
+        if row["loss_rel_diff"] > DIST_SEG_LOSS_RTOL or mom > DIST_SEG_MOMENTUM or \
+                upd > DIST_SEG_MOMENTUM or row["running_stats_diff"] > 1e-3 or \
+                row["wrapped"] != "DistributedDataParallel" or \
+                (variant is not None) != bool(row["batch_norm_tensors"]):
+            raise AssertionError(f"dist stage2 {key}: DDP step off the one-device step: {row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_launcher(work, seed):
+    """``python -m torch.distributed.run --nproc_per_node 1 -m
+    ldiffusion_tpu_torch.ldiffusion`` on a ``random:`` path (stage 1, 64²,
+    two training pairs a batch of one): exit 0, the UNet directory and rank
+    0's loss log of the ten epochs written."""
+    import numpy as np
+
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+
+    root = os.path.join(work, "dist_launch")
+    args = train_pairs(os.path.join(root, "pairs"), 3, np.random.default_rng(seed + 15))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+           "-m", "ldiffusion_tpu_torch.ldiffusion", "--diffusion-path", "random:tiny",
+           "--image-dir", args.image_dir, "--label-dir", args.label_dir, "--num-epochs", "1",
+           "--batch-size", "1", "--num-inference-steps", "5", "--num-classes", "7",
+           "--component", "ldiffusion"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (HERE, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                          timeout=DIST_LAUNCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    unet = sorted(glob.glob(os.path.join(root, "train_save", "unet", "*", "unet_params.npz")))
+    csv = sorted(glob.glob(os.path.join(root, "train_save", "loss", "*", "contrast_loss.csv")))
+    rows = open(csv[0]).read().splitlines() if csv else []
+    row = {"returncode": proc.returncode, "wall_s": wall, "unet_params": len(unet),
+           "loss_csv_rows": len(rows), "stdout_tail": proc.stdout[-600:]}
+    log("dist launcher", json.dumps(row))
+    epochs = DiffusionTrainConfig().num_epochs  # stage 1's ten epochs (the reference's)
+    if proc.returncode != 0 or len(unet) != 1 or len(rows) != 1 + epochs or \
+            rows[0] != "epoch,loss":
+        raise AssertionError(f"dist launcher: {row}\n{proc.stderr[-3000:]}")
+    return row
+
+
+def phase_dist(work, seed):
+    """The port's distribution on the card (module docstring, phase 13)."""
+    import torch
+    import torch.distributed as dist
+
+    from ldiffusion_tpu_torch.core import dist as pdist
+    from ldiffusion_tpu_torch.core.config import MeshConfig
+
+    t_phase = time.perf_counter()
+    row = {"gpu": gpu_line()}
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not pdist.maybe_init_distributed() or dist.get_backend() != "nccl":
+            raise AssertionError("dist: no NCCL process group")
+        nccl = torch.cuda.nccl.version()
+        row["process_group"] = {"backend": dist.get_backend(),
+                                "nccl_version": ".".join(map(str, nccl)) if
+                                isinstance(nccl, tuple) else str(nccl),
+                                "world_size": dist.get_world_size()}
+        log("dist process group", json.dumps(row["process_group"]))
+        mesh = pdist.make_mesh(MeshConfig())
+        t0 = time.perf_counter()
+        row["stage1"] = dist_stage1(work, seed, mesh)
+        row["stage1_wall_s"] = time.perf_counter() - t0
+        row["checkpoint"] = dist_checkpoint_round_trip(work, seed, mesh)
+        log("dist checkpoint", json.dumps(row["checkpoint"]))
+        t0 = time.perf_counter()
+        row["stage2"] = dist_stage2(work, seed, mesh)
+        row["stage2_wall_s"] = time.perf_counter() - t0
+    finally:
+        pdist.finish_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    row["launcher"] = dist_launcher(work, seed)
+    row["phase_wall_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"dist": row}))
+    fsdp2 = row["stage1"]["fsdp2"]
+    return {"launches": fsdp2["launches"], "launches_by_route": fsdp2["launches_by_route"]}
 
 
 def tr_batch(rng, size):
@@ -3844,9 +4224,9 @@ def gpu_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen,quant",
+                    default="kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen,quant,dist",
                     help="comma-separated subset of "
-                         "kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen,quant")
+                         "kernels,tiny,full,train,seg,cell,cli,workflow,vol,gen,quant,dist")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3966,6 +4346,14 @@ def main(argv=None) -> int:
                 if name not in launches:
                     launches[name] = q["launches"][name]
                     routes[name] = q["launches_by_route"][name]
+        if "dist" in phases:  # stage 1 under FSDP2: the training kernels' launches there
+            with wall("dist"):
+                d = phase_dist(work, args.seed)
+            by_path["dist"] = d["launches"]
+            for name in d["launches"]:
+                if name not in launches:
+                    launches[name] = d["launches"][name]
+                    routes[name] = d["launches_by_route"][name]
 
     log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes, by_path)}))

@@ -44,7 +44,18 @@ device=None)``:
     python -m ldiffusion_tpu_torch.ldiffusion --diffusion-path P --image-dir I \
         --label-dir L --num-epochs N --batch-size B --num-inference-steps S --num-classes C
 
-``--local_rank`` is read and kept for *Distribution* (ROADMAP queue 1).
+Under ``torch.distributed.run`` every process joins the process group
+(``core/dist.py:maybe_init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``device="cpu"``) and the (data, fsdp, tensor) mesh of
+``MeshConfig()`` (every process on ``data``), as ``ldiffusion_tpu/api.py:78-81``
+does; stage 1 trains under FSDP2 over it, stage 2 under DDP, each process on
+its rows of the global batch; rank 0 writes the files:
+
+    python -m torch.distributed.run --nproc_per_node N -m ldiffusion_tpu_torch.ldiffusion ...
+
+``--local_rank`` (or ``LOCAL_RANK``) picks the process's card. The dataset
+transform, the plan and the split are made on rank 0 and shared; the cell
+level trains the same on every process.
 """
 from __future__ import annotations
 
@@ -58,8 +69,20 @@ import numpy as np
 import torch
 from PIL import Image
 
-from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig, SegmentorTrainConfig
-from ldiffusion_tpu_torch.core.device import resolve_device
+from ldiffusion_tpu_torch.core.config import (
+    DiffusionTrainConfig,
+    MeshConfig,
+    SegmentorTrainConfig,
+)
+from ldiffusion_tpu_torch.core.dist import (
+    MeshContext,
+    barrier,
+    finish_distributed,
+    make_mesh,
+    maybe_init_distributed,
+    on_main,
+    process_device,
+)
 from ldiffusion_tpu_torch.data.dataset import (
     SegmentationDataset,
     list_pairs,
@@ -90,17 +113,26 @@ class LDiffusionModel:
     def __init__(self, diffusion_path: str, level: str, local_rank: int = -1,
                  components=None, device=None, work_dir: str = "train_save",
                  diffusion_config: Optional[DiffusionTrainConfig] = None,
-                 segmentor_config: Optional[SegmentorTrainConfig] = None):
-        """``device``: None → the GPU (raises when there is none); pass
-        ``"cpu"`` to run on the CPU. ``components``: an ``SDComponents``
-        bundle, moved to ``device``. ``diffusion_config``: the stage-1
-        hyperparameters (else built from ``train``'s args);
-        ``segmentor_config``: the stage-2 ones (else the defaults with the
-        epochs ``train`` derives)."""
-        del local_rank  # accepted for signature parity
+                 segmentor_config: Optional[SegmentorTrainConfig] = None,
+                 mesh: Optional[MeshContext] = None):
+        """``device``: None → the GPU (raises when there is none;
+        ``cuda:LOCAL_RANK`` under a launcher, else ``cuda:local_rank`` when
+        ``local_rank`` ≥ 0: ``core/dist.py:process_device``); pass ``"cpu"``
+        to run on the CPU. ``mesh``: the
+        processes to train over (else ``make_mesh(MeshConfig())`` after
+        joining the launcher's process group, a single process without one).
+        ``components``: an ``SDComponents`` bundle, moved to ``device``.
+        ``diffusion_config``: the stage-1 hyperparameters (else built from
+        ``train``'s args); ``segmentor_config``: the stage-2 ones (else the
+        defaults with the epochs ``train`` derives)."""
+        dev = process_device(device, local_rank)
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+        maybe_init_distributed(dev)
+        self.mesh = mesh or make_mesh(MeshConfig(), dev)
         self.level = level
         self.diffusion_path = diffusion_path
-        self.device = resolve_device(device)
+        self.device = self.mesh.device
         self.work_dir = work_dir
         self.diffusion_config = diffusion_config
         self.segmentor_config = segmentor_config
@@ -176,10 +208,11 @@ class LDiffusionModel:
         cfg = self.diffusion_config or DiffusionTrainConfig(
             batch_size=args.batch_size, num_inference_steps=args.num_inference_steps,
             num_classes=getattr(args, "num_classes", None))
-        self.trainer = DiffusionWarmupTrainer(comps, cfg, work_dir=self.work_dir)
+        self.trainer = DiffusionWarmupTrainer(comps, cfg, work_dir=self.work_dir, mesh=self.mesh)
         steps = max(1, len(train_ds) // max(1, args.batch_size))
+        rows = self.mesh.row_slice(args.batch_size) if self.mesh.distributed else None
         it = train_ds.iter_batches(args.batch_size, image_size=cfg.latent_size,
-                                   label_size=cfg.latent_size)
+                                   label_size=cfg.latent_size, rows=rows)
         return self.trainer.train(it, steps_per_epoch=steps)
 
     # -- stage 2: tissue -------------------------------------------------
@@ -204,10 +237,11 @@ class LDiffusionModel:
         comps = self._load_components(unet_override_dir=ldiffusion_weight)
         t1 = time.perf_counter()
         print("\033[32m[LDiffusion] Preparing data by L-Diffusion...\033[0m", flush=True)
-        num, ds_path = build_transformed_dataset(
-            train_ds.image_paths, train_ds.label_paths, val_ds.image_paths,
-            val_ds.label_paths, num_classes, self.level, DiffusionTransform(comps),
-            os.path.join(self.work_dir, "seg_raw"), image_size=self.image_size)
+        num, ds_path = on_main(
+            build_transformed_dataset, train_ds.image_paths, train_ds.label_paths,
+            val_ds.image_paths, val_ds.label_paths, num_classes, self.level,
+            DiffusionTransform(comps), os.path.join(self.work_dir, "seg_raw"),
+            image_size=self.image_size)
         t2 = time.perf_counter()
         print("\033[32m[Segmentor] Data preprocessing and plan generation in "
               "progress...\033[0m", flush=True)
@@ -217,7 +251,7 @@ class LDiffusionModel:
             raise ValueError(f"dataset integrity check failed: {problems}")
         plan = plan_experiment(extract_fingerprint(images, labels), num_classes)
         out_dir = os.path.join(self.work_dir, "segmentor", f"Dataset{num:03d}")
-        plan.save(os.path.join(out_dir, "plans.json"))
+        on_main(plan.save, os.path.join(out_dir, "plans.json"))
         pp_all = PreprocessedDataset.build(images, labels, num_classes)
         self.prepare_seconds = {"load_unet_s": t1 - t0, "dataset_build_s": t2 - t1,
                                 "rois": len(train_ds) + len(val_ds),
@@ -236,13 +270,13 @@ class LDiffusionModel:
         from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
 
         plan, out_dir, pp_all = prep["plan"], prep["out_dir"], prep["pp_all"]
-        tr_keys, va_keys = do_split(pp_all.keys(), fold,
-                                    os.path.join(out_dir, "splits_final.json"))
+        tr_keys, va_keys = on_main(do_split, pp_all.keys(), fold,
+                                   os.path.join(out_dir, "splits_final.json"))
         print(f"\033[32m[Segmentor] Training fold {fold} ({len(tr_keys)} train / "
               f"{len(va_keys)} val cases)...\033[0m", flush=True)
         cfg = self.segmentor_config or SegmentorTrainConfig(num_epochs=epochs)
         trainer = SegmentorTrainer(plan, cfg, output_dir=os.path.join(out_dir, f"fold_{fold}"),
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         self.seg_trainer = trainer
         trainer.run_training(pp_all.subset(tr_keys), pp_all.subset(va_keys), num_epochs=epochs)
         val_images, val_labels = load_transformed_dataset(prep["ds_path"], "Ts")
@@ -427,4 +461,7 @@ def main(argv=None, device=None):
         print("\033[35m" + str(vars(args)) + "\033[0m")
     model = LDiffusionModel(args.diffusion_path, level=args.level, local_rank=args.local_rank,
                             device=device)
-    return model.train(args, component=args.component)
+    out = model.train(args, component=args.component)
+    barrier("train_done")  # rank 0's files are written before any process exits
+    finish_distributed()
+    return out

@@ -19,6 +19,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ldiffusion_tpu_torch.core.dist import is_main_process
+
 _FOREIGN = ("jax", "jaxlib", "flax", "optax", "chex", "ldiffusion_tpu")
 _standins: Dict[Tuple[str, str], type] = {}
 
@@ -69,6 +71,8 @@ def load_pytree(path: str) -> Any:
 
 def _to_host(x):
     if isinstance(x, torch.Tensor):
+        if hasattr(x, "full_tensor"):  # a DTensor shard (FSDP2): every rank gathers
+            x = x.full_tensor()
         return x.detach().cpu().numpy()
     if isinstance(x, dict):
         return {k: _to_host(v) for k, v in x.items()}
@@ -79,13 +83,29 @@ def _to_host(x):
 
 def save_pytree(path: str, tree: Any) -> None:
     """Pickle a tree of dicts, lists, numpy arrays and Python scalars (tensors
-    become numpy arrays), as ``ldiffusion_tpu/core/checkpoint.py:32-41``
+    become numpy arrays), as ``ldiffusion_tpu/core/checkpoint.py:19-41``
     writes it: the JAX package's ``load_pytree`` reads it with a plain
-    ``pickle.load``. Written to a temporary file and renamed, so a crash
+    ``pickle.load``. Under a process group every rank calls it: sharded
+    tensors (DTensors) are gathered on every rank (``full_tensor``), then
+    rank 0 alone writes. Written to a temporary file and renamed, so a crash
     leaves no torn checkpoint."""
     host = _to_host(tree)
+    if not is_main_process():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(host, f, protocol=4)
     os.replace(tmp, path)
+
+
+def reshard_like(like: torch.Tensor, value) -> torch.Tensor:
+    """``value`` (a full array read by ``load_pytree``) laid out as ``like``:
+    on its device and dtype, and, for a DTensor, with its mesh and
+    placements (this rank keeps its shard)."""
+    full = torch.as_tensor(value).to(device=like.device, dtype=like.dtype)
+    if hasattr(like, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(full, like.device_mesh, like.placements)
+    return full

@@ -1,7 +1,7 @@
 """Typed configuration (the port's own copy of ``ldiffusion_tpu/core/config.py``):
 the stage-1 and stage-2 trainers' hyperparameters and the top-level
-``LDiffusionConfig`` with its ``MeshConfig`` (the port runs one device until
-distribution is ported, ROADMAP queue 1, *Distribution*)."""
+``LDiffusionConfig`` with its ``MeshConfig``, the (data, fsdp, tensor)
+layout ``core/dist.py:make_mesh`` lays over the processes."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,7 +1,8 @@
 """Logging (counterpart of ``CSVLogger``, ``TextLogger``, ``EpochLogger``,
 ``dump_debug_json`` and ``profiler_trace`` in ``ldiffusion_tpu/core/logging.py``).
-The port runs in one process, so every call writes; the JAX package's rank-0
-checks wait for distribution (ROADMAP queue 1, *Distribution*)."""
+Under a process group (``core/dist.py``) files, CSV logs and printed lines
+come from rank 0 only, as in the JAX package (``is_main_process``); in one
+process every call writes."""
 from __future__ import annotations
 
 import contextlib
@@ -11,30 +12,36 @@ import os
 import time
 from typing import Dict, List, Optional
 
+from ldiffusion_tpu_torch.core.dist import is_main_process, process_count  # noqa: F401
+
 
 class CSVLogger:
     """epoch,loss CSV identical in shape to the reference's contrast_loss.csv."""
 
     def __init__(self, path: str, header=("epoch", "loss")):
         self.path = path
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        with open(path, "w", newline="") as f:
-            csv.writer(f).writerow(list(header))
+        if is_main_process():
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "w", newline="") as f:
+                csv.writer(f).writerow(list(header))
 
     def append(self, *row):
-        with open(self.path, "a", newline="") as f:
-            csv.writer(f).writerow(list(row))
+        if is_main_process():
+            with open(self.path, "a", newline="") as f:
+                csv.writer(f).writerow(list(row))
 
 
 class TextLogger:
-    """Timestamped text log file + stdout."""
+    """Timestamped text log file + stdout (rank 0 only)."""
 
     def __init__(self, path: Optional[str] = None):
         self.path = path
-        if path:
+        if path and is_main_process():
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def __call__(self, *msg, also_print: bool = True):
+        if not is_main_process():
+            return
         line = " ".join(str(m) for m in msg)
         if also_print:
             print(line, flush=True)
@@ -117,14 +124,16 @@ def dump_debug_json(path: str, extra: Optional[dict] = None):
         "cuda_version": torch.version.cuda,
         "cuda_available": cuda,
         "device_count": torch.cuda.device_count() if cuda else 0,
+        "process_count": process_count(),
         "devices": [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
         if cuda else [],
     }
     if extra:
         info.update(extra)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as f:
-        json.dump(info, f, indent=2, default=str)
+    if is_main_process():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(info, f, indent=2, default=str)
 
 
 @contextlib.contextmanager

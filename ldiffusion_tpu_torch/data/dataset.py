@@ -1,5 +1,8 @@
 """Dataset loading, splitting and batched iteration (counterpart of
-``ldiffusion_tpu/data/dataset.py``): PIL + numpy on the host, one process."""
+``ldiffusion_tpu/data/dataset.py``): PIL + numpy on the host. Under a
+process group every process iterates the same global batches (the same
+seed) and loads its own rows of the images (``iter_batches(rows=...)``, the
+``local_batch_slice`` the JAX package leaves to the caller)."""
 from __future__ import annotations
 
 import os
@@ -77,10 +80,13 @@ class SegmentationDataset:
 
     def iter_batches(self, batch_size: int, image_size: Optional[int] = None,
                      label_size: Optional[int] = None, shuffle: bool = True,
-                     seed: int = 0, drop_last: bool = True,
-                     loop: bool = True) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+                     seed: int = 0, drop_last: bool = True, loop: bool = True,
+                     rows: Optional[slice] = None) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """(images (B, s, s, 3) float32, labels (B, ls, ls) int32) batches,
-        reshuffled every pass; endless unless ``loop`` is False."""
+        reshuffled every pass; endless unless ``loop`` is False. ``rows``:
+        this process's rows of each batch, the only images it loads; the
+        labels stay whole (the stage-1 contrastive draws read every image's
+        labels, so they do not depend on the number of processes)."""
         rng = np.random.default_rng(seed)
         n = len(self)
         while True:
@@ -90,7 +96,11 @@ class SegmentationDataset:
                 idx = order[start:start + batch_size]
                 if len(idx) == 0 or (drop_last and len(idx) < batch_size):
                     continue
-                ims, labs = zip(*(self.get(i, image_size, label_size) for i in idx))
+                s = image_size or self.image_size
+                ls = label_size or s
+                ims = [load_image(self.image_paths[i], (s, s))
+                       for i in (idx if rows is None else idx[rows])]
+                labs = [load_label(self.label_paths[i], self.level, (ls, ls)) for i in idx]
                 yield np.stack(ims), np.stack(labs).astype(np.int32)
             if not loop:
                 return

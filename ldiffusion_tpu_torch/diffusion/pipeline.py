@@ -41,7 +41,7 @@ from ldiffusion_tpu_torch.models.convert import (
     unet_from_flax,
     vae_from_flax,
 )
-from ldiffusion_tpu_torch.models.layers import init_random_
+from ldiffusion_tpu_torch.models.layers import cast_keeping_int8_weights, init_random_
 from ldiffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from ldiffusion_tpu_torch.models.unet import UNet2DCondition, UNet2DConditionConfig
 from ldiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -168,7 +168,8 @@ class SDComponents:
         with torch.device("meta"):
             unet = UNet2DCondition(cfg)
         unet.to_empty(device=self.device).load_state_dict(unet_sd)
-        self.unet = unet.to(dtype=dtype, memory_format=torch.channels_last).eval()
+        self.unet = cast_keeping_int8_weights(unet, dtype=dtype,
+                                              memory_format=torch.channels_last).eval()
         self.unet_config = cfg
         if proj_sd is not None:
             self.proj.load_state_dict(proj_sd)
@@ -189,11 +190,13 @@ class SDComponents:
         return comps.to(dtype=dtype)
 
     def to(self, device=None, dtype=None) -> "SDComponents":
-        """Move every module (in place); returns self."""
-        for m in (self.unet, self.vae, self.text, self.proj):
-            m.to(device=device, dtype=dtype)
+        """Move every module (in place); returns self. A cast down from f32
+        keeps the int8 codes of the f32 weights (``cast_keeping_int8_weights``)."""
         for m in (self.unet, self.vae):
-            m.to(memory_format=torch.channels_last)
+            cast_keeping_int8_weights(m, device=device, dtype=dtype,
+                                      memory_format=torch.channels_last)
+        for m in (self.text, self.proj):
+            m.to(device=device, dtype=dtype)
         return self
 
     @property

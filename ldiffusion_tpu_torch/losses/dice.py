@@ -14,6 +14,15 @@ Layout: logits (B, C, *spatial), channels first; targets (B, *spatial) int,
 or (B, R, *spatial) region maps for the sigmoid family; ``loss_mask``
 (B, *spatial), 0 on ignored pixels. Computed in float32 whatever the
 logits' dtype.
+
+``group`` (the counterpart of the JAX ``axis_name``): with batch Dice, tp,
+fp and fn are summed over the group's ranks before the Dice, as JAX's
+``psum`` and the reference's ``AllGatherGrad`` (``dice.py:107-110``) do,
+through ``core.dist.all_reduce_sum``, whose backward sums the gradient over
+the ranks. Every rank then holds the global batch Dice and a W-fold share
+of its gradient; DDP's mean over W ranks makes that the global gradient.
+The cross-entropy terms stay each rank's own mean (nnU-Net's DDP), which
+equals the global mean when the ranks hold as many unmasked pixels.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ldiffusion_tpu_torch.core.dist import all_reduce_sum
 
 
 def _one_hot(targets, num_classes: int):
@@ -36,12 +47,15 @@ def _one_hot(targets, num_classes: int):
 SMOOTH = 1e-5
 
 
-def _dice_from(probs, onehot, batch_dice: bool, smooth: float, include_background: bool):
+def _dice_from(probs, onehot, batch_dice: bool, smooth: float, include_background: bool,
+               group=None):
     spatial = tuple(range(2, probs.dim()))
     axes = (0,) + spatial if batch_dice else spatial
     tp = (probs * onehot).sum(dim=axes)
     fp = (probs * (1.0 - onehot)).sum(dim=axes)
     fn = ((1.0 - probs) * onehot).sum(dim=axes)
+    if batch_dice and group is not None:
+        tp, fp, fn = all_reduce_sum(torch.stack([tp, fp, fn]), group).unbind(0)
     if not include_background:
         tp, fp, fn = tp[..., 1:], fp[..., 1:], fn[..., 1:]
     dc = (2 * tp + smooth) / torch.clamp(2 * tp + fp + fn + smooth, min=1e-8)
@@ -49,7 +63,7 @@ def _dice_from(probs, onehot, batch_dice: bool, smooth: float, include_backgroun
 
 
 def soft_dice_loss(logits, targets, loss_mask=None, batch_dice: bool = True,
-                   smooth: float = SMOOTH):
+                   smooth: float = SMOOTH, group=None):
     """1 − mean soft Dice over the foreground classes (reference
     ``dice.py:58-119``); ``smooth`` 0 is the noSmooth variant."""
     probs = torch.softmax(logits.float(), dim=1)
@@ -57,7 +71,7 @@ def soft_dice_loss(logits, targets, loss_mask=None, batch_dice: bool = True,
     if loss_mask is not None:
         m = loss_mask.float().unsqueeze(1)
         probs, onehot = probs * m, onehot * m
-    return _dice_from(probs, onehot, batch_dice, smooth, include_background=False)
+    return _dice_from(probs, onehot, batch_dice, smooth, include_background=False, group=group)
 
 
 def _nll(logits, targets):
@@ -107,17 +121,25 @@ def focal_loss(logits, targets, alpha: float = 1.0, gamma: float = 2.0, loss_mas
 
 
 def dc_and_ce_loss(logits, targets, loss_mask=None, batch_dice: bool = True,
-                   smooth: float = SMOOTH):
+                   smooth: float = SMOOTH, group=None):
     """nnU-Net's default compound, Dice + CE (reference
     ``compound_losses.py:8-57``)."""
-    return soft_dice_loss(logits, targets, loss_mask, batch_dice, smooth) + \
+    return soft_dice_loss(logits, targets, loss_mask, batch_dice, smooth, group) + \
         robust_cross_entropy(logits, targets, loss_mask)
 
 
-def dc_and_focal_loss(logits, targets, loss_mask=None, batch_dice: bool = True):
+def dc_and_focal_loss(logits, targets, loss_mask=None, batch_dice: bool = True, group=None):
     """Dice + focal (reference ``compound_losses.py:183-207``). As in the JAX
     package, the mask reaches the Dice term only."""
-    return soft_dice_loss(logits, targets, loss_mask, batch_dice) + focal_loss(logits, targets)
+    return soft_dice_loss(logits, targets, loss_mask, batch_dice, group=group) + \
+        focal_loss(logits, targets)
+
+
+def dc_and_topk10_loss(logits, targets, loss_mask=None, batch_dice: bool = True,
+                       smooth: float = SMOOTH, group=None):
+    """Dice + TopK10 (reference ``compound_losses.py:103-149``)."""
+    return soft_dice_loss(logits, targets, loss_mask, batch_dice, smooth, group) + \
+        topk_cross_entropy(logits, targets, loss_mask=loss_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -140,19 +162,21 @@ def binary_cross_entropy_with_logits(logits, targets, loss_mask=None):
 
 
 def soft_dice_loss_sigmoid(logits, region_targets, loss_mask=None, batch_dice: bool = True,
-                           smooth: float = SMOOTH):
+                           smooth: float = SMOOTH, group=None):
     """1 − mean soft Dice of sigmoid probabilities over every region."""
     probs = torch.sigmoid(logits.float())
     tgt = region_targets.float()
     if loss_mask is not None:
         m = loss_mask.float().unsqueeze(1)
         probs, tgt = probs * m, tgt * m
-    return _dice_from(probs, tgt, batch_dice, smooth, include_background=True)
+    return _dice_from(probs, tgt, batch_dice, smooth, include_background=True, group=group)
 
 
-def dc_and_bce_loss(logits, region_targets, loss_mask=None, batch_dice: bool = True):
+def dc_and_bce_loss(logits, region_targets, loss_mask=None, batch_dice: bool = True,
+                    group=None):
     """The reference's region compound (``compound_losses.py:59-100``)."""
-    return soft_dice_loss_sigmoid(logits, region_targets, loss_mask, batch_dice) + \
+    return soft_dice_loss_sigmoid(logits, region_targets, loss_mask, batch_dice,
+                                  group=group) + \
         binary_cross_entropy_with_logits(logits, region_targets, loss_mask)
 
 
@@ -172,10 +196,11 @@ def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0,
 
 
 def dc_and_focal_sigmoid_loss(logits, region_targets, loss_mask=None,
-                              batch_dice: bool = True):
+                              batch_dice: bool = True, group=None):
     """The regions regime's training loss (reference
     ``nnUNetTrainer.py:350-355``, ``compound_losses.py:173-207``)."""
-    return soft_dice_loss_sigmoid(logits, region_targets, loss_mask, batch_dice) + \
+    return soft_dice_loss_sigmoid(logits, region_targets, loss_mask, batch_dice,
+                                  group=group) + \
         sigmoid_focal_loss(logits, region_targets, loss_mask=loss_mask)
 
 

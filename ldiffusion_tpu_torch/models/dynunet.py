@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ldiffusion_tpu_torch.core.dist import all_reduce_sum
+
 
 @dataclasses.dataclass(frozen=True)
 class DynUNetConfig:
@@ -73,12 +75,23 @@ class BatchNorm(nn.Module):
     the batch's statistics normalise and are folded into the running ones,
     with the biased variance, as flax does (``nn.BatchNorm2d`` folds in the
     unbiased one); in evaluation the running statistics normalise. Statistics
-    and the normalisation in float32, the output in x's dtype."""
+    and the normalisation in float32, the output in x's dtype.
+
+    ``group`` (``set_norm_group``): the training statistics are the global
+    batch's over the group's ranks, as the JAX trainer's pjit gives them
+    (the reference's SyncBatchNorm). Each rank's ``var_mean`` is merged by
+    Chan's rule, all-reduced with autograd (``core.dist.all_reduce_sum``):
+    the global mean Σ n·mean / N, then the variance Σ n·(var + (mean −
+    global mean)²) / N. So the running statistics stay equal on every rank,
+    and a group of one rank gives ``var_mean``'s numbers (exactly when the
+    count is a power of two). Not ``nn.SyncBatchNorm``: it folds in the
+    unbiased variance."""
 
     momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
+        self.group = None
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -89,6 +102,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            if self.group is not None:  # Chan's merge of the ranks' (n, mean, var)
+                n = torch.full((1,), xf.numel() / xf.shape[1], device=xf.device)
+                sums = all_reduce_sum(torch.cat([mean * n, n]), self.group)
+                mean_g = sums[:-1] / sums[-1]
+                var = all_reduce_sum(n * (var + (mean - mean_g) ** 2), self.group) / sums[-1]
+                mean = mean_g
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
@@ -98,6 +117,15 @@ class BatchNorm(nn.Module):
         scale = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)
+
+
+def set_norm_group(net: nn.Module, group) -> nn.Module:
+    """Give every ``BatchNorm`` of ``net`` the process group its training
+    statistics are reduced over (None: this process's batch)."""
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return net
 
 
 def _norm(cfg: "DynUNetConfig", channels: int) -> nn.Module:

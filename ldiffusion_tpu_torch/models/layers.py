@@ -31,6 +31,7 @@ from ldiffusion_tpu_torch.ops.attention import dot_product_attention
 from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_trainable
 from ldiffusion_tpu_torch.ops.quant import (
     GATED_MODES,
+    _sym_quant,
     conv_shape_gate,
     int8_conv,
     int8_matmul,
@@ -55,17 +56,78 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-class QConv(nn.Conv2d):
+def _weight_stamp(w) -> tuple:
+    """What changes when a weight does: its storage (a cast, a move or a new
+    ``.data`` makes another), its in-place version counter (an optimizer
+    step, ``copy_``, ``load_state_dict``), its dtype and device."""
+    return (w.untyped_storage()._cdata, w.storage_offset(), w._version, w.dtype, w.device)
+
+
+class Int8Weight:
+    """The int8 codes and f32 scales of a ``QConv`` / ``QDense`` weight,
+    quantized from the f32 weight, and the f32 bias: the JAX QConv / QDense
+    keep f32 params, quantize the kernel and add the bias in f32
+    (``ldiffusion_tpu/ops/quant.py:int8_conv``), whatever dtype they compute
+    in. ``quantize_weight`` takes them while the weight is f32
+    (``cast_keeping_int8_weights`` calls it before a cast down, and keeps
+    them in host memory, so a model that never runs an int8 mode holds no
+    codes on the card); ``int8_weight`` hands them to the int8 forward, on
+    the weight's device from its first call on. A weight that changed
+    since it was quantized is quantized again when it is f32; when it is not,
+    the int8 forward raises: it never quantizes a bf16 copy in place of the
+    f32 weight. They are plain attributes, outside ``state_dict``."""
+
+    _quant_dims: tuple = ()
+    _wq = None      # ((int8 codes, f32 scales), f32 bias or None), from the f32 params
+    _wstamp = None  # _weight_stamp of the weight the codes stand for
+
+    def quantize_weight(self) -> None:
+        w = self.weight
+        if w.dtype != torch.float32:
+            raise RuntimeError(f"{type(self).__name__}: the weight is {w.dtype}; the int8 codes "
+                               "are taken from the f32 weight, as the JAX package does")
+        with torch.no_grad():
+            bias = None if self.bias is None else self.bias.detach().float().clone()
+            self._wq = (_sym_quant(w.detach(), dims=self._quant_dims), bias)
+        self._wstamp = _weight_stamp(w)
+
+    def _move_int8_weight(self, dev) -> None:
+        (codes, scales), bias = self._wq
+        self._wq = ((codes.to(dev), scales.to(dev)), None if bias is None else bias.to(dev))
+
+    def restamp_int8_weight(self) -> None:
+        """After a cast or a move of a quantized weight: the codes stand for
+        the new tensor, and wait in host memory for the first int8 forward."""
+        if self._wq is not None:
+            self._move_int8_weight("cpu")
+            self._wstamp = _weight_stamp(self.weight)
+
+    def int8_weight(self):
+        """((codes, scales), f32 bias or None) of the f32 weight, on the
+        weight's device."""
+        if self._wq is None or self._wstamp != _weight_stamp(self.weight):
+            if self.weight.dtype != torch.float32:
+                raise RuntimeError(
+                    f"{type(self).__name__}: its {self.weight.dtype} weight was not quantized "
+                    "from f32 weights, or changed since: quantize the module from its f32 "
+                    "weights (models.layers.cast_keeping_int8_weights) before casting it down")
+            self.quantize_weight()
+        if self._wq[0][0].device != self.weight.device:
+            self._move_int8_weight(self.weight.device)
+        return self._wq
+
+
+class QConv(Int8Weight, nn.Conv2d):
     """``nn.Conv2d`` with the int8 forward of ``ops/quant.py``: under
     ``"int8"``, ``"int8_record"`` and ``"int8_static"`` when (Cin, Cout)
     passes ``conv_shape_gate``, under ``"int8_all"`` always; otherwise
     ``nn.Conv2d``'s forward. ``site``: the call site's key for static
     calibration, the JAX module's flax path (``name_quant_sites``). The
-    weight quantizes as the module holds it: the JAX package quantizes its
-    f32 master weight, so a module held in bf16 gets other codes and scales
-    (ROADMAP queue 3; ``tests/test_torch_port_quant.py`` measures how many)."""
+    weight's codes and scales are the f32 weight's (``Int8Weight``), also
+    when the module computes in bf16, so they equal the JAX QConv's."""
 
     site: Optional[str] = None
+    _quant_dims = (1, 2, 3)
 
     def forward(self, x):
         mode = quant_mode()
@@ -78,20 +140,45 @@ class QConv(nn.Conv2d):
                                        "model through a class that names its sites")
                 site = self.site
             ph, pw = self.padding
-            return int8_conv(x, self.weight, self.stride, ((ph, ph), (pw, pw)), self.bias,
-                             out_dtype=self.weight.dtype, site=site)
+            wq, bias = self.int8_weight()
+            return int8_conv(x, self.weight, self.stride, ((ph, ph), (pw, pw)), bias,
+                             out_dtype=self.weight.dtype, site=site, weight_q=wq)
         return super().forward(x)
 
 
-class QDense(nn.Linear):
+class QDense(Int8Weight, nn.Linear):
     """``nn.Linear`` with the int8 forward of ``ops/quant.py`` under
     ``"int8_all"`` only (the JAX package measured its matmuls at ~1.0× under
-    int8 and quantizes them only in that ablation mode)."""
+    int8 and quantizes them only in that ablation mode); the weight's codes
+    are the f32 weight's, as ``QConv``'s."""
+
+    _quant_dims = (1,)
 
     def forward(self, x):
         if quant_mode() == "int8_all":
-            return int8_matmul(x, self.weight, self.bias, out_dtype=self.weight.dtype)
+            wq, bias = self.int8_weight()
+            return int8_matmul(x, self.weight, bias, out_dtype=self.weight.dtype, weight_q=wq)
         return super().forward(x)
+
+
+def cast_keeping_int8_weights(module: nn.Module, device=None, dtype=None,
+                              memory_format=None) -> nn.Module:
+    """``module.to(device, dtype, memory_format)`` that first quantizes every
+    f32 ``QConv`` / ``QDense`` weight it casts to another dtype, so an int8
+    forward after the cast uses the f32 weight's codes and scales (what the
+    JAX package's f32 params give); returns the module."""
+    qs = [m for m in module.modules() if isinstance(m, Int8Weight)]
+    if dtype is not None and dtype != torch.float32:
+        for m in qs:
+            if m.weight.dtype == torch.float32:
+                m.quantize_weight()
+    if memory_format is None:
+        module.to(device=device, dtype=dtype)
+    else:
+        module.to(device=device, dtype=dtype, memory_format=memory_format)
+    for m in qs:
+        m.restamp_int8_weight()
+    return module
 
 
 def name_quant_sites(model: nn.Module, rows) -> nn.Module:

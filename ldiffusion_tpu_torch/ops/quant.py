@@ -228,17 +228,19 @@ def _padding_pairs(padding):
 
 
 def int8_conv(x, weight, stride=(1, 1), padding=0, bias=None, out_dtype=torch.bfloat16,
-              site=None):
+              site=None, weight_q=None):
     """NCHW × OIHW int8 convolution with the f32 rescale.
 
     x: (B, Cin, H, W) float; weight: (Cout, Cin, kh, kw) float; padding: an
     int or ((lo, hi), (lo, hi)) for H and W. Activations per tensor (see
     ``_act_quant``; ``site`` names the calibrated call site), weights per
-    output channel. Returns (B, Cout, Ho, Wo) in ``out_dtype``."""
+    output channel: ``weight_q`` (codes, scales) when the caller quantized
+    the weight already (``QConv``: once, from its f32 weight), else
+    ``weight`` is quantized here. Returns (B, Cout, Ho, Wo) in ``out_dtype``."""
     refuse_grad("int8_conv", weight, *(() if bias is None else (bias,)))
     int8_conv.launches += 1
     xq, sx = _act_quant(x, site)
-    wq, sw = _sym_quant(weight, dims=(1, 2, 3))
+    wq, sw = weight_q if weight_q is not None else _sym_quant(weight, dims=(1, 2, 3))
     acc = int8_conv_acc(xq, wq, tuple(stride), _padding_pairs(padding))
     return dequantize(acc, sx, sw.reshape(1, -1, 1, 1),
                       None if bias is None else bias.reshape(1, -1, 1, 1), out_dtype)
@@ -247,13 +249,14 @@ def int8_conv(x, weight, stride=(1, 1), padding=0, bias=None, out_dtype=torch.bf
 int8_conv.launches = 0
 
 
-def int8_matmul(x, weight, bias=None, out_dtype=torch.bfloat16):
+def int8_matmul(x, weight, bias=None, out_dtype=torch.bfloat16, weight_q=None):
     """(..., K) × ``nn.Linear`` weight (N, K) int8 matmul with the f32
-    rescale: x per tensor (exact amax), the weight per output row."""
+    rescale: x per tensor (exact amax), the weight per output row
+    (``weight_q``, (codes, scales), when quantized already)."""
     refuse_grad("int8_matmul", weight, *(() if bias is None else (bias,)))
     int8_matmul.launches += 1
     xq, sx = _sym_quant(x, dims=tuple(range(x.dim())))
-    wq, sw = _sym_quant(weight, dims=(1,))
+    wq, sw = weight_q if weight_q is not None else _sym_quant(weight, dims=(1,))
     acc = int_mm(xq.reshape(-1, x.shape[-1]), wq.t())
     out = dequantize(acc, sx, sw.reshape(1, -1), bias, out_dtype)
     return out.reshape(*x.shape[:-1], weight.shape[0])

@@ -45,6 +45,7 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import math
 import os
 import time
 from typing import Optional
@@ -462,12 +463,27 @@ def _load_preprocessed(args):
 def cmd_train(args) -> str:
     """One fold (reference ``run_training.py:212-271``): the variant's recipe,
     ``--c`` resume, ``-pretrained_weights`` (ignored under ``--c``), ``--val``
-    (``--val_best``), then the final validation (``--npz``)."""
-    from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
+    (``--val_best``), then the final validation (``--npz``).
+
+    Under ``torch.distributed.run`` the fold trains over the largest number
+    of processes that divides the planned batch and the world, ``k = gcd``
+    (``ldiffusion_tpu/segmentor/cli.py:589-598``): the first ``k`` ranks
+    train under DDP in a subgroup; the others write nothing and return once
+    the subgroup is made, so that none of them waits in a collective for the
+    length of a fold. The split, the configuration folder and the cascade's
+    lowres predictions are made on rank 0."""
+    from ldiffusion_tpu_torch.core.config import MeshConfig, SegmentorTrainConfig
+    from ldiffusion_tpu_torch.core.dist import (
+        make_mesh,
+        maybe_init_distributed,
+        on_main,
+        process_count,
+    )
     from ldiffusion_tpu_torch.segmentor.splits import do_split
     from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
     from ldiffusion_tpu_torch.segmentor.variants import get_variant
 
+    maybe_init_distributed(args.device)
     if args.c in VOLUMETRIC_CONFIGS:
         ds_dir, pp_dir, plan, lm, ds = _load_preprocessed_3d(args)
     elif args.c == "2d":
@@ -484,15 +500,20 @@ def cmd_train(args) -> str:
         overrides["val_iters_per_epoch"] = max(1, args.iters // 5)
     variant = get_variant(args.tr, base=SegmentorTrainConfig(**overrides))
     fold = args.f if args.f == "all" else int(args.f)
-    tr_keys, va_keys = do_split(ds.keys(), fold, os.path.join(pp_dir, "splits_final.json"))
+    tr_keys, va_keys = on_main(do_split, ds.keys(), fold,
+                               os.path.join(pp_dir, "splits_final.json"))
     cfg_dir = _results_config_dir(results_root, os.path.basename(ds_dir), args.tr, args.c,
                                   plans_name=args.p or "ldPlans")
-    os.makedirs(cfg_dir, exist_ok=True)
-    plan.save(os.path.join(cfg_dir, "plans.json"))
-    with open(os.path.join(pp_dir, "dataset.json")) as f:
-        dj = f.read()
-    with open(os.path.join(cfg_dir, "dataset.json"), "w") as f:
-        f.write(dj)
+
+    def write_config_dir():
+        os.makedirs(cfg_dir, exist_ok=True)
+        plan.save(os.path.join(cfg_dir, "plans.json"))
+        with open(os.path.join(pp_dir, "dataset.json")) as f:
+            dj = f.read()
+        with open(os.path.join(cfg_dir, "dataset.json"), "w") as f:
+            f.write(dj)
+
+    on_main(write_config_dir)
     if args.c == "3d_cascade_fullres":  # the fullres store + the lowres stage's one-hot
         from ldiffusion_tpu_torch.segmentor.plans_file import PlansFile
         from ldiffusion_tpu_torch.segmentor.preprocess import (
@@ -502,15 +523,20 @@ def cmd_train(args) -> str:
 
         lowres_plan = PlansFile(os.path.join(pp_dir, "plans_3d.json")) \
             .get_configuration("3d_lowres")
-        prev_dir = _ensure_prev_stage_predictions(pp_dir, results_root, os.path.basename(ds_dir),
-                                                  args.tr, lowres_plan, ds, device=args.device)
+        prev_dir = on_main(_ensure_prev_stage_predictions, pp_dir, results_root,
+                           os.path.basename(ds_dir), args.tr, lowres_plan, ds,
+                           device=args.device)
         ds = PreprocessedDataset(cases={
             cid: append_prev_stage_channels(ds[cid], np.load(os.path.join(prev_dir, f"{cid}.npy")),
                                             plan.num_classes)
             for cid in ds.keys()})
     fold_dir = os.path.join(cfg_dir, f"fold_{fold}")
+    k = math.gcd(plan.batch_size, process_count())  # the batch splits over k ranks
+    mesh = make_mesh(MeshConfig(data=k, fsdp=1, tensor=1), args.device, ranks=range(k))
+    if not mesh.member:
+        return fold_dir
     trainer = SegmentorTrainer(plan, variant.config, output_dir=fold_dir, variant=variant,
-                               label_manager=lm, device=args.device)
+                               label_manager=lm, device=args.device, mesh=mesh)
     trainer.disable_checkpointing = args.disable_checkpointing
     if args.val:
         names = ("checkpoint_best.pkl",) if args.val_best else \

@@ -57,7 +57,20 @@ the same buffer), ``ScaleByAdamState`` (count, mu, nu) → Adam's ``step``,
 prev_grad) → the port's Adan buffers, ``hyperparams["learning_rate"]`` →
 each group's ``lr``. A checkpoint of another optimizer family than the
 recipe's raises ``NotImplementedError``, as it cannot be resumed in JAX
-either. Multi-process validation waits for *Distribution*.
+either.
+
+Over a mesh (``mesh=``, ``core/dist.py``; the JAX trainer's data-parallel
+pjit, the reference's DDP): the net is wrapped in DDP over the batch group,
+its parameters and the optimizer state replicated; the batch-Dice group goes
+to the loss and the BatchNorm group to a ``BN`` net (``set_norm_group``), so
+both see the global batch. Every process samples the global batch (the same
+seeds), draws the device augmentation for all of it from the same
+generator, and keeps its rows (``MeshContext.local_rows``); the loss and the
+validation counts are reduced over the processes. ``checkpoint_*.pkl``,
+``progress.png``, the logs and ``benchmark_result.json`` are written by rank
+0. The final validation predicts the cases ``i % world == rank``, waits for
+every rank (``barrier``) and scores them all on rank 0
+(``trainer.py:567-703``).
 """
 from __future__ import annotations
 
@@ -72,17 +85,22 @@ import torch
 import torch.nn.functional as F
 
 from ldiffusion_tpu_torch.core.checkpoint import Inert, load_pytree, save_pytree
+import torch.distributed as dist
+
 from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
 from ldiffusion_tpu_torch.core.device import resolve_device
+from ldiffusion_tpu_torch.core.dist import MeshContext, is_main_process
 from ldiffusion_tpu_torch.core.logging import EpochLogger, TextLogger, dump_debug_json
 from ldiffusion_tpu_torch.core.optim import Adan
 from ldiffusion_tpu_torch.data.augment import (
     AugmentConfig,
     HostSpatialAugmenter,
     HostSpatialAugmenter3D,
-    augment_batch,
-    augment_batch_3d,
+    apply_augment,
+    apply_augment_3d,
     configure_spatial_da,
+    draw_augment_params,
+    draw_augment_params_3d,
 )
 from ldiffusion_tpu_torch.data.patches import PatchSampler
 from ldiffusion_tpu_torch.data.prefetch import Prefetcher
@@ -92,7 +110,7 @@ from ldiffusion_tpu_torch.models.convert import (
     dynunet_from_flax,
     dynunet_to_flax,
 )
-from ldiffusion_tpu_torch.models.dynunet import DynUNet
+from ldiffusion_tpu_torch.models.dynunet import DynUNet, set_norm_group
 from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3D
 from ldiffusion_tpu_torch.models.layers import init_random_
 from ldiffusion_tpu_torch.segmentor.planner import SegPlan
@@ -182,10 +200,18 @@ class SegmentorTrainer:
     def __init__(self, plan: SegPlan, config: SegmentorTrainConfig,
                  output_dir: str = "train_save/segmentor",
                  augment: Optional[AugmentConfig] = None, variant=None, label_manager=None,
-                 device=None):
+                 device=None, mesh: Optional[MeshContext] = None):
         """``variant``: a ``TrainerVariant`` (its config and augmentation
         replace ``config`` and a missing ``augment``); ``label_manager``: the
-        dataset's ``LabelManager`` (regions, ignore label)."""
+        dataset's ``LabelManager`` (regions, ignore label); ``mesh``: the
+        processes to train over (None, or a mesh without a process group:
+        this process alone, on ``device``)."""
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        if self.mesh is not None:
+            if plan.batch_size % self.mesh.batch_shards:
+                raise ValueError(f"batch {plan.batch_size} does not split over "
+                                 f"{self.mesh.batch_shards} processes")
+            device = self.mesh.device
         self.is_3d = len(plan.patch_size) == 3
         if label_manager is not None and label_manager.has_regions and \
                 plan.num_classes != label_manager.num_segmentation_heads:
@@ -244,6 +270,12 @@ class SegmentorTrainer:
         self.net = net.to(self.device, memory_format=torch.channels_last_3d if self.is_3d
                           else torch.channels_last)
         self.net.compute_dtype = self.compute_dtype
+        self.model = self.net  # what the train step calls: DDP's wrapper over a mesh
+        self.group = None  # the batch-Dice and BatchNorm group
+        if self.mesh is not None:
+            self.group = self.mesh.batch_group
+            set_norm_group(self.net, self.group)
+            self.model = self.mesh.replicate_module(self.net)
         self.opt_name = getattr(variant, "optimizer", "sgd")
         params = self.net.parameters()
         if self.opt_name == "adan":  # decoupled decay inside the step
@@ -322,26 +354,26 @@ class SegmentorTrainer:
 
     def _one_loss(self, logits, seg):
         """The variant's loss of one head (``trainer.py:265-317``)."""
-        bd = self.plan.batch_dice
+        bd, g = self.plan.batch_dice, self.group
         tgt, mask = self._regime(seg)
         if self.region_lut is not None:
-            return losses.dc_and_focal_sigmoid_loss(logits, tgt, loss_mask=mask, batch_dice=bd)
+            return losses.dc_and_focal_sigmoid_loss(logits, tgt, loss_mask=mask, batch_dice=bd,
+                                                    group=g)
         v = self.variant
         name = getattr(v, "loss", "dc_and_ce")
         smooth = getattr(v, "dice_smooth", losses.SMOOTH)
         if name == "dice":
-            return losses.soft_dice_loss(logits, tgt, mask, bd, smooth)
+            return losses.soft_dice_loss(logits, tgt, mask, bd, smooth, group=g)
         if name == "ce":
             return losses.robust_cross_entropy(logits, tgt, mask)
         if name == "topk10":
             return losses.topk_cross_entropy(logits, tgt, label_smoothing=v.label_smoothing,
                                              loss_mask=mask)
         if name == "dc_and_topk10":
-            return losses.soft_dice_loss(logits, tgt, mask, bd, smooth) + \
-                losses.topk_cross_entropy(logits, tgt, loss_mask=mask)
+            return losses.dc_and_topk10_loss(logits, tgt, mask, bd, smooth, group=g)
         if name == "dc_and_focal":
-            return losses.dc_and_focal_loss(logits, tgt, mask, bd)
-        return losses.dc_and_ce_loss(logits, tgt, mask, bd, smooth)
+            return losses.dc_and_focal_loss(logits, tgt, mask, bd, group=g)
+        return losses.dc_and_ce_loss(logits, tgt, mask, bd, smooth, group=g)
 
     def loss_and_grads(self, data, seg):
         """Forward + backward on an augmented (B, C, *spatial) batch and its
@@ -350,7 +382,7 @@ class SegmentorTrainer:
         detached."""
         self.opt.zero_grad(set_to_none=True)
         seg = seg.clamp_min(0)  # RemoveLabelTransform(-1, 0)
-        outputs = self.net(data, train=True)
+        outputs = self.model(data, train=True)
         if not isinstance(outputs, list):
             outputs = [outputs]
         loss = losses.deep_supervision_loss(outputs, self.ds_targets(seg, len(outputs)),
@@ -368,27 +400,72 @@ class SegmentorTrainer:
         self.step += 1
         return norm
 
+    def local_rows(self, x):
+        """This process's rows of a global batch (all of it in one process)."""
+        return x if self.mesh is None else self.mesh.local_rows(x)
+
+    def global_sum(self, *values):
+        """Each tensor summed over the batch group (itself in one process)."""
+        if self.mesh is None:
+            return values
+        flat = torch.cat([torch.as_tensor(v, dtype=torch.float64, device=self.device).reshape(-1)
+                          for v in values])
+        dist.all_reduce(flat, group=self.group)
+        out, i = [], 0
+        for v in values:
+            n = torch.as_tensor(v).numel()
+            out.append(flat[i:i + n].reshape(torch.as_tensor(v).shape))
+            i += n
+        return out
+
+    def augment(self, data, seg):
+        """The device DA, drawn for the global batch (``data`` holds all of
+        it) and applied to this process's rows: the draws are the same
+        whatever the number of processes."""
+        cfg = self.augment_cfg
+        draw = draw_augment_params_3d if self.is_3d else draw_augment_params
+        params = draw(data.shape, cfg, self.generator, data.device)
+        b = data.shape[0]
+        params = {k: self.local_rows(v) if v.dim() and v.shape[0] == b else v
+                  for k, v in params.items()}
+        data, seg = self.local_rows(data), self.local_rows(seg)
+        if self.is_3d:
+            return apply_augment_3d(data, seg, params)
+        return apply_augment(data, seg, params, cfg)
+
     def train_step(self, data, seg, lr: Optional[float] = None):
-        """One step on a host batch: device DA, loss, backward, update."""
+        """One step on a host batch (the global batch; each process trains
+        its rows): device DA, loss, backward, update. Returns the global
+        batch's loss."""
         data, seg = self._to_device(data, seg)
-        aug = augment_batch_3d if self.is_3d else augment_batch
-        data, seg = aug(data, seg, self.augment_cfg, self.generator)
+        data, seg = self.augment(data, seg)
         loss = self.loss_and_grads(data, seg)
         self.apply_update(lr)
+        if self.mesh is not None:
+            loss = self.global_sum(loss)[0].float() / self.mesh.batch_shards
         return loss
 
     @torch.no_grad()
     def val_step(self, data, seg):
-        """(loss, tp, fp, fn per head) of the full-resolution head; the
-        regions regime thresholds the sigmoid at 0.5 and puts a zero
-        background column in front."""
+        """(loss, tp, fp, fn per head) of the full-resolution head over the
+        global batch (each process its rows, the counts summed); the regions
+        regime thresholds the sigmoid at 0.5 and puts a zero background
+        column in front."""
+        if self.mesh is None:
+            return self._val_counts(data, seg)
+        loss, *counts = self._val_counts(self.local_rows(data), self.local_rows(seg))
+        loss, *counts = self.global_sum(loss, *counts)
+        return (loss.float() / self.mesh.batch_shards, *counts)
+
+    def _val_counts(self, data, seg):
         data, seg = self._to_device(data, seg)
         seg = seg.clamp_min(0)
         logits = self.net(data)
         bd = self.plan.batch_dice
         tgt, mask = self._regime(seg)
         if self.region_lut is not None:
-            loss = losses.dc_and_focal_sigmoid_loss(logits, tgt, loss_mask=mask, batch_dice=bd)
+            loss = losses.dc_and_focal_sigmoid_loss(logits, tgt, loss_mask=mask, batch_dice=bd,
+                                                    group=self.group)
             m = mask.unsqueeze(1)
             ph = (torch.sigmoid(logits.float()) > 0.5).float() * m
             th = tgt * m
@@ -396,7 +473,7 @@ class SegmentorTrainer:
             zero = torch.zeros(1, device=logits.device)
             return (loss, *(torch.cat([zero, v.sum(dim=axes)])
                             for v in (ph * th, ph * (1 - th), (1 - ph) * th)))
-        loss = losses.dc_and_ce_loss(logits, tgt, mask, bd)
+        loss = losses.dc_and_ce_loss(logits, tgt, mask, bd, group=self.group)
         c = self.plan.num_classes
         idx = (tgt * c + logits.argmax(dim=1)).reshape(-1)
         if mask is not None:
@@ -522,13 +599,14 @@ class SegmentorTrainer:
         if not self.disable_checkpointing and \
                 ((epoch + 1) % cfg.save_every == 0 or epoch == num_epochs - 1):
             self.save_checkpoint(os.path.join(self.output_dir, "checkpoint_latest.pkl"))
-        self.epoch_log.plot_progress(os.path.join(self.output_dir, "progress.png"))
+        if is_main_process():
+            self.epoch_log.plot_progress(os.path.join(self.output_dir, "progress.png"))
 
     def _write_benchmark_result(self):
         """``benchmark_result.json`` (reference ``nnUNetTrainerBenchmark_5epochs.py``):
         the fastest and mean epoch time and the environment."""
         times = [t for t in self.epoch_log.data.get("epoch_time", []) if t == t]
-        if not times:
+        if not times or not is_main_process():
             return
         cuda = self.device.type == "cuda"
         result = {
@@ -552,20 +630,17 @@ class SegmentorTrainer:
         mirror TTA, the label regime's mask), PNGs beside the labels' in
         ``validation_gt/``, ``summary.json`` (region-keyed, ignore pixels
         left out, under a label manager) and the ``postprocessing.json``
-        decision (``trainer.py:567-703``, one process). val_images: (H, W, C)
-        arrays; val_labels: (H, W) ints; for a 3D plan (Z, H, W, C) and
-        (Z, H, W), the cases written as ``.npy``. ``save_npz`` (``--npz``): each case's
+        decision (``trainer.py:567-703``): each process predicts the cases
+        ``i % world == rank``, and rank 0 scores them all after a barrier.
+        val_images: (H, W, C) arrays; val_labels: (H, W) ints; for a 3D plan
+        (Z, H, W, C) and (Z, H, W), the cases written as ``.npy``.
+        ``save_npz`` (``--npz``): each case's
         probabilities too, ``case_NNN.npz``, from the same logits.
         ``normalize=False`` for cases of the preprocessed store, which are
         z-scored already."""
         from PIL import Image
 
-        from ldiffusion_tpu_torch.evaluate import compute_metrics_on_folder
         from ldiffusion_tpu_torch.segmentor.export import save_probabilities_npz
-        from ldiffusion_tpu_torch.segmentor.postprocess import (
-            determine_postprocessing,
-            save_postprocessing,
-        )
         from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
 
         lm = self.label_manager
@@ -579,7 +654,10 @@ class SegmentorTrainer:
                                            dtype=self.compute_dtype, device=self.device,
                                            label_manager=lm, use_mirroring=use_mirroring,
                                            mirror_axes=mirror_axes)
+        rank, world = (self.mesh.rank, self.mesh.world) if self.mesh is not None else (0, 1)
         for i, (img, lab) in enumerate(zip(val_images, val_labels)):
+            if i % world != rank:
+                continue  # the cases interleave over the processes
             t0 = time.perf_counter()
             img = np.asarray(img, np.float32)
             if save_npz:  # one prediction: the logits feed both the npz and the mask
@@ -598,13 +676,38 @@ class SegmentorTrainer:
                 Image.fromarray(seg).save(os.path.join(out_dir, f"case_{i:03d}.png"))
                 Image.fromarray(np.asarray(lab, np.uint8)).save(
                     os.path.join(gt_out, f"case_{i:03d}.png"))
+        # every rank's cases are written before rank 0 scores the folder
+        self.barrier("final_validation_cases_written")
+        summary_path = os.path.join(out_dir, "summary.json")
+        if rank == 0:
+            summary = self._score_validation(out_dir, gt_out, summary_path)
+        self.barrier("final_validation_summary_written")
+        if rank != 0:
+            with open(summary_path) as f:
+                summary = json.load(f)
+        self.log(f"final validation foreground dice: {summary['foreground_mean']['Dice']:.4f}")
+        self.log_timing("validation")
+        return summary
+
+    def barrier(self, name: str):
+        """Every process of the mesh waits here (nothing in one process)."""
+        if self.mesh is not None:
+            self.mesh.barrier(name)
+
+    def _score_validation(self, out_dir, gt_out, summary_path):
+        """``summary.json`` and the ``postprocessing.json`` decision over every
+        case in the folder (rank 0)."""
+        from ldiffusion_tpu_torch.evaluate import compute_metrics_on_folder, read_mask
+        from ldiffusion_tpu_torch.segmentor.postprocess import (
+            determine_postprocessing,
+            save_postprocessing,
+        )
+
+        lm = self.label_manager
         summary = compute_metrics_on_folder(
-            out_dir, gt_out, self.plan.num_classes,
-            output_file=os.path.join(out_dir, "summary.json"),
+            out_dir, gt_out, self.plan.num_classes, output_file=summary_path,
             regions_or_labels=lm.labels_or_regions_for_eval if lm is not None else None,
             ignore_label=lm.ignore_label if lm is not None else None)
-        from ldiffusion_tpu_torch.evaluate import read_mask
-
         ending = ".npy" if self.is_3d else ".png"
         files = sorted(f for f in os.listdir(out_dir) if f.endswith(ending))
         preds = [read_mask(os.path.join(out_dir, f)) for f in files]
@@ -617,8 +720,6 @@ class SegmentorTrainer:
                 ignore = lm.ignore_label
             steps = determine_postprocessing(preds, gts, n_pp, ignore_label=ignore)
             save_postprocessing(steps, os.path.join(self.output_dir, "postprocessing.json"))
-        self.log(f"final validation foreground dice: {summary['foreground_mean']['Dice']:.4f}")
-        self.log_timing("validation")
         return summary
 
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Stage-1 Laplace warm-up trainer (counterpart of
-``ldiffusion_tpu/train/ldiffusion.py``), on one device.
+``ldiffusion_tpu/train/ldiffusion.py``), on one device or over a mesh.
 
 One step = the whole timestep trajectory (``trajectory_features``, each
 timestep recomputed in the backward when ``config.remat``), the VGG content
@@ -20,6 +20,21 @@ added to ``sqrt(v̂)``); ``clip_grad_norm_`` is ``clip_by_global_norm`` with
 Randomness: the Laplace noise and the contrastive indices are drawn from one
 ``torch.Generator`` seeded with ``config.seed``; ``loss_and_grads`` takes them
 as tensors, so a test can hand in the JAX package's draws.
+
+Over a mesh (``mesh=``, ``core/dist.py``; the JAX trainer's FSDP over
+(data, fsdp), the reference's ZeRO-3): the UNet and the projection go under
+FSDP2's ``fully_shard`` (each resnet, transformer and resampler a unit,
+then the root; the UNet's parameters contiguous, as FSDP2 needs) with
+``MixedPrecisionPolicy(param_dtype=config.compute_dtype, reduce_dtype=f32)``.
+Their sharded ``config.param_dtype`` parameters are the master copies (no
+second set): the forward gathers them in the compute dtype, the gradients
+are reduced in f32, clipped by the global norm and AdamW updates the shards.
+Every process takes the global batch and draws the global batch's noise and
+indices from the same generator, then keeps its rows (``local_rows``), so the
+draws do not depend on the world size; the losses are each process's mean
+over as many rows, and the mean of the gradients over the processes is the
+global batch's. ``mesh=None``, or a mesh without a process group, is the
+one-device path.
 """
 from __future__ import annotations
 
@@ -28,8 +43,11 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from ldiffusion_tpu_torch.core.checkpoint import load_pytree, reshard_like, save_pytree
 from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+from ldiffusion_tpu_torch.core.dist import MeshContext, is_main_process
 from ldiffusion_tpu_torch.core.logging import CSVLogger, TextLogger
 from ldiffusion_tpu_torch.diffusion.pipeline import (
     SDComponents,
@@ -38,15 +56,41 @@ from ldiffusion_tpu_torch.diffusion.pipeline import (
 )
 from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise
 from ldiffusion_tpu_torch.losses.infonce import ContrastIndices, InfoNceLoss
-from ldiffusion_tpu_torch.models.convert import save_unet_dir
+from ldiffusion_tpu_torch.models.convert import (
+    proj_from_flax,
+    proj_to_flax,
+    save_unet_dir,
+    unet_from_flax,
+    unet_to_flax,
+)
+from ldiffusion_tpu_torch.models.layers import cast_keeping_int8_weights
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A parameter or state tensor whole, on the host (a DTensor is gathered:
+    every rank calls this in the same order)."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()  # a replicated DTensor's is its local tensor: copy it
+    return t.detach().to("cpu", copy=True)
+
+
+def _fsdp_units(unet) -> list:
+    """The UNet's FSDP2 units: each resnet, transformer and resampler, the
+    modules ``UNet2DCondition.forward`` calls (a unit's parameters are
+    gathered by its own forward); the root keeps the rest."""
+    return [m for blk in (*unet.down_blocks, unet.mid_block, *unet.up_blocks)
+            for name in ("resnets", "attentions", "downsamplers", "upsamplers")
+            for m in getattr(blk, name, ())]
 
 
 class DiffusionWarmupTrainer:
     def __init__(self, components: SDComponents, config: DiffusionTrainConfig,
-                 work_dir: str = "train_save", info_nce: Optional[InfoNceLoss] = None):
+                 work_dir: str = "train_save", info_nce: Optional[InfoNceLoss] = None,
+                 mesh: Optional[MeshContext] = None):
         self.c = components
         self.cfg = config
         self.work_dir = work_dir
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
         self.device = components.device
         self.log = TextLogger()
         self.info_nce = info_nce or InfoNceLoss.create(num_classes=config.num_classes,
@@ -57,12 +101,25 @@ class DiffusionWarmupTrainer:
         self.trainable = {"unet": components.unet, "proj": components.proj}
         self.names = [(key, name) for key, m in self.trainable.items()
                       for name, _ in m.named_parameters()]
-        self.params = [p for m in self.trainable.values() for p in m.parameters()]
         param_dtype = getattr(torch, config.param_dtype)
-        self.master = [p.detach().to(param_dtype, copy=True) for p in self.params]
-        components.to(dtype=getattr(torch, config.compute_dtype))
+        compute = getattr(torch, config.compute_dtype)
+        # frozen: cast down, the VAE keeping its int8 codes (inference reads them)
+        cast_keeping_int8_weights(components.vae, dtype=compute)
+        components.text.to(dtype=compute)
         for m in (components.vae, components.text):
             m.requires_grad_(False)
+        if self.mesh is None:
+            self.params = [p for m in self.trainable.values() for p in m.parameters()]
+            self.master = [p.detach().to(param_dtype, copy=True) for p in self.params]
+            for m in self.trainable.values():
+                m.to(dtype=compute)
+        else:
+            # FSDP2 shards contiguous parameters only; the activations stay channels_last
+            unet = components.unet.to(dtype=param_dtype, memory_format=torch.contiguous_format)
+            self.mesh.shard_module(unet, _fsdp_units(unet), param_dtype=compute)
+            self.mesh.shard_module(components.proj.to(dtype=param_dtype), param_dtype=compute)
+            self.params = [p for m in self.trainable.values() for p in m.parameters()]
+            self.master = self.params  # the sharded parameters are the master copies
         for p in self.params:
             p.requires_grad_(True)
         self.opt = torch.optim.AdamW(self.master, lr=config.learning_rate,
@@ -73,13 +130,36 @@ class DiffusionWarmupTrainer:
 
     # -- randomness -----------------------------------------------------------
     def draw(self, images, labels):
-        """(noise (T, B, H/f, W/f, 4), contrastive indices) for one step."""
-        b, h, w, _ = images.shape
+        """(noise (T, B, H/f, W/f, 4), contrastive indices) for one step of
+        the global batch of ``labels`` (``images`` may be this process's
+        rows)."""
+        b, (h, w) = labels.shape[0], images.shape[1:3]
         f = self.c.latent_factor
         n_t = len(trajectory_timesteps(self.c, self.trajectory_steps)[0])
         noise = laplace_noise((n_t, b, h // f, w // f, self.c.vae_config.latent_channels),
                               self.generator, device=self.device)
         return noise, self.info_nce.sample(labels, self.generator)
+
+    def local(self, images, labels, noise, indices: ContrastIndices):
+        """This process's rows of a global batch and of its draws (all of
+        them on one device); ``images`` may hold those rows already
+        (``iter_batches(rows=...)``)."""
+        if self.mesh is None:
+            return images, labels, noise, indices
+        rows = self.mesh.local_rows
+        if images.shape[0] == labels.shape[0]:
+            images = rows(images)
+        return (images, rows(labels), rows(noise.transpose(0, 1)).transpose(0, 1),
+                ContrastIndices(*(rows(t) for t in indices)))
+
+    def _global_mean(self, values):
+        """Each process's means → the global batch's (every process holds as
+        many rows)."""
+        if self.mesh is None:
+            return values
+        v = torch.stack([x.detach().float() for x in values])
+        dist.all_reduce(v, group=self.mesh.batch_group)
+        return list(v / self.mesh.batch_shards)
 
     # -- step -----------------------------------------------------------------
     def _loss_fn(self, images, labels, noise, indices: ContrastIndices):
@@ -93,31 +173,43 @@ class DiffusionWarmupTrainer:
         return content + contrast, {"content": content.detach(), "contrast": contrast.detach()}
 
     def loss_and_grads(self, images, labels, noise, indices: ContrastIndices):
-        """Forward + backward; leaves the (unclipped) gradients on the master
-        copies. Returns (loss, {"content", "contrast"}), detached."""
+        """Forward + backward of the global batch (each process its rows);
+        leaves the (unclipped) gradients on the master copies, reduced over
+        the processes. Returns the global (loss, {"content", "contrast"}),
+        detached."""
         for p in self.params:
             p.grad = None
-        loss, aux = self._loss_fn(images, labels, noise, indices)
+        loss, aux = self._loss_fn(*self.local(images, labels, noise, indices))
         loss.backward()
-        for p, m in zip(self.params, self.master):
-            m.grad = torch.zeros_like(m) if p.grad is None else p.grad.to(m.dtype)
-            p.grad = None
-        return loss.detach(), aux
+        if self.mesh is None:
+            for p, m in zip(self.params, self.master):
+                m.grad = torch.zeros_like(m) if p.grad is None else p.grad.to(m.dtype)
+                p.grad = None
+        else:  # optax updates every parameter: an unused one decays with a zero gradient
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        loss, content, contrast = self._global_mean([loss, aux["content"], aux["contrast"]])
+        return loss.detach(), {"content": content, "contrast": contrast}
 
     def apply_update(self):
         """Clip, AdamW on the master copies, cast them into the modules.
         Returns the gradient norm before clipping."""
         norm = torch.nn.utils.clip_grad_norm_(self.master, self.cfg.grad_clip)
+        if hasattr(norm, "full_tensor"):
+            norm = norm.full_tensor()
         self.opt.step()
-        with torch.no_grad():
-            for p, m in zip(self.params, self.master):
-                p.copy_(m)
+        if self.mesh is None:
+            with torch.no_grad():
+                for p, m in zip(self.params, self.master):
+                    p.copy_(m)
         self.steps_done += 1
         return norm
 
     def train_step(self, images, labels) -> dict:
-        """images (B, H, W, 3) ImageNet-normalised, labels (B, 64, 64) class
-        ids; numpy or tensors. Returns float metrics."""
+        """images (B, H, W, 3) ImageNet-normalised (or this process's rows of
+        them), labels (B, 64, 64) class ids of the global batch; numpy or
+        tensors. Returns float metrics of the global batch."""
         t0 = time.perf_counter()
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         labels = torch.as_tensor(labels, device=self.device).long()
@@ -156,15 +248,63 @@ class DiffusionWarmupTrainer:
             csv_log.append(epoch + 1, cur)
         return save_dir
 
-    def state_dicts(self):
-        """{"unet": ..., "proj": ...} of the master copies."""
+    def state_dicts(self, of=None):
+        """{"unet": ..., "proj": ...} of the master copies (``of``: a
+        function of each, e.g. its AdamW moment); under a mesh each is
+        gathered whole on every process."""
         out = {key: {} for key in self.trainable}
         for (key, name), m in zip(self.names, self.master):
-            out[key][name] = m
+            t = m if of is None else of(m)
+            out[key][name] = t if self.mesh is None else _full(t)
         return out
 
     def save(self, save_dir: str):
-        """The master copies in the JAX trainer's UNet directory layout."""
+        """The master copies in the JAX trainer's UNet directory layout,
+        gathered on every process and written by rank 0."""
         sds = self.state_dicts()
-        save_unet_dir(save_dir, self.c.unet_config, sds["unet"], sds["proj"])
+        if is_main_process():
+            save_unet_dir(save_dir, self.c.unet_config, sds["unet"], sds["proj"])
         self.log(f"saved checkpoint to {save_dir}")
+
+    def _flax(self, sds) -> dict:
+        return {"unet": unet_to_flax(sds["unet"], self.c.unet_config),
+                "proj": proj_to_flax(sds["proj"])}
+
+    def save_state(self, path: str):
+        """The master copies and the AdamW state, gathered on every process,
+        written by rank 0 in the flax layout (``core/checkpoint.py``:
+        ``{"params", "opt_state": {"count", "mu", "nu"}, "step"}``, read by
+        either package's ``load_pytree``)."""
+        zeros = {id(m): torch.zeros_like(m) for m in self.master if m not in self.opt.state}
+        moment = lambda key: lambda m: self.opt.state[m][key] if m in self.opt.state \
+            else zeros[id(m)]
+        save_pytree(path, {
+            "params": self._flax(self.state_dicts()),
+            "opt_state": {"count": self.steps_done,
+                          "mu": self._flax(self.state_dicts(moment("exp_avg"))),
+                          "nu": self._flax(self.state_dicts(moment("exp_avg_sq")))},
+            "step": self.steps_done})
+
+    def load_state(self, path: str):
+        """Resume from ``save_state``'s file: every tensor re-sharded onto
+        this trainer's layout (a DTensor keeps this process's shard)."""
+        ck = load_pytree(path)
+
+        def port(tree):
+            return {"unet": unet_from_flax(tree["unet"], self.c.unet_config),
+                    "proj": proj_from_flax(tree["proj"])}
+
+        params, mu, nu = (port(t) for t in (ck["params"], ck["opt_state"]["mu"],
+                                            ck["opt_state"]["nu"]))
+        step = int(ck["step"])
+        with torch.no_grad():
+            for (key, name), m in zip(self.names, self.master):
+                m.copy_(reshard_like(m, params[key][name]))
+                self.opt.state[m] = {
+                    "step": torch.tensor(float(step)),
+                    "exp_avg": reshard_like(m, mu[key][name]),
+                    "exp_avg_sq": reshard_like(m, nu[key][name])}
+            if self.mesh is None:
+                for p, m in zip(self.params, self.master):
+                    p.copy_(m)
+        self.steps_done = step

@@ -239,7 +239,7 @@ for want in ("train.ldiffusion", "segmentor.trainer", "segmentor.preprocess",
              "segmentor.model_sharing", "segmentor.batch_running", "data.converters",
              "data.public_converters", "data.rgbd", "core.prng", "utils",
              "models.controlnet", "models.conductor", "diffusion.multimodal", "tools",
-             "tools.sample", "tools.pixel_latent_vector", "ops.quant"):
+             "tools.sample", "tools.pixel_latent_vector", "ops.quant", "core.dist"):
     assert "ldiffusion_tpu_torch." + want in names, (want, names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ldiffusion_tpu",

@@ -601,3 +601,32 @@ def test_gn_resident_config_matches_the_kernels_choice(cuda):
                         assert got == (cfg is not None), (b, side, c, dtype, min_slice)
                         if cfg is not None:
                             assert list(out) == [cfg[k] for k in keys], (b, side, c, dtype)
+
+
+@pytest.mark.gpu
+def test_int8_codes_wait_in_host_memory_until_the_first_int8_forward(cuda):
+    """A cast down to the card quantizes the f32 weight, and its codes stay
+    in host memory: a model run only in bf16 holds none on the card. The
+    first int8 forward moves them to the card, equal to the codes taken
+    there."""
+    from ldiffusion_tpu_torch.models.layers import QConv, cast_keeping_int8_weights
+    from ldiffusion_tpu_torch.ops import quant
+
+    torch.manual_seed(0)
+    m = QConv(256, 256, 3, padding=1)  # a width the int8 gate quantizes
+    want = quant._sym_quant(m.weight.detach().to(cuda), dims=(1, 2, 3))
+    cast_keeping_int8_weights(m, device=cuda, dtype=torch.bfloat16)
+    (codes, scales), bias = m._wq
+    assert codes.device.type == scales.device.type == bias.device.type == "cpu"
+    x = torch.randn(1, 256, 16, 16, device=cuda, dtype=torch.bfloat16)
+    before = quant.int8_conv.launches
+    try:
+        quant.set_quant_mode("int8")
+        with torch.no_grad():
+            m(x)
+    finally:
+        quant.set_quant_mode("none")
+    assert quant.int8_conv.launches - before == 1
+    (codes, scales), bias = m._wq
+    assert codes.device == scales.device == bias.device == m.weight.device
+    assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])

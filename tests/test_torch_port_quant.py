@@ -204,13 +204,14 @@ def test_int_mm_pads_odd_shapes_exactly():
     np.testing.assert_array_equal(tq.int_mm(a, b).numpy(), exact.numpy())
 
 
-# A QConv held in bf16 (the port's bf16 pipelines) quantizes its bf16 weight;
-# the JAX QConv quantizes its f32 param (param_dtype f32) and computes in bf16.
-# At an SD-v1.5 conv (320 → 320, 3×3, N(0, 1/fan_in) weights) bf16's rounding
-# (at most 2^-8 relative) moves every scale by at most that much and a code by
-# at most one step; BF16_HELD_CODE_SHARE bounds the share of codes it moves
+# What quantizing a bf16 copy of a weight would do: the JAX QConv quantizes
+# its f32 param (param_dtype f32) and computes in bf16, so the port's QConv
+# takes its codes from the f32 weight before a cast down (models/layers.py,
+# Int8Weight; test_bf16_held_qconv_quantizes_its_f32_weight_as_jax). At an
+# SD-v1.5 conv (320 → 320, 3×3, N(0, 1/fan_in) weights) bf16's rounding (at
+# most 2^-8 relative) would move every scale by at most that much and a code
+# by at most one step; BF16_HELD_CODE_SHARE bounds the share of codes it moves
 # (measured: 0.0584, every one of the 320 scales apart, by up to 0.0038).
-# ROADMAP queue 3 records the divergence.
 BF16_HELD_CODE_SHARE = 0.1
 
 
@@ -229,6 +230,68 @@ def test_bf16_held_weight_quantizes_apart_from_jax_f32_param():
     assert np.abs(step).max() == 1
     assert 0 < rel.min() and rel.max() <= 2.0 ** -8
     assert 0 < share <= BF16_HELD_CODE_SHARE, share
+
+
+# A bf16-held QConv's int8 output against the JAX bf16 QConv on the same
+# codes: the f32 epilogue may differ by the FMA contraction, and a value at a
+# bf16 rounding edge then rounds one bf16 step apart, 2^-8 of its magnitude.
+BF16_OUT_RTOL = 2.0 ** -8
+
+
+def _flax_node(tree, site):
+    for key in site.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def test_bf16_held_qconv_quantizes_its_f32_weight_as_jax():
+    """SD components from f32 flax weights, cast to bf16 by ``from_flax``
+    (through ``SDComponents.to``): under "int8" every gated QConv uses the
+    codes and scales of its f32 weight, bit-equal to the JAX QConv's, and its
+    output is the JAX bf16 QConv's. A bf16 weight changed after the cast
+    raises; an f32 module changed after quantizing quantizes again."""
+    from ldiffusion_tpu.models.layers import QConv as JQConv
+
+    port = tpipe.SDComponents.random(seed=3, device="cpu", vae_config=VAEConfig(**GATED_VAE))
+    flax = jax_components_of(port).params
+    comps = tpipe.SDComponents.from_flax(flax, port.unet_config, port.vae_config,
+                                         port.text_config, dtype=torch.bfloat16, device="cpu")
+    gated = [m for m in comps.vae.modules()
+             if isinstance(m, QConv) and tq.conv_shape_gate(m.in_channels, m.out_channels)]
+    assert len(gated) == GATED_VAE_SITES
+    tq.set_quant_mode("int8")
+    jq.set_quant_mode("int8")
+    for m in gated:
+        assert m.weight.dtype == torch.bfloat16
+        node = _flax_node(flax["vae"], m.site)
+        (code, scale), bias = m.int8_weight()
+        _assert_codes(jq._sym_quant(jnp.asarray(node["kernel"]), axes=(0, 1, 2)),
+                      (code.permute(2, 3, 1, 0), scale), nhwc=False)
+        np.testing.assert_array_equal(bias.numpy(), np.asarray(node["bias"]))
+    m = gated[0]
+    x = _draw(np.random.default_rng(13), (1, 8, 8, m.in_channels))
+    xb = jnp.asarray(x, jnp.bfloat16)
+    (ph, _), (sh, sw) = m.padding, m.stride
+    ref = JQConv(m.out_channels, m.kernel_size, (sh, sw), ph, dtype=jnp.bfloat16).apply(
+        {"params": _flax_node(flax["vae"], m.site)}, xb)
+    before = tq.int8_conv.launches
+    with torch.no_grad():
+        got = m(_nchw(np.array(xb.astype(jnp.float32))).to(torch.bfloat16))
+    assert tq.int8_conv.launches - before == 1 and got.dtype == torch.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.abs(_nhwc(got.float()) - ref).max() <= BF16_OUT_RTOL * np.abs(ref).max()
+
+    with torch.no_grad():  # a stale bf16 weight never quantizes silently
+        m.weight.mul_(2)
+        with pytest.raises(RuntimeError, match="f32 weights"):
+            m(torch.zeros(1, m.in_channels, 8, 8, dtype=torch.bfloat16))
+    f32 = QConv(256, 256, 3, padding=1)
+    with torch.no_grad():
+        f32(torch.randn(1, 256, 8, 8))
+        codes = f32.int8_weight()[0][0].clone()
+        f32.weight.mul_(-1)  # an f32 weight changed in place quantizes again
+        f32(torch.randn(1, 256, 8, 8))
+    assert torch.equal(f32.int8_weight()[0][0], -codes)
 
 
 # ---------------------------------------------------------------------------

@@ -208,3 +208,201 @@ def quant_transform_world(modes, calibrate: bool = False) -> dict:
             m.set_quant_mode("none")
             m.set_static_amax(None)
     return world
+
+
+# ---------------------------------------------------------------------------
+# multi-process runs of the port (tests/torch_port_dist_worker.py)
+# ---------------------------------------------------------------------------
+
+DIST_WORKER = __file__.replace("torch_port_common.py", "torch_port_dist_worker.py")
+
+
+def spawn_ranks(task: str, world: int, root, *args):
+    """Start ``world`` gloo ranks of ``task`` on ``root``; they run while the
+    caller works, and wait for ``write_inputs``. Each rank is a fresh
+    interpreter that imports only torch and the port."""
+    import os
+    import subprocess
+    import sys
+
+    os.makedirs(str(root), exist_ok=True)
+    for name in ["init", "inputs.npz"] + [f"out_{r}.npz" for r in range(world)]:
+        # a stale rendezvous file hangs the ranks
+        if os.path.exists(os.path.join(str(root), name)):
+            os.remove(os.path.join(str(root), name))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    return [subprocess.Popen([sys.executable, DIST_WORKER, task, str(r), str(world), str(root),
+                              *map(str, args)], env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def write_inputs(root, **arrays):
+    """The ranks' ``inputs.npz``, renamed into place whole."""
+    import os
+
+    tmp = os.path.join(str(root), "inputs.tmp.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, os.path.join(str(root), "inputs.npz"))
+
+
+def rank_outputs(procs, root, timeout: float = 300.0) -> list:
+    """Wait for the ranks; each one's ``out_<rank>.npz`` as a dict (raises
+    with a rank's output when it failed)."""
+    import os
+
+    for r, p in enumerate(procs):
+        out, _ = p.communicate(timeout=timeout)
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    results = []
+    for r in range(len(procs)):
+        with np.load(os.path.join(str(root), f"out_{r}.npz")) as z:
+            results.append({k: z[k] for k in z.files})
+    return results
+
+
+def vgg_to_flax(vgg) -> dict:
+    """The port's VGG19Features state as the JAX package's parameter tree
+    (the inverse of ``vgg_from_flax``)."""
+    from ldiffusion_tpu_torch.models.vgg import _conv_layer_ids
+
+    sd = vgg.state_dict()
+    return {f"conv_{i}": {"kernel": sd[f"features.{lid}.weight"].numpy().transpose(2, 3, 1, 0),
+                          "bias": sd[f"features.{lid}.bias"].numpy()}
+            for i, lid in enumerate(_conv_layer_ids())}
+
+
+STAGE1 = dict(anchors=8, negatives=16, classes=4, steps=5, remat=True)
+
+
+def stage1_world(root, meshes=((2, 1), (1, 2))) -> dict:
+    """One stage-1 step of the tiny configs, f32, batch 2, from the same
+    weights and draws, for each (data, fsdp) of ``meshes``: the port on two
+    gloo ranks under FSDP2 (started first, running while the rest
+    computes) and the JAX trainer's step on ``make_mesh`` of the same shape
+    over ``jax.devices()[:2]`` (the programs compiled side by side in
+    threads); and the port in one process. The JAX package's Laplace noise
+    and contrastive indices are drawn from its keys and handed to the port.
+    Returns {"one": ..., "lr": ..., (data, fsdp): {"jax", "ranks", "root"}}."""
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    import optax
+    import torch
+
+    from ldiffusion_tpu.core.config import DiffusionTrainConfig as JConfig
+    from ldiffusion_tpu.core.config import MeshConfig
+    from ldiffusion_tpu.core.dist import make_mesh
+    from ldiffusion_tpu.losses.infonce import InfoNceLoss as JInfoNce
+    from ldiffusion_tpu.models.vgg import VGG19Features as JVGG
+    from ldiffusion_tpu.train.ldiffusion import DiffusionWarmupTrainer as JTrainer
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents as TComponents
+    from ldiffusion_tpu_torch.losses.infonce import ContrastIndices, InfoNceLoss
+    from ldiffusion_tpu_torch.models.convert import flatten_tree
+    from ldiffusion_tpu_torch.models.layers import init_random_
+    from ldiffusion_tpu_torch.models.vgg import VGG19Features
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    s = STAGE1
+    roots = {m: root / f"data{m[0]}_fsdp{m[1]}" for m in meshes}
+    procs = {m: spawn_ranks("stage1", m[0] * m[1], roots[m], *m) for m in meshes}
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
+    labels = np.zeros((2, 64, 64), np.int32)
+    labels[:, :32] = 1
+    labels[:, 32:, :32] = 2
+    labels[-1, :8, :8] = 3
+    vgg = init_random_(VGG19Features(), torch.Generator().manual_seed(7)).requires_grad_(False)
+    vgg_flax = vgg_to_flax(vgg)
+    key = jax.random.key(3)
+    k_noise, k_contrast = jax.random.split(key)  # the JAX _loss_fn's split
+    noise = jax_laplace_noise(k_noise, 1, (2, 32, 32, 4))  # steps // 5 = 1 PLMS step: 1 timestep
+    idx = jax_contrast_indices(labels, k_contrast, s["negatives"], s["anchors"], s["classes"])
+    for m in meshes:
+        write_inputs(roots[m], images=images, labels=labels, noise=noise, config=json.dumps(s),
+                     **dict(zip(("anchor", "positive", "negatives", "valid"), idx)),
+                     **{f"vgg/{k}": v for k, v in flatten_tree(vgg_flax).items()})
+
+    comps = TComponents.random(device="cpu")
+    jc = jax_components_of(comps)
+    programs = {}
+    for m in meshes:
+        mesh = make_mesh(MeshConfig(data=m[0], fsdp=m[1]), devices=jax.devices()[:2])
+        jinfo_loss = JInfoNce(vgg=JVGG(), vgg_params=vgg_flax, num_anchors=s["anchors"],
+                              num_negatives=s["negatives"], num_classes=s["classes"])
+        # remat only changes what the backward keeps, not the values
+        jtr = JTrainer(jc, JConfig(num_inference_steps=s["steps"], batch_size=2,
+                                   num_classes=s["classes"], remat=False), mesh,
+                       info_nce=jinfo_loss)
+
+        def loss_fn(params, frozen, x, y, k, vgg_params, jinfo_loss=jinfo_loss, jtr=jtr):
+            # the VGG weights as an argument: as the trainer's closure constants
+            # they would be folded into the program, 80 MB that slow its compile
+            jinfo_loss.vgg_params = vgg_params
+            return jtr._loss_fn(params, frozen, x, y, k)
+
+        def step(params, opt_state, frozen, x, y, k, vgg_params, loss_fn=loss_fn, jtr=jtr):
+            (loss, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+                params, frozen, x, y, k, vgg_params)
+            updates, opt_state = jtr.tx.update(grads, opt_state, params)
+            return loss, grads, optax.apply_updates(params, updates), opt_state
+
+        args = (jtr.state.params, jtr.state.opt_state, jtr.frozen,
+                mesh.shard_batch(jnp.asarray(images)), mesh.shard_batch(jnp.asarray(labels)),
+                key, vgg_flax)
+        programs[m] = (jax.jit(step).lower(*args), args)
+    with ThreadPoolExecutor(len(meshes)) as pool:  # XLA compiles them side by side
+        compiled = dict(zip(meshes, pool.map(lambda m: programs[m][0].compile(), meshes)))
+    out = {}
+    for m in meshes:
+        jloss, jgrads, jparams, opt_state = compiled[m](*programs[m][1])
+        adam = next(a for a in jax.tree_util.tree_leaves(
+            opt_state, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(a, "mu"))
+        out[m] = {"root": roots[m], "jax": {
+            "loss": float(jloss), **{f"grad/{k}": v for k, v in flat(jgrads).items()},
+            **{f"param/{k}": v for k, v in flat(jparams).items()},
+            **{f"mu/{k}": v for k, v in flat(adam.mu).items()},
+            **{f"nu/{k}": v for k, v in flat(adam.nu).items()}}}
+
+    one = DiffusionWarmupTrainer(
+        comps, DiffusionTrainConfig(compute_dtype="float32", num_classes=s["classes"],
+                                    num_inference_steps=s["steps"], remat=s["remat"]),
+        info_nce=InfoNceLoss(vgg=vgg.eval(), num_anchors=s["anchors"],
+                             num_negatives=s["negatives"], num_classes=s["classes"]))
+    loss, _ = one.loss_and_grads(torch.from_numpy(images), torch.from_numpy(labels).long(),
+                                 torch.from_numpy(noise),
+                                 ContrastIndices(*(torch.from_numpy(a) for a in idx)))
+    one_out = {"loss": float(loss),
+               **{f"grad/{k}": v for k, v in flat(one._flax(one.state_dicts(
+                   lambda m: m.grad.clone()))).items()}}
+    one_out["norm"] = float(one.apply_update())
+    st = one.opt.state
+    for name, of in (("param", None), ("mu", lambda m: st[m]["exp_avg"]),
+                     ("nu", lambda m: st[m]["exp_avg_sq"])):
+        one_out.update({f"{name}/{k}": v for k, v in flat(one._flax(one.state_dicts(of))).items()})
+    for m in meshes:
+        out[m]["ranks"] = rank_outputs(procs[m], roots[m])
+    out.update(one=one_out, lr=one.cfg.learning_rate)
+    return out
+
+
+def assert_step_close(got: dict, want: dict, grad_tol: float, nu_tol: float,
+                      param_tol: float, lr: float):
+    """Every gradient and AdamW moment within its tolerance of the tensor's
+    largest value; the updated parameters within ``param_tol`` where the
+    gradient exceeds 1e-3 of its tensor's largest value, elsewhere within
+    the largest first Adam step, 2·lr (there g/(|g| + eps) is decided by
+    gradient bits under the tolerance)."""
+    for kind, tol in (("grad", grad_tol), ("mu", grad_tol), ("nu", nu_tol)):
+        names = [k for k in want if k.startswith(kind + "/")]
+        assert names and all(k in got for k in names), kind
+        for k in names:
+            scale = max(float(np.abs(want[k]).max()), 1e-30)
+            assert float(np.abs(got[k] - want[k]).max()) <= tol * scale, k
+    for k in (k for k in want if k.startswith("param/")):
+        g = np.abs(want["grad/" + k[6:]])
+        tol = np.where(g > 1e-3 * g.max(), param_tol, 2 * lr)
+        assert (np.abs(got[k] - want[k]) <= tol).all(), k
