@@ -33,10 +33,23 @@ Phases, in order (any failure exits non-zero; nothing is caught):
   4. full:    SD-v1.5-width bf16 components from seeded random weights, a
               segmentor directory at the 1024²/7-class plan written in the JAX
               layout, then ``LDiffusionModel.inference_tissue`` on one 1024²
-              ROI and in folder mode on 3 square ROIs + 1 non-square ROI.
-              Launch counters are reset just before and read just after;
-              every forward launch there took the wgmma route, every
-              GroupNorm launch the route gn_route names for its shape.
+              ROI (one eager run of the fused program) and in folder mode on
+              8 square ROIs + 1 non-square ROI (the fused program eager, then
+              captured as a CUDA graph and replayed, 3 images in flight; the
+              non-square ROI through the predictor's bucket). Launch counters
+              are reset just before and read just after, replays counted
+              (core/graphs.py); every forward launch there took the wgmma
+              route, every GroupNorm launch the route gn_route names for its
+              shape; the folder launched 8 times the single ROI's kernels.
+              Every folder mask is bit-equal to the eager route on its ROI
+              (the fused program's function called directly; a fresh
+              predictor's first use), the decoded image and mask of a
+              transform-keeping program's two replays to its eager first
+              use, and a capture that would grow the GroupNorm workspace
+              raises. Figures (``full`` line): single and folder s/ROI,
+              programs, graphs captured, replays and capture seconds, one
+              profiled folder run's idle share, the allocated and reserved
+              peaks, launches per ROI.
   5. train:   one stage-1 step at the tiny configs in f32 on cuda against the
               same step on the CPU (same weights, noise, contrastive indices);
               then SD-v1.5 width, bf16 compute over f32 masters, batch 1, 25
@@ -841,17 +854,24 @@ class GnRouteWatch:
     """Counts, for every GroupNorm layer call on the card while it is open,
     the route ``gn_route`` names for the call's shape (a global forward
     pre-hook on ``FusedGroupNormSiLU``, which hands the wrapper its input as
-    contiguous NHWC), and the calls by shape. ``check`` holds the wrapper's
-    launches by route since ``reset_counters`` against them."""
+    contiguous NHWC), and the calls by shape; a CUDA graph captured while it
+    is open repeats its counts on every replay (``core/graphs.py``).
+    ``check`` holds the wrapper's launches by route since ``reset_counters``
+    against them."""
 
     def __enter__(self):
         from torch.nn.modules.module import register_module_forward_pre_hook
 
         from ldiffusion_tpu_torch.ops.groupnorm import ROUTES
 
+        from ldiffusion_tpu_torch.core import graphs
+
         self.expected = dict.fromkeys(ROUTES, 0)
         self.shapes = {}
         self.handle = register_module_forward_pre_hook(self._hook)
+        # a replayed program calls no hook: its captures record these too
+        for attr in ("expected", "shapes"):
+            graphs.watch_counter(self, attr)
         return self
 
     def _hook(self, module, args):
@@ -870,7 +890,11 @@ class GnRouteWatch:
         self.shapes[key] = self.shapes.get(key, 0) + 1
 
     def __exit__(self, *exc):
+        from ldiffusion_tpu_torch.core import graphs
+
         self.handle.remove()
+        for attr in ("expected", "shapes"):
+            graphs.unwatch_counter(self, attr)
 
     def check(self, where: str, routes: dict) -> None:
         if routes["groupnorm_silu"] != self.expected:
@@ -985,14 +1009,51 @@ def phase_tiny(work, seed):
 
 
 FULL_PLAN = ((1024, 1024), (32, 64, 128, 256, 512, 512, 512), (1, 2, 2, 2, 2, 2, 2))
+FULL_SQUARE_ROIS = 8  # the folder's 1024² ROIs: the 3-slot ring wraps, most replay
+
+
+def program_stats(caches) -> dict:
+    """Programs, captured graphs, replays and capture seconds over the
+    program caches of ``LDiffusionModel.tissue_programs``."""
+    progs = [p for cache in caches.values() for p in cache.values()]
+    return {"programs": len(progs), "graphs_captured": sum(p.graph is not None for p in progs),
+            "replays": sum(p.replays for p in progs),
+            "capture_s": sum(p.capture_s for p in progs)}
+
+
+def forced_capture_failure():
+    """A capture that must fail raises, and nothing falls back: the streamed
+    GroupNorm's workspace may not grow while a CUDA graph is captured."""
+    import torch
+
+    from ldiffusion_tpu_torch.core.graphs import Program
+    from ldiffusion_tpu_torch.ops import groupnorm as tgn
+
+    x = torch.randn(1, 7, 9, 6, device="cuda")  # 24-byte rows: the streamed route
+    one, zero = torch.ones(6, device="cuda"), torch.zeros(6, device="cuda")
+    program = Program(lambda t: tgn.groupnorm_silu(t, one, zero, groups=2), "cuda")
+    program(x)
+    kept, tgn._workspaces = tgn._workspaces, {}
+    try:
+        program(x)
+    except RuntimeError as e:
+        if "workspace" not in str(e) or program.graph is not None:
+            raise
+        return str(e).split(";")[0]
+    finally:
+        tgn._workspaces = kept
+    raise AssertionError("full: a capture that grows the GroupNorm workspace did not raise")
 
 
 def phase_full(work, seed):
-    """SD-v1.5-width tissue inference at 1024², bf16, seeded random weights."""
+    """SD-v1.5-width tissue inference at 1024², bf16, seeded random weights:
+    one ROI (eager), then a folder of 8 square ROIs and a non-square one
+    through the captured programs, each mask (and the decoded image of a
+    square ROI) bit-equal to the eager route on the same ROI."""
     import numpy as np
     import torch
 
-    from ldiffusion_tpu_torch.api import LDiffusionModel
+    from ldiffusion_tpu_torch.api import LDiffusionModel, _plain_rgb
     from ldiffusion_tpu_torch.data.dataset import load_image
     from ldiffusion_tpu_torch.diffusion.pipeline import (
         SDComponents,
@@ -1006,9 +1067,10 @@ def phase_full(work, seed):
     rng = np.random.default_rng(seed + 1)
     rois = os.path.join(work, "rois")
     os.makedirs(rois)
-    for i in range(3):
+    for i in range(FULL_SQUARE_ROIS):
         tissue_like(rng, 1024, 1024).save(os.path.join(rois, f"roi_{i}.png"))
-    tissue_like(rng, 768, 1024).save(os.path.join(rois, "roi_3_wide.png"))
+    tissue_like(rng, 768, 1024).save(os.path.join(rois, f"roi_{FULL_SQUARE_ROIS}_wide.png"))
+    n_rois = FULL_SQUARE_ROIS + 1
     single = os.path.join(work, "single_roi.png")
     tissue_like(rng, 1024, 1024).save(single)
     seg = write_segmentor(os.path.join(work, "seg_1024"), seg_plan(*FULL_PLAN), seed)
@@ -1025,18 +1087,22 @@ def phase_full(work, seed):
         f"{time.perf_counter() - t0:.3f} s")
     # not random: → the 1024² ROI size rule applies, as in the JAX API
     model = LDiffusionModel("sd15-seeded-random", "tissue", components=comps)
+    # the peaks from here on are this path's (the warm-up is the single-image
+    # call), the reserved one not holding earlier phases' cached blocks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model.inference_tissue(single, None, seg, 7)  # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    torch.cuda.reset_peak_memory_stats()
     with GnRouteWatch() as watch:
         reset_counters()  # the main path starts here
         t0 = time.perf_counter()
         decoded, mask = model.inference_tissue(single, None, seg, 7)
         torch.cuda.synchronize()
         single_s = time.perf_counter() - t0
+        single_programs = program_stats(model.tissue_programs)
         per_roi = read_counters()
         per_roi_gn_routes = read_routes()["groupnorm_silu"]
         per_roi_gn_shapes = dict(watch.shapes)
@@ -1048,20 +1114,73 @@ def phase_full(work, seed):
         launches = read_counters()  # the main path ends here
         routes = read_routes()
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    folder_programs = program_stats(model.tissue_programs)
+    fused_folder = model.tissue_programs["fused"][((1024, 1024, 3), False)]
     check_bf16_routes("full", routes)
     watch.check("full", routes)
+    folder_launches = {k: launches[k] - per_roi[k] for k in launches}
+    for k in INFERENCE_KERNELS:  # the non-square ROI skips the transform
+        if folder_launches[k] != FULL_SQUARE_ROIS * per_roi[k]:
+            raise AssertionError(f"full: {k} launched {folder_launches[k]} times for "
+                                 f"{FULL_SQUARE_ROIS} square ROIs, {per_roi[k]} for one")
+    if single_programs["graphs_captured"]:
+        raise AssertionError(f"full: the single-image call captured: {single_programs}")
+    if fused_folder.graph is None or fused_folder.replays < FULL_SQUARE_ROIS - 1:
+        raise AssertionError(f"full: the folder's fused program replayed "
+                             f"{fused_folder.replays} times for {FULL_SQUARE_ROIS} ROIs")
 
     from PIL import Image
+
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
 
     if mask.shape != (1024, 1024) or mask.dtype != np.uint8 or int(mask.max()) >= 7:
         raise AssertionError(f"full: bad mask {mask.shape} {mask.dtype} max {mask.max()}")
     if decoded.size != (1024, 1024):
         raise AssertionError(f"full: decoded image is {decoded.size}")
+
+    def fresh_predictor():
+        return SlidingWindowPredictor.from_checkpoints(
+            SegPlan.load(os.path.join(seg, "plans.json")),
+            [os.path.join(seg, "fold_0", "checkpoint_final.pkl")], device="cuda")
+
+    # each folder mask against the eager route on its ROI: the fused
+    # program's function called directly (a square ROI), a fresh predictor's
+    # first use (the non-square one)
+    t0 = time.perf_counter()
     for name in sorted(os.listdir(rois)):
-        with Image.open(os.path.join(rois, name)) as src, \
-                Image.open(os.path.join(out_dir, name)) as m:
-            if m.size != src.size or int(np.asarray(m).max()) >= 7:
-                raise AssertionError(f"full: folder mask {name} is {m.size}, ROI {src.size}")
+        path = os.path.join(rois, name)
+        with Image.open(path) as src, Image.open(os.path.join(out_dir, name)) as m:
+            got, size = np.asarray(m), src.size
+        if size[0] == size[1]:
+            with torch.inference_mode():
+                x = torch.from_numpy(load_image(path, (1024, 1024))).cuda()
+                want = fused_folder.fn(x).cpu().numpy()
+        else:
+            want = fresh_predictor().predict(_plain_rgb(path)[1])
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"full: folder mask {name} differs from the eager route "
+                                 f"on {int(np.sum(got != want))} pixels")
+    eager_check_s = time.perf_counter() - t0
+
+    # the decoded image and mask of a square ROI through a transform-keeping
+    # program: eager, captured + replayed, replayed, bit for bit
+    predictor = fresh_predictor()
+    with torch.inference_mode():
+        run = model._make_fused_predict(predictor, trajectory_text_emb(comps, 1))
+        x = torch.from_numpy(load_image(single, (1024, 1024)))
+        outs = [[a.cpu().numpy() for a in run(x, want_transformed=True)] for _ in range(3)]
+    keep = run.programs[((1024, 1024, 3), True)]
+    for i, (t, m) in enumerate(outs[1:], start=1):
+        if not (np.array_equal(t, outs[0][0]) and np.array_equal(m, outs[0][1])):
+            raise AssertionError(f"full: replay {i} of the transform-keeping program differs "
+                                 "from its eager first use")
+    if not np.array_equal(np.asarray(decoded),
+                          (np.clip(outs[0][0], 0, 1) * 255).astype(np.uint8)):
+        raise AssertionError("full: the API's decoded image differs from the program's")
+    capture_failure = forced_capture_failure()
+
     with torch.inference_mode():
         x = torch.from_numpy(load_image(single, (1024, 1024)))[None].cuda()
         t = one_step_transform(comps, x, trajectory_text_emb(comps, 1))
@@ -1072,21 +1191,29 @@ def phase_full(work, seed):
     if min(launches[k] for k in INFERENCE_KERNELS) == 0:
         raise AssertionError(f"full: a kernel was not launched on the main path: {launches}")
 
-    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
-    from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
-
     t0 = time.perf_counter()  # the per-call host set-up: read, convert, upload
-    predictor = SlidingWindowPredictor.from_checkpoints(
-        SegPlan.load(os.path.join(seg, "plans.json")),
-        [os.path.join(seg, "fold_0", "checkpoint_final.pkl")], device="cuda")
+    predictor = fresh_predictor()
     torch.cuda.synchronize()
     predictor_s = time.perf_counter() - t0
     profile_roi(model, single, seg, predictor, comps)
+    folder_prof = device_profile(lambda: model.inference_tissue(
+        rois, None, seg, 7, output_path=os.path.join(work, "masks_profiled")))
     row = {"roi": [1024, 1024], "dtype": "bfloat16", "warmup_s": warm_s,
            "predictor_build_s": predictor_s,
-           "single_s_per_roi": single_s, "folder_rois": 4, "folder_s": folder_s,
-           "folder_s_per_roi": folder_s / 4, "max_memory_allocated": peak,
-           "launches_per_roi": per_roi, "launches": launches, "launches_by_route": routes,
+           "single_s_per_roi": single_s, "folder_rois": n_rois, "folder_s": folder_s,
+           "folder_s_per_roi": folder_s / n_rois, "max_memory_allocated": peak,
+           "max_memory_reserved": peak_reserved,
+           "single_programs": single_programs, "folder_programs": folder_programs,
+           "transform_program_capture_s": keep.capture_s,
+           "folder_profiled": {k: folder_prof[k] for k in
+                               ("wall_s", "device_busy_ms", "device_idle_share",
+                                "by_family_ms")},
+           "folder_profiled_s_per_roi": folder_prof["wall_s"] / n_rois,
+           "eager_check_s": eager_check_s, "forced_capture_failure": capture_failure,
+           "launches_per_roi": per_roi,
+           "launches_per_square_roi_in_folder": {
+               k: folder_launches[k] / FULL_SQUARE_ROIS for k in INFERENCE_KERNELS},
+           "launches": launches, "launches_by_route": routes,
            "groupnorm_routes_per_roi": per_roi_gn_routes,
            "groupnorm_shapes_per_roi": per_roi_gn_shapes,
            "mask_classes": np.bincount(mask.ravel(), minlength=7).tolist(),

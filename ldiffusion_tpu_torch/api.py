@@ -29,9 +29,11 @@ diffusion transform of that UNet:
 
 Tissue inference per ROI: CLIP text → projection, VAE ``encode_mean``, PNDM
 one step through the UNet, ``decode_latents``, z-score, sliding-window
-DynUNet with gaussian blending and 4-way mirror TTA → uint8 mask; non-square
-images skip the diffusion transform; in folder mode existing outputs are
-skipped unless ``overwrite``. Cell inference: the image is resized to the
+DynUNet with gaussian blending and 4-way mirror TTA → uint8 mask, as one
+program per image shape (a captured CUDA graph from its second use on a
+card; ``_make_fused_predict``); non-square images skip the diffusion
+transform; in folder mode up to 3 images are in flight and existing outputs
+are skipped unless ``overwrite``. Cell inference: the image is resized to the
 square ROI and transformed, its instances proposed and classified, and the
 mask (NEAREST) and the decoded image (BILINEAR) resized back to the image's
 size. The ROI is 1024² unless ``diffusion_path`` starts with ``random:``
@@ -60,6 +62,7 @@ level trains the same on every process.
 from __future__ import annotations
 
 import argparse
+import collections
 import os
 import time
 import traceback
@@ -141,6 +144,7 @@ class LDiffusionModel:
         self.cell_trainer = None  # the last cell trainer, kept for inspection
         self.cell_seconds = {}  # inference_cell's stages and counts, host clock
         self.prepare_seconds = {}  # _prepare_tissue's phases, host clock
+        self.tissue_programs = {}  # inference_tissue's program caches, kept for inspection
         self._components = None if components is None else components.to(self.device)
 
     @property
@@ -346,8 +350,55 @@ class LDiffusionModel:
         x = torch.from_numpy(img_norm).to(self.device)[None]
         return one_step_transform(self._components, x, emb)[0]
 
+    def _make_fused_predict(self, predictor, emb):
+        """The one-program tissue inference of a square image (the JAX
+        package's ``_make_fused_predict``, ``ldiffusion_tpu/api.py:313-346``):
+        ``run(img_norm, want_transformed)`` takes an (H, W, 3)
+        ImageNet-normalised image (numpy or a tensor; a pinned host tensor is
+        copied without blocking) and returns device tensors without syncing:
+        the (H, W) uint8 mask, or (the (H, W, 3) [0, 1] float32 transform,
+        the mask). One program per (shape, want_transformed) runs the
+        one-step transform with the prompt embedding ``emb`` and the
+        predictor's ``traced_seg`` (z-score, pad, window, label map): eager
+        at its first use, a CUDA graph in the predictor's memory pool from
+        its second (``core/graphs.py``), whose outputs hold until the next
+        call. ``run.programs`` is the cache; it lives as long as ``run``."""
+        from ldiffusion_tpu_torch.core.graphs import Program
+        from ldiffusion_tpu_torch.diffusion.pipeline import one_step_transform
+
+        comps = self._components
+        programs = {}
+
+        def run(img_norm, want_transformed: bool):
+            if isinstance(img_norm, np.ndarray):
+                img_norm = torch.from_numpy(img_norm)
+            key = (tuple(img_norm.shape), bool(want_transformed))
+            if key not in programs:
+                def f(im):
+                    t = one_step_transform(comps, im[None], emb)[0]
+                    seg = predictor.traced_seg(t, normalize=True)
+                    return (t, seg) if want_transformed else seg
+
+                programs[key] = Program(f, self.device, predictor.graph_pool(),
+                                        counted=[(predictor, "network_forwards")])
+            return programs[key](img_norm)
+
+        run.programs = programs
+        return run
+
     def inference_tissue(self, image_path, ldiffusion_weight, segmentor_weight, num_classes,
                          output_path: Optional[str] = None, overwrite: bool = True):
+        """One ROI → (decoded PIL image, mask), or a folder of ROIs →
+        ``output_path/<name>.png`` masks and (None, None). Square images go
+        through the fused program (``_make_fused_predict``, whose cache lasts
+        this call), the others through ``predictor.predict`` without the
+        transform. In folder mode up to 3 square images are in flight (the
+        JAX package's ``api.py:394-420``): each is read and resized into one
+        of 3 pinned host buffers, copied to the program's input without
+        blocking, run, and its mask copied into one of 3 pinned slots behind
+        a CUDA event, while the host reads the next; with 3 pending the
+        oldest is waited for, postprocessed and written, in sorted order.
+        The call's program caches stay in ``tissue_programs``."""
         from ldiffusion_tpu_torch.diffusion.pipeline import trajectory_text_emb
         from ldiffusion_tpu_torch.segmentor.planner import SegPlan
         from ldiffusion_tpu_torch.segmentor.postprocess import (
@@ -372,46 +423,73 @@ class LDiffusionModel:
                 break
         size = self.image_size
 
+        def finish(mask):
+            return apply_postprocessing(mask, pp_steps) if pp_steps else mask
+
         with torch.inference_mode():
-            emb = trajectory_text_emb(self._components, 1)
-
-            def square(path, want_transformed: bool):
-                t = self._transform(load_image(path, (size, size)), emb)
-                mask = predictor.seg(t, normalize=True).cpu().numpy()
-                return (t.cpu().numpy() if want_transformed else None), mask
-
-            def finish(mask):
-                return apply_postprocessing(mask, pp_steps) if pp_steps else mask
-
+            fused = self._make_fused_predict(predictor, trajectory_text_emb(self._components, 1))
+            self.tissue_programs = {"fused": fused.programs, "predict": predictor._predict_cache}
             if os.path.isdir(image_path):
                 if not output_path:
                     raise ValueError("When image_path is a folder, output_path must be "
                                      "specified!")
                 os.makedirs(output_path, exist_ok=True)
-                for fn in sorted(os.listdir(image_path)):
-                    out_png = os.path.join(output_path, os.path.splitext(fn)[0] + ".png")
-                    if not overwrite and os.path.exists(out_png):
-                        continue
-                    path = os.path.join(image_path, fn)
-                    with Image.open(path) as probe:
-                        w, h = probe.size
-                    if w == h:
-                        _, mask = square(path, want_transformed=False)
-                    else:
-                        mask = predictor.predict(_plain_rgb(path)[1])
-                    Image.fromarray(finish(mask)).save(out_png)
+                self._tissue_folder(image_path, output_path, overwrite, fused, predictor,
+                                    finish)
                 return None, None
 
             with Image.open(image_path) as probe:
                 w, h = probe.size
             if w == h:
-                t, mask = square(image_path, want_transformed=True)
+                t, mask = fused(load_image(image_path, (size, size)), want_transformed=True)
+                t, mask = t.cpu().numpy(), mask.cpu().numpy()
                 decoded = Image.fromarray((np.clip(t, 0, 1) * 255).astype(np.uint8))
             else:
                 # non-square images skip the diffusion transform
                 decoded, arr = _plain_rgb(image_path)
                 mask = predictor.predict(arr)
             return decoded, finish(mask)
+
+    def _tissue_folder(self, image_path, output_path, overwrite, fused, predictor, finish):
+        """Folder mode of ``inference_tissue`` (its docstring)."""
+        size = self.image_size
+        pin = self.device.type == "cuda"
+        staging = [torch.empty((size, size, 3), pin_memory=pin) for _ in range(3)]
+        slots = [torch.empty((size, size), dtype=torch.uint8, pin_memory=pin)
+                 for _ in range(3)]
+        pending = collections.deque()  # (out_png, host mask or pinned slot, event)
+
+        def write(png, mask, done):
+            if done is not None:
+                done.synchronize()
+            mask = mask.numpy().copy() if isinstance(mask, torch.Tensor) else mask
+            Image.fromarray(finish(mask)).save(png)
+
+        squares = 0
+        for fn in sorted(os.listdir(image_path)):
+            out_png = os.path.join(output_path, os.path.splitext(fn)[0] + ".png")
+            if not overwrite and os.path.exists(out_png):
+                continue
+            path = os.path.join(image_path, fn)
+            with Image.open(path) as probe:
+                w, h = probe.size
+            if w == h:
+                # the buffers of square n - 3 are free: it left ``pending``
+                i = squares % 3
+                squares += 1
+                staging[i].numpy()[...] = load_image(path, (size, size))
+                slots[i].copy_(fused(staging[i], want_transformed=False), non_blocking=True)
+                done = None
+                if pin:
+                    done = torch.cuda.Event()
+                    done.record()
+                pending.append((out_png, slots[i], done))
+            else:
+                pending.append((out_png, predictor.predict(_plain_rgb(path)[1]), None))
+            if len(pending) >= 3:
+                write(*pending.popleft())
+        while pending:
+            write(*pending.popleft())
 
     def inference_cell(self, image_path, ldiffusion_weight, segmentor_weight, num_classes):
         """One ROI at the cell level (``ldiffusion_tpu/api.py:438-455``) →

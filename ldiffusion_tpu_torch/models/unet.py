@@ -8,6 +8,7 @@ the head size is channels // heads.
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Tuple
 
 import torch
@@ -149,7 +150,15 @@ class UNet2DCondition(nn.Module):
         output (diffusers' ``down_block_additional_residuals``).
         Returns the epsilon prediction (B, C_out, H, W), float32."""
         dtype = self.conv_in.weight.dtype
-        t = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
+        if isinstance(timesteps, torch.Tensor):
+            t = timesteps.to(sample.device).reshape(-1)
+        elif isinstance(timesteps, numbers.Number):
+            # a host number is filled in on the device: no host-to-device
+            # copy, which a captured program could not hold
+            t = torch.full((1,), timesteps, dtype=torch.as_tensor(timesteps).dtype,
+                           device=sample.device)
+        else:
+            t = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
         if t.shape[0] == 1 and sample.shape[0] > 1:
             t = t.expand(sample.shape[0])
         temb = self.time_embedding(

@@ -204,15 +204,26 @@ def _v1_fn():
 # The streamed route's scratch, one a device: group partials and mul/add,
 # and the per-batch-row counters the last CTA leaves at zero. Allocated (the
 # counters zeroed) once and grown when a call needs more; calls use it in
-# order on PyTorch's current stream.
+# order on PyTorch's current stream. A captured CUDA graph holds the
+# addresses of the workspace it ran with and replays leave its counters at
+# zero as eager calls do; a workspace outgrown is kept, never freed, since a
+# graph may still replay on it. Growing during a capture raises: the memory
+# would come from the graph's pool.
 _workspaces: dict = {}
+_outgrown: list = []
 
 
 def _workspace(device, b: int, n_chunks: int, groups: int, c: int):
     floats = 2 * b * n_chunks * groups + 2 * b * c
     ws = _workspaces.get(device)
     if ws is None or ws[0].numel() < floats or ws[1].numel() < b:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"groupnorm_silu: the streamed route's workspace must grow to {floats} floats "
+                f"and {b} counters during a CUDA graph capture; run the call eagerly first")
         grown = ws is not None
+        if grown:
+            _outgrown.append(ws)
         floats = max(floats, ws[0].numel() if grown else 0)
         counts = max(b, ws[1].numel() if grown else 0)
         ws = (torch.empty(floats, device=device, dtype=torch.float32),

@@ -153,8 +153,9 @@ def _act_quant(x, site=None):
         scale = _div127(amax)
         return _quantize(xf, scale), scale
     if site is not None and _MODE == "int8_static" and site in _STATIC_AMAX:
-        scale = torch.tensor(max(_STATIC_AMAX[site] * AMAX_MARGIN, 1e-8) / 127.0,
-                             dtype=torch.float32, device=x.device)
+        # filled in on the device: no host-to-device copy in a captured program
+        scale = torch.full((), max(_STATIC_AMAX[site] * AMAX_MARGIN, 1e-8) / 127.0,
+                           dtype=torch.float32, device=x.device)
         return _quantize(x.float(), scale), scale
     return _act_quant_subsampled(x)
 

@@ -10,10 +10,21 @@ default; the trainer variant's ``inference_mirror_config`` restricts them),
 average the folds' logits. ``network_forwards`` counts the network's inputs
 (tiles × flips × folds). The mask: plain argmax, or with a label manager its regime's
 conversion (regions paint in ``regions_class_order`` where the logit > 0;
-plain labels map the argmax through the label values). The mirrored copies
-of a tile run as one batch (InstanceNorm is per sample and a BatchNorm net
-evaluates with its running statistics, so this equals separate passes); the
-tile loop is a Python loop over device tensors.
+plain labels map the argmax through the label values), on the device with
+``torch.where`` and a label table made once. The mirrored copies of a tile
+run as one batch (InstanceNorm is per sample and a BatchNorm net evaluates
+with its running statistics, so this equals separate passes).
+
+``predict``, ``predict_logits`` and ``seg`` go through ``_run``, the
+counterpart of the JAX predictor's ``_run`` / ``_build_predict``
+(``:280-318``): z-score and pad, then one program per (padded shape, tile
+count, mode, crop) bucket in ``_predict_cache`` tiles, ensembles the folds
+and, for a mask, crops and label-maps. On a card a bucket's program runs
+eagerly at its first use and is a captured CUDA graph from its second
+(``core/graphs.py``; the predictor's programs share one memory pool); on the
+CPU it always runs eagerly. ``traced_seg`` is the same path without a
+program of its own, for a program that holds more (``api.py``'s fused
+tissue inference).
 
 BatchNorm checkpoints (nnUNetTrainerBN, a non-empty ``batch_stats``) build a
 BatchNorm DynUNet that evaluates with their running statistics. The JAX
@@ -24,6 +35,7 @@ queue 3); the port does not follow it there.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import itertools
 import os
@@ -34,6 +46,7 @@ import torch
 
 from ldiffusion_tpu_torch.core.checkpoint import load_pytree
 from ldiffusion_tpu_torch.core.device import resolve_device
+from ldiffusion_tpu_torch.core.graphs import Program
 from ldiffusion_tpu_torch.models.convert import dynunet_from_flax
 from ldiffusion_tpu_torch.models.dynunet import DynUNet
 from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3D
@@ -148,6 +161,14 @@ class SlidingWindowPredictor:
         self.gauss = torch.from_numpy(gaussian_importance_map(tuple(plan.patch_size))).to(
             self.device)
         self.network_forwards = 0
+        # the label regime's uint8 codes, on the device once
+        lm = label_manager
+        codes = None if lm is None else \
+            lm.regions_class_order if lm.has_regions else sorted(lm.all_labels)
+        self._codes = None if codes is None else \
+            torch.tensor(codes, dtype=torch.uint8, device=self.device)
+        self._predict_cache = {}  # bucket key → Program
+        self._pool = None
 
     @classmethod
     def from_checkpoints(cls, plan: SegPlan, paths: Sequence[str], **kw):
@@ -161,6 +182,13 @@ class SlidingWindowPredictor:
                 cfg = dataclasses.replace(cfg, norm="batch")
             sds.append(dynunet_from_flax(ck["params"], cfg, ck.get("batch_stats")))
         return cls(plan, sds, **kw)
+
+    def graph_pool(self):
+        """The memory pool of this predictor's captured programs (and of
+        programs that hold its path), made at first use on a card."""
+        if self._pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     def _tile_logits(self, net, tile):
         """(1, C, *patch) → (classes, *patch) float32, averaged over the flips."""
@@ -183,53 +211,92 @@ class SlidingWindowPredictor:
             wacc[win] += self.gauss
         return acc / wacc
 
-    def logits(self, image, normalize: bool = True):
-        """(*spatial, C) float tensor on the predictor's device → fold-averaged
-        blended logits (classes, *spatial)."""
+    def _padded(self, image, normalize: bool):
+        """(*spatial, C) float tensor → (float32 on the device, z-scored
+        when ``normalize``, zero-padded up to the patch; its spatial shape)."""
         image = image.to(self.device, torch.float32)
         if normalize:
             image = _zscore(image)
-        shape = image.shape[:-1]
-        patch = self.plan.patch_size
-        chw = image.movedim(-1, 0)
-        pads = [max(0, p - s) for p, s in zip(patch, shape)]
+        shape = tuple(image.shape[:-1])
+        pads = [max(0, p - s) for p, s in zip(self.plan.patch_size, shape)]
         if any(pads):
-            chw = torch.nn.functional.pad(chw, [v for p in reversed(pads) for v in (0, p)])
-        steps = [compute_steps(n, p, self.tile_step_size) for n, p in zip(chw.shape[1:], patch)]
-        positions = list(itertools.product(*steps))
+            image = torch.nn.functional.pad(image, [0, 0] + [v for p in reversed(pads)
+                                                             for v in (0, p)])
+        return image, shape
+
+    def _positions(self, padded) -> list:
+        steps = [compute_steps(n, p, self.tile_step_size)
+                 for n, p in zip(padded, self.plan.patch_size)]
+        return list(itertools.product(*steps))
+
+    def _ensembled(self, image, positions):
+        """Padded (*spatial, C) → fold-averaged blended logits (classes, *spatial)."""
+        chw = image.movedim(-1, 0)
         out = self._blended(self.nets[0], chw, positions)
         for net in self.nets[1:]:
             out = out + self._blended(net, chw, positions)
-        return (out / len(self.nets))[(slice(None),) + tuple(slice(0, s) for s in shape)]
+        return out / len(self.nets)
 
     def _to_seg(self, logits):
         """(classes, *spatial) → (*spatial) uint8 by the label regime, on the device."""
-        lm = self.label_manager
-        if lm is None:
+        if self.label_manager is None:
             return logits.argmax(dim=0).to(torch.uint8)
-        if lm.has_regions:  # sigmoid(x) > 0.5 ⇔ x > 0
+        if self.label_manager.has_regions:  # sigmoid(x) > 0.5 ⇔ x > 0
             seg = torch.zeros(logits.shape[1:], dtype=torch.uint8, device=logits.device)
-            for i, cls in enumerate(lm.regions_class_order):
-                seg[logits[i] > 0] = cls
+            for i in range(len(self._codes)):
+                seg = torch.where(logits[i] > 0, self._codes[i], seg)
             return seg
-        labels = torch.tensor(sorted(lm.all_labels), dtype=torch.uint8, device=logits.device)
-        return labels[logits.argmax(dim=0)]
+        return self._codes[logits.argmax(dim=0)]
+
+    def _bucket(self, positions, mode: str, crop, image):
+        """The program of one bucket: padded (*spatial, C) → logits
+        (classes, *padded), or the uint8 mask cropped to ``crop``."""
+        out = self._ensembled(image, positions)
+        if mode == "seg":
+            return self._to_seg(out[(slice(None),) + tuple(slice(0, s) for s in crop)])
+        return out
+
+    def _run(self, image, normalize: bool, mode: str):
+        """Shared pad/tile/dispatch through the bucket's program (module
+        docstring). Returns device tensors: logits (classes, *spatial) or
+        the (*spatial) uint8 mask, valid until the next program call."""
+        with torch.inference_mode():
+            image, shape = self._padded(image, normalize)
+            padded = tuple(image.shape[:-1])
+            positions = self._positions(padded)
+            key = (padded, len(positions), mode, shape if mode == "seg" else ())
+            program = self._predict_cache.get(key)
+            if program is None:
+                program = self._predict_cache[key] = Program(
+                    functools.partial(self._bucket, positions, mode, shape), self.device,
+                    self.graph_pool(), counted=[(self, "network_forwards")])
+            out = program(image)
+            if mode == "seg":
+                return out
+            return out[(slice(None),) + tuple(slice(0, s) for s in shape)]
+
+    def traced_seg(self, image, normalize: bool = True):
+        """(*spatial, C) tensor → (*spatial) uint8 mask: z-score, pad, window,
+        label map, with no program of its own (the JAX ``traced_seg``), for a
+        program that holds more."""
+        image, shape = self._padded(image, normalize)
+        logits = self._ensembled(image, self._positions(image.shape[:-1]))
+        return self._to_seg(logits[(slice(None),) + tuple(slice(0, s) for s in shape)])
 
     def seg(self, image, normalize: bool = True):
-        """(*spatial, C) tensor → (*spatial) uint8 segmentation, on the device (the
-        ``traced_seg`` counterpart: only the mask needs to reach the host)."""
-        with torch.inference_mode():
-            return self._to_seg(self.logits(image, normalize))
+        """(*spatial, C) tensor → (*spatial) uint8 segmentation on the device,
+        through the bucket's program (a copy of its output)."""
+        return self._run(image, normalize, "seg").clone()
 
     def predict_logits(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
         """(*spatial, C) numpy → (*spatial, classes) float32 numpy."""
-        with torch.inference_mode():
-            out = self.logits(torch.from_numpy(np.asarray(image, np.float32)), normalize)
-            return out.movedim(0, -1).cpu().numpy()
+        out = self._run(torch.from_numpy(np.asarray(image, np.float32)), normalize, "logits")
+        return out.movedim(0, -1).cpu().numpy()
 
     def predict(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
         """(*spatial, C) numpy → (*spatial) uint8 segmentation."""
-        return self.seg(torch.from_numpy(np.asarray(image, np.float32)), normalize).cpu().numpy()
+        return self._run(torch.from_numpy(np.asarray(image, np.float32)), normalize,
+                         "seg").cpu().numpy()
 
     def predict_probabilities(self, image: np.ndarray, normalize: bool = True) -> np.ndarray:
         """(*spatial, classes) probabilities under the regime's nonlinearity

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ldiffusion_tpu.ops import attention as jatt
@@ -86,9 +87,12 @@ def test_flash_bwd_fits_covers_both_routes():
 
 
 def _to_bhsd(x):
-    """(B, S, H, D) torch → (B·H, S, D) numpy, the JAX kernels' layout."""
+    """(B, S, H, D) torch → (B·H, S, D) numpy, the JAX kernels' layout, in
+    memory of its own: on the CPU ``jnp.asarray`` may alias a numpy buffer,
+    and a torch-owned one would then be read by XLA while it runs
+    asynchronously beside torch."""
     b, s, h, d = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b * h, s, d).numpy()
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d).numpy().copy()
 
 
 def _to_bshd(x, b, h):
@@ -110,7 +114,8 @@ def test_plain_attention_bwd_matches_xla_vjp_at_the_route_test_shape():
     scale = d ** -0.5
     out, lse = tatt.plain_attention_lse(q, k, v, scale)
     got = tatt.plain_attention_bwd(q, k, v, out, g, lse, scale)
-    want = jatt._xla_attention_bwd(*(jnp.asarray(_to_bhsd(x)) for x in (q, k, v, g)), scale)
+    want = jax.block_until_ready(jatt._xla_attention_bwd(
+        *(jnp.asarray(_to_bhsd(x)) for x in (q, k, v, g)), scale))
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.numpy(), _to_bshd(w, b, h).numpy(), atol=1e-5, rtol=1e-5)
 
@@ -127,6 +132,7 @@ def test_plain_attention_bwd_matches_pallas_k6_interpret_at_d80():
         jnp.asarray(lse.reshape(b * h, s, 1).numpy()),
         jnp.asarray(delta.reshape(b * h, s, 1).numpy()), scale, block_q=256, block_k=256,
         interpret=True)
+    want = jax.block_until_ready(want)
     got = tatt.plain_attention_bwd(q, k, v, out, g, lse, scale)
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.numpy(), _to_bshd(w, b, h).numpy(), atol=2e-4)

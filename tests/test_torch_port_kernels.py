@@ -630,3 +630,86 @@ def test_int8_codes_wait_in_host_memory_until_the_first_int8_forward(cuda):
     (codes, scales), bias = m._wq
     assert codes.device == scales.device == bias.device == m.weight.device
     assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
+
+
+def _tiny_predictor(device, dtype=torch.float32):
+    from ldiffusion_tpu_torch.models.dynunet import DynUNet
+    from ldiffusion_tpu_torch.models.layers import init_random_
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor
+
+    plan = SegPlan(patch_size=(32, 32), batch_size=2, features_per_stage=(8, 16, 32),
+                   strides=(1, 2, 2), n_conv_per_stage=2, num_classes=7, in_channels=3,
+                   normalization="zscore_image", intensity_properties={},
+                   median_shape=(64, 64), batch_dice=True)
+    sd = init_random_(DynUNet(plan.network_config()), torch.Generator().manual_seed(3))
+    return SlidingWindowPredictor(plan, [sd.state_dict()] * 2, dtype=dtype, device=device)
+
+
+def _launch_counts():
+    from ldiffusion_tpu_torch.core import graphs
+
+    return graphs._read(graphs.counters())
+
+
+@pytest.mark.gpu
+def test_captured_programs_replay_the_eager_first_use_bitwise(cuda):
+    """A tiny predictor's bucket (2 folds, 3 x 3 tiles) and a tiny fused
+    tissue program (the tiny SD components, f32): the first use runs eagerly,
+    the second captures and replays, the third replays; every replay's output
+    equals the eager one bit for bit, and each use raises the kernels'
+    launches by route and ``network_forwards`` by the same amounts."""
+    from ldiffusion_tpu_torch.api import LDiffusionModel
+    from ldiffusion_tpu_torch.core import graphs
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents, trajectory_text_emb
+
+    pred = _tiny_predictor(cuda)
+    rng = np.random.default_rng(4)
+    image = rng.random((64, 64, 3)).astype(np.float32)
+    comps = SDComponents.random(device=cuda)
+    model = LDiffusionModel("random:tiny", "tissue", components=comps, device=cuda)
+    with torch.inference_mode():
+        fused = model._make_fused_predict(pred, trajectory_text_emb(comps, 1))
+    img_norm = torch.from_numpy(rng.normal(size=(64, 64, 3)).astype(np.float32))
+    cases = [("bucket", lambda: pred.predict(image), lambda: pred._predict_cache),
+             ("fused", lambda: [t.cpu() for t in fused(img_norm, want_transformed=True)],
+              lambda: fused.programs)]
+    for name, call, cache in cases:
+        outs, deltas = [], []
+        for _ in range(3):
+            before, forwards = _launch_counts(), pred.network_forwards
+            out = call()
+            torch.cuda.synchronize()
+            deltas.append((graphs._diff(_launch_counts(), before),
+                           pred.network_forwards - forwards))
+            outs.append(out)
+        (program,) = cache().values()
+        assert program.graph is not None and program.replays == 2, name
+        assert deltas[1] == deltas[0] and deltas[2] == deltas[0], (name, deltas)
+        assert deltas[0][1] > 0, name
+        for out in outs[1:]:
+            for a, b in zip(out if isinstance(out, list) else [out],
+                            outs[0] if isinstance(outs[0], list) else [outs[0]]):
+                assert np.array_equal(np.asarray(a), np.asarray(b)), name
+    # the fused program launched the port's kernels, each use the same count
+    launched = dict(zip([getattr(o, "__name__", "") + "." + a for o, a in graphs.counters()],
+                        deltas[0][0]))
+    assert launched["groupnorm_silu.launches"] > 0
+
+
+@pytest.mark.gpu
+def test_a_capture_that_fails_raises(cuda, monkeypatch):
+    """No fallback: a capture that would grow the streamed GroupNorm's
+    workspace (memory the graph's pool would own) raises, and the program
+    holds no graph."""
+    from ldiffusion_tpu_torch.core.graphs import Program
+
+    x = torch.randn(1, 7, 9, 6, device=cuda)  # 24-byte rows: the streamed route
+    assert tgn.gn_route(1, 63, 6, 2, torch.float32, True) == "stream"
+    scale, bias = torch.ones(6, device=cuda), torch.zeros(6, device=cuda)
+    program = Program(lambda t: tgn.groupnorm_silu(t, scale, bias, groups=2), cuda)
+    program(x)  # eager: the workspace grows here
+    monkeypatch.setattr(tgn, "_workspaces", {})  # as if it never had
+    with pytest.raises(RuntimeError, match="workspace"):
+        program(x)
+    assert program.graph is None
