@@ -46,7 +46,9 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               predictor's first use), the decoded image and mask of a
               transform-keeping program's two replays to its eager first
               use, and a capture that would grow the GroupNorm workspace
-              raises. Figures (``full`` line): single and folder s/ROI,
+              raises, and so does a training program's (a draw from a
+              registered generator, backward, an update) whose capture
+              would. Figures (``full`` line): single and folder s/ROI,
               programs, graphs captured, replays and capture seconds, one
               profiled folder run's idle share, the allocated and reserved
               peaks, launches per ROI.
@@ -57,10 +59,22 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               ``LDiffusionModel.train(component="ldiffusion")`` on synthetic
               PNG pairs, 3 steps, and the saved UNet read back by
               ``inference_tissue``; (b) 512² images with 64² labels through
-              ``DiffusionWarmupTrainer``, 3 steps. Counters are reset before
-              (a) and read after (b), every bf16 forward and backward launch
-              on the wgmma route, every GroupNorm launch on its gn_route
-              route; one step of each size is profiled.
+              ``DiffusionWarmupTrainer``, 5 steps. Each step is one program
+              (core/graphs.py): the first eager, the second captured as a
+              CUDA graph, the rest replays. Counters are reset before (a)
+              and read after (b), replays counted, every bf16 forward and
+              backward launch on the wgmma route, every GroupNorm launch on
+              its gn_route route, each replayed 512² step launching what the
+              eager one did (K6: K6_PER_STEP_512); one 512² replay profiled.
+              Then (c) at 64² and SD-v1.5 width, TRAIN_ROUTE_STEPS steps
+              through ``train_step`` against as many ``step_fn`` calls (the
+              eager route) from the same weights and generator seed: losses,
+              gradient norms, masters and AdamW moments bit-equal or within
+              twice the difference between two eager runs (printed beside
+              them); one 64² replay profiled. Figures (``train_*`` lines):
+              the eager, captured and replayed s/step, capture s, the
+              allocated and reserved peaks, the profiled replays' idle
+              share.
   6. seg:     one stage-2 step at a tiny plan in f32 on cuda against the same
               step on the CPU (same weights and patches, DA off), and the
               device DA stack on both with the same drawn parameters; then
@@ -71,9 +85,14 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               reset before, read after: every forward launch on wgmma, every
               GroupNorm launch on its gn_route route), the 1024²/7-class plan,
               2 epochs × 4 iterations in bf16 (every crop and spatial
-              resample on the native route), validation; the written
-              segmentor read back by ``inference_tissue``; one iteration
-              profiled.
+              resample on the native route; the train and validation steps
+              programs: eager, captured, then replayed through the epoch
+              loop), validation; the written segmentor read back by
+              ``inference_tissue``. Then SEG_ROUTE_STEPS train steps and 2
+              validation steps at that plan replayed against the step
+              functions called eagerly from the same parameters, momentum
+              and generator state (bit-equal or within twice the eager
+              spread); one replayed iteration profiled.
   7. cell:    11 classes. SD-v1.5-width bf16 components from seeded random
               weights written as a diffusers-layout safetensors directory
               (own writer, tokenizer files), read back by
@@ -114,13 +133,16 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               CPU (>= 99.5%). Figures (``cli`` line): each command's wall
               seconds, s/iteration, peak memory, host ms a batch, validation
               s/case, predict s/ROI (from each run's ``timing`` log lines),
-              DA5 device ms a batch, and one profiled iteration of A and B.
+              DA5 device ms a batch, and one profiled iteration of A and B
+              (a replay of the step's program, after the eager and the
+              captured iteration; the runs' iterations replay too).
   9. workflow: the nnU-Net workflow after training, on run A (Dataset001,
               the 1024²/7-class plan, nnUNetTrainerDA5; the cli phase's
               datasets, plans, fold 0 and fold-0 predictions when it ran in
               this invocation, else built here the same way). As user
-              processes: train -f 1; find_best_configuration -c 2d (each
-              fold predicts its own validation cases on the card);
+              processes: train -f 1 (one epoch); through cli.main,
+              find_best_configuration -c 2d (each fold predicts its own
+              validation cases on the card); as processes,
               predict_from_modelfolder -f 0 1 -chk checkpoint_final.pkl
               --save_probabilities and predict with the same folds, side by
               side (masks bit-equal). Through cli.main in this process:
@@ -135,8 +157,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               convert_msd and convert_old_dataset on small generated inputs;
               predict_from_modelfolder of the installed model, profiled, with
               cuDNN's TF32 as users have it (masks bit-equal to the user
-              process's); train -f 1 --epochs 3 --c (the resume from epoch
-              2, the loaded momentum bit-equal to the checkpoint's). Also the
+              process's); train -f 1 --epochs 2 --c (the resume from epoch
+              1, the loaded momentum bit-equal to the checkpoint's). Also the
               device-side rotation + scaling of augment_batch on the card
               against the CPU from the same draws (data 1e-4, labels >=
               99.5%). Figures
@@ -156,8 +178,9 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               32-320 features; 3d_lowres (112,96,96); the cascade), train -c
               3d_lowres, 3d_cascade_fullres (1 + 2 input channels, fed by the
               lowres stage), 3d_fullres (one epoch of VOL_ITERS iterations
-              each), predict -c 3d_fullres and -c 3d_cascade_fullres on the
-              test volume, evaluate_folder on fold 0's validation. Gates: the
+              each), predict -c 3d_cascade_fullres on the test volume (the
+              fullres net predicts in its own validation), evaluate_folder on
+              fold 0's validation (through cli.main). Gates: the
               plans, every 3D crop and resample native, finite losses, masks
               of the input's shape with labels in {0, 1, 2}, the cascade's
               cache and its log lines. Figures (``vol`` line): s/iteration,
@@ -1023,26 +1046,46 @@ def program_stats(caches) -> dict:
 
 def forced_capture_failure():
     """A capture that must fail raises, and nothing falls back: the streamed
-    GroupNorm's workspace may not grow while a CUDA graph is captured."""
+    GroupNorm's workspace may not grow while a CUDA graph is captured. Both
+    kinds of program: an inference one, and a training step (a draw from a
+    registered generator, forward, backward, an update)."""
     import torch
 
-    from ldiffusion_tpu_torch.core.graphs import Program
+    from ldiffusion_tpu_torch.core.graphs import Program, TrainProgram
     from ldiffusion_tpu_torch.ops import groupnorm as tgn
 
     x = torch.randn(1, 7, 9, 6, device="cuda")  # 24-byte rows: the streamed route
     one, zero = torch.ones(6, device="cuda"), torch.zeros(6, device="cuda")
-    program = Program(lambda t: tgn.groupnorm_silu(t, one, zero, groups=2), "cuda")
-    program(x)
-    kept, tgn._workspaces = tgn._workspaces, {}
-    try:
+    w = torch.ones(6, device="cuda", requires_grad=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def train(t):
+        noisy = t + torch.rand(t.shape, generator=gen, device="cuda")
+        loss = tgn.groupnorm_silu_trainable(noisy, w, zero, groups=2).square().mean()
+        loss.backward()
+        with torch.no_grad():
+            w.sub_(0.1 * w.grad)
+        w.grad = None
+        return loss.detach()
+
+    raised = {}
+    for kind, program in (
+            ("inference", Program(lambda t: tgn.groupnorm_silu(t, one, zero, groups=2), "cuda")),
+            ("training", TrainProgram(train, "cuda", generators=[gen]))):
         program(x)
-    except RuntimeError as e:
-        if "workspace" not in str(e) or program.graph is not None:
-            raise
-        return str(e).split(";")[0]
-    finally:
-        tgn._workspaces = kept
-    raise AssertionError("full: a capture that grows the GroupNorm workspace did not raise")
+        kept, tgn._workspaces = tgn._workspaces, {}
+        try:
+            program(x)
+        except RuntimeError as e:
+            if "workspace" not in str(e) or program.graph is not None:
+                raise
+            raised[kind] = str(e).split(";")[0]
+        finally:
+            tgn._workspaces = kept
+        if kind not in raised:
+            raise AssertionError(f"full: a {kind} capture that grows the GroupNorm workspace "
+                                 "did not raise")
+    return raised
 
 
 def phase_full(work, seed):
@@ -1234,6 +1277,7 @@ TINY_TRAIN_TOL = {"loss": 1e-4, "grads": 1e-3, "exp_avg": 1e-3, "exp_avg_sq": 2e
 # 512² images: 10 self-attentions of >= 512 keys per UNet pass (4096 tokens:
 # 2 down + 3 up; 1024 tokens: 2 down + 3 up) x 6 timesteps
 K6_PER_STEP_512 = 60
+TRAIN_512_STEPS = 5  # eager, captured, 3 replays
 
 
 def train_labels(rng, size=64, classes=7):
@@ -1336,16 +1380,107 @@ def sd15_components(seed, dtype):
 
 
 def step_summary(trainer, launches):
+    """A trainer's steps: the first eager, the second captured, the rest
+    replays of its program (``core/graphs.py``)."""
     import numpy as np
 
     hist = trainer.history
     n = len(hist)
+    programs = [p for p in trainer.program.programs.values() if p.graph is not None]
     return {"steps": n, "losses": [h["loss"] for h in hist],
             "contents": [h["content"] for h in hist],
             "grad_norms": [h["grad_norm"] for h in hist],
             "step_s": [h["seconds"] for h in hist],
-            "s_per_step_median_steps_2_3": float(np.median([h["seconds"] for h in hist[1:3]])),
+            "eager_step_s": hist[0]["seconds"], "capture_step_s": hist[1]["seconds"],
+            "s_per_step_median_replays": float(np.median([h["seconds"] for h in hist[2:]])),
+            "capture_s": sum(p.capture_s for p in programs),
+            "replays": sum(p.replays for p in programs),
             "launches_per_step": {k: v / n for k, v in launches.items()}}
+
+
+TRAIN_ROUTE_STEPS = 4
+TRAIN_ROUTE_KEYS = ("loss", "content", "contrast", "grad_norm")
+
+
+def max_abs_diff(a: list, b: list) -> float:
+    """Largest |a - b| over paired tensors (one host read)."""
+    import torch
+
+    return float(torch.stack([(x.float() - y.float()).abs().max() for x, y in zip(a, b)]).max())
+
+
+def train_route_check(seed):
+    """The 64² reference configuration at SD-v1.5 width: ``TRAIN_ROUTE_STEPS``
+    steps through ``train_step`` (eager, captured, replays; the Laplace and
+    contrastive draws inside the graph) against as many calls of
+    ``step_fn`` (the eager route), from the same weights and generator seed.
+    Losses, gradient norms, masters and AdamW moments must be bit-equal, or
+    within twice the difference between two eager runs from that state
+    (kernels whose sums take no fixed order), which is measured and printed
+    beside them. Then one replay, profiled."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    tr = DiffusionWarmupTrainer(sd15_components(seed + 4, torch.float32),
+                                DiffusionTrainConfig(num_inference_steps=25, num_classes=7))
+    rng = np.random.default_rng(seed + 4)
+    batches = [tr_batch(rng, 64) for _ in range(TRAIN_ROUTE_STEPS)]
+    start = [m.detach().clone() for m in tr.master]
+
+    def run(captured: bool):
+        with torch.no_grad():  # back to the first state: weights, AdamW, generator, programs
+            for m, p, s0 in zip(tr.master, tr.params, start):
+                m.copy_(s0)
+                p.copy_(s0)
+        tr.opt.state.clear()
+        tr.generator.manual_seed(tr.cfg.seed)
+        tr.program.programs.clear()
+        values = []
+        t0 = time.perf_counter()
+        for images, labels in batches:
+            if captured:
+                m = tr.train_step(images, labels)
+                values.append([m[k] for k in TRAIN_ROUTE_KEYS])
+            else:
+                out = tr.step_fn(torch.as_tensor(images, device="cuda"),
+                                 torch.as_tensor(labels, device="cuda").long())
+                values.append(torch.stack(out).tolist())
+        torch.cuda.synchronize()
+        st = tr.opt.state
+        return time.perf_counter() - t0, {
+            "values": [torch.tensor(values)], "masters": list(tr.master),
+            "exp_avg": [st[m]["exp_avg"] for m in tr.master],
+            "exp_avg_sq": [st[m]["exp_avg_sq"] for m in tr.master]}
+
+    eager_s, first = run(False)
+    first = {k: [t.clone() for t in ts] for k, ts in first.items()}
+    eager_again_s, again = run(False)
+    spread = {k: max_abs_diff(again[k], first[k]) for k in first}
+    del again
+    captured_s, got = run(True)
+    diff = {k: max_abs_diff(got[k], first[k]) for k in first}
+    (program,) = tr.program.programs.values()
+    row = {"images": [64, 64], "steps": TRAIN_ROUTE_STEPS,
+           "losses": first["values"][0][:, 0].tolist(),
+           "captured_vs_eager_max_abs": diff, "eager_vs_eager_max_abs": spread,
+           "bit_equal": all(v == 0.0 for v in diff.values()),
+           "bound": "bit-equal, or at most twice the eager-vs-eager difference",
+           "wall_s": {"eager": eager_s, "eager_again": eager_again_s, "programs": captured_s},
+           "capture_s": program.capture_s, "replays": program.replays}
+    del first, got
+    row["profiled_replay"] = device_profile(lambda: tr.train_step(*batches[0]))
+    row["profiled_replay_is_a_replay"] = program.replays == TRAIN_ROUTE_STEPS
+    log("train_64_route", json.dumps(row))
+    bad = {k: (diff[k], spread[k]) for k in diff if not diff[k] <= 2 * spread[k]}
+    if bad or not row["profiled_replay_is_a_replay"]:
+        raise AssertionError(f"train 64²: the captured steps left the eager route: {bad}")
+    del tr, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_train(work, seed):
@@ -1418,7 +1553,7 @@ def phase_train(work, seed):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) 512² images, 64² labels, through the trainer
+    # (b) 512² images, 64² labels, through the trainer: eager, captured, 3 replays
     comps = sd15_components(seed + 1, torch.float32)
     trainer = DiffusionWarmupTrainer(comps, DiffusionTrainConfig(num_inference_steps=25,
                                                                  num_classes=7),
@@ -1429,13 +1564,17 @@ def phase_train(work, seed):
     images = load_image(img, (512, 512))[None]
     labels = train_labels(rng)[None]
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the 64² run's blocks: the reserved peak is the 512² step's
     torch.cuda.reset_peak_memory_stats()
     counts_before = read_counters()
     routes_before = read_routes()
     shapes_before = dict(gn_watch.shapes)
     mark("512_setup")
-    for _ in range(3):
+    per_step = []
+    for _ in range(TRAIN_512_STEPS):
+        before = read_counters()
         trainer.train_step(images, labels)
+        per_step.append({k: n - before[k] for k, n in read_counters().items()})
     torch.cuda.synchronize()
     mark("512_steps")
     total = read_counters()  # the training main path ends here
@@ -1443,33 +1582,46 @@ def phase_train(work, seed):
     gn_watch.__exit__(None, None, None)
     check_bf16_routes("train", routes)
     gn_watch.check("train", routes)
-    gn_shapes_512 = {k: (n - shapes_before.get(k, 0)) / 3 for k, n in gn_watch.shapes.items()
-                     if n > shapes_before.get(k, 0)}
+    n = TRAIN_512_STEPS
+    gn_shapes_512 = {k: (c - shapes_before.get(k, 0)) / n for k, c in gn_watch.shapes.items()
+                     if c > shapes_before.get(k, 0)}
     launches_512 = {k: total[k] - counts_before[k] for k in total}
     bwd_wgmma_512 = (routes["flash_attention_bwd"]["wgmma"]
                      - routes_before["flash_attention_bwd"]["wgmma"])
     row_b = {"images": [512, 512], "labels": [64, 64],
              "dtype": "bfloat16 compute, float32 masters",
              "peak_bytes": torch.cuda.max_memory_allocated(),
+             "max_memory_reserved": torch.cuda.max_memory_reserved(),
              **step_summary(trainer, launches_512),
+             "launches_each_step": per_step,
              "launches_by_route_64_and_512": routes,
              "groupnorm_shapes_per_step": gn_shapes_512,
              "params_moved": not torch.equal(trainer.master[0], w0)}
-    row_b["profiled_step"] = device_profile(lambda: trainer.train_step(images, labels))
+    (program,) = trainer.program.programs.values()
+    replays = program.replays
+    row_b["profiled_replay"] = device_profile(lambda: trainer.train_step(images, labels))
+    row_b["profiled_replay_is_a_replay"] = program.replays == replays + 1
     log("train_512", json.dumps(row_b))
-    # one 64² step of the same trainer, profiled (the reference configuration's shapes)
-    log("train_64_profiled_step",
-        json.dumps(device_profile(lambda: trainer.train_step(*tr_batch(rng, 64)))))
-    mark("profiled_steps")
+    mark("512_profiled_replay")
+    del trainer, comps
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_route_check(seed)
+    mark("64_route_check")
     log("train_sections_s", json.dumps(sections))
     if not (all(np.isfinite(row_b["losses"])) and row_b["params_moved"]):
         raise AssertionError(f"train 512²: {row_b}")
-    if launches_512["flash_attention_bwd"] != 3 * K6_PER_STEP_512 or \
-            bwd_wgmma_512 != 3 * K6_PER_STEP_512:
-        raise AssertionError(f"train 512²: flash_attention_bwd launched "
-                             f"{launches_512['flash_attention_bwd']} times in 3 steps, "
+    if not row_b["profiled_replay_is_a_replay"] or replays != n - 1:
+        raise AssertionError(f"train 512²: {replays} replays in {n} steps, the profiled step "
+                             f"a replay: {row_b['profiled_replay_is_a_replay']}")
+    if any(step != per_step[0] for step in per_step[2:]) or \
+            launches_512["flash_attention_bwd"] != n * K6_PER_STEP_512 or \
+            bwd_wgmma_512 != n * K6_PER_STEP_512:
+        raise AssertionError(f"train 512²: the replays launched {per_step[2:]}, the eager step "
+                             f"{per_step[0]}; flash_attention_bwd "
+                             f"{launches_512['flash_attention_bwd']} times in {n} steps, "
                              f"{bwd_wgmma_512} on the wgmma route, expected "
-                             f"{3 * K6_PER_STEP_512}")
+                             f"{n * K6_PER_STEP_512}")
     if min(launches_512.values()) == 0:
         raise AssertionError(f"train 512²: a kernel was not launched: {launches_512}")
     return total, routes
@@ -1566,6 +1718,80 @@ def phase_seg_tiny(work, seed):
     return row
 
 
+SEG_ROUTE_STEPS = 3
+
+
+def seg_route_check(tr, rng):
+    """The 1024² plan's train and validation steps (the device DA on):
+    ``SEG_ROUTE_STEPS`` train steps replayed through the program the epoch
+    loop captured, against as many ``step_fn`` calls (the eager route) from
+    the same parameters, momentum and generator state, and 2 validation
+    steps replayed against ``_val_counts``: bit-equal, or within twice the
+    difference between two eager runs (measured and printed). Also each
+    route's allocated peak over those steps."""
+    import numpy as np
+    import torch
+
+    shape = (tr.plan.batch_size, *tr.plan.patch_size)
+    batches = [(rng.normal(size=(*shape, 3)).astype(np.float32),
+                np.stack([train_labels(rng, shape[1]) for _ in range(shape[0])]))
+               for _ in range(SEG_ROUTE_STEPS + 2)]
+    params = list(tr.net.parameters())
+    start = [p.detach().clone() for p in params]
+    start_momentum = [tr.opt.state[p]["momentum_buffer"].clone() for p in params]
+    gen_state = tr.generator.get_state()
+    (train,), (val,) = tr.train_program.programs.values(), tr.val_program.programs.values()
+    replays = (train.replays, val.replays)
+
+    peaks = {}
+
+    def run(captured: bool):
+        with torch.no_grad():
+            for p, p0, m0 in zip(params, start, start_momentum):
+                p.copy_(p0)
+                tr.opt.state[p]["momentum_buffer"].copy_(m0)
+        tr.generator.set_state(gen_state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.net.train()
+        losses = []
+        for data, seg in batches[:SEG_ROUTE_STEPS]:
+            if captured:
+                losses.append(float(tr.train_step(data, seg, lr=1e-3)))
+            else:
+                rate = torch.full((), 1e-3, dtype=torch.float32, device="cuda")
+                losses.append(float(tr.step_fn(*tr._to_device(data, seg), rate)[0]))
+        tr.net.eval()
+        counts = []
+        with torch.no_grad():
+            for data, seg in batches[SEG_ROUTE_STEPS:]:
+                out = tr.val_step(data, seg) if captured else \
+                    tr._val_counts(*tr._to_device(data, seg))
+                counts.extend(t.clone() for t in out)
+        torch.cuda.synchronize()
+        peaks["programs" if captured else "eager"] = torch.cuda.max_memory_allocated()
+        return {"losses": [torch.tensor(losses)], "validation": counts,
+                "params": [p.detach().clone() for p in params],
+                "momentum": [tr.opt.state[p]["momentum_buffer"].clone() for p in params]}
+
+    first = run(False)
+    spread = {k: max_abs_diff(v, first[k]) for k, v in run(False).items()}
+    diff = {k: max_abs_diff(v, first[k]) for k, v in run(True).items()}
+    row = {"steps": SEG_ROUTE_STEPS, "validation_steps": 2,
+           "captured_vs_eager_max_abs": diff, "eager_vs_eager_max_abs": spread,
+           "bit_equal": all(v == 0.0 for v in diff.values()),
+           "replayed": [train.replays - replays[0], val.replays - replays[1]],
+           "epoch_loop_replays": {"train": replays[0], "validation": replays[1]},
+           "capture_s": {"train": train.capture_s, "validation": val.capture_s},
+           "max_memory_allocated_by_route": peaks,
+           "memory_reserved": torch.cuda.memory_reserved()}
+    bad = {k: (diff[k], spread[k]) for k in diff if not diff[k] <= 2 * spread[k]}
+    if bad or row["replayed"] != [SEG_ROUTE_STEPS, 2]:
+        raise AssertionError(f"seg: the captured steps left the eager route: {bad}, "
+                             f"replayed {row['replayed']}")
+    return row
+
+
 def seg_pairs(root, n, rng, size=1024):
     """n synthetic size² ROI/label PNG pairs, labels in the tissue pixel code."""
     import argparse as ap
@@ -1649,9 +1875,19 @@ def phase_seg(work, seed):
 
     tr = model.seg_trainer
     prep = model.prepare_seconds
+    epochs = len(tr.epoch_log.data["epoch_time"])
+    (train_program,) = tr.train_program.programs.values()
+    (val_program,) = tr.val_program.programs.values()
+    loop_replays = {"train": train_program.replays, "validation": val_program.replays}
+    # the first use runs eagerly; the capture replays once, every later use again
+    if loop_replays != {"train": epochs * cfg.iters_per_epoch - 1,
+                        "validation": epochs * cfg.val_iters_per_epoch - 1}:
+        raise AssertionError(f"seg: the epoch loop replayed {loop_replays} in {epochs} epochs")
+    route = seg_route_check(tr, rng)
     batch = (rng.normal(size=(2, 1024, 1024, 3)).astype(np.float32),
              np.stack([train_labels(rng, 1024), train_labels(rng, 1024)]))
-    prof = device_profile(lambda: tr.train_step(*batch, lr=1e-3))
+    tr.net.train()
+    prof = device_profile(lambda: tr.train_step(*batch, lr=1e-3))  # a replay
     row = {"plan": {"patch": list(plan.patch_size), "batch": plan.batch_size,
                     "features": list(plan.features_per_stage)},
            "rois": prep["rois"], "epochs": len(tr.epoch_log.data["epoch_time"]),
@@ -1661,7 +1897,9 @@ def phase_seg(work, seed):
            "dataset_build_s_per_roi": prep["dataset_build_s"] / prep["rois"],
            "plan_and_preprocess_s": prep["plan_and_preprocess_s"],
            "s_per_iteration_median_after_first": float(np.median(tr.iter_seconds[1:])),
-           "iteration_s": tr.iter_seconds,
+           "s_per_iteration_median_replays": float(np.median(tr.iter_seconds[2:])),
+           "iteration_s": tr.iter_seconds, "epoch_loop_replays": loop_replays,
+           "route_check": route,
            "s_per_epoch_without_checkpoints": tr.epoch_log.data["epoch_time"],
            "checkpoint_write_s": tr.checkpoint_seconds,
            "checkpoint_bytes": os.path.getsize(os.path.join(fold, "checkpoint_final.pkl")),
@@ -1669,6 +1907,7 @@ def phase_seg(work, seed):
            "host_ms_per_batch_sampling_and_spatial_da": float(
                np.median(tr.host_batch_seconds[1:]) * 1e3),
            "train_call_s": train_s, "max_memory_allocated": peak,
+           "max_memory_reserved": torch.cuda.max_memory_reserved(),
            "train_losses": tr.epoch_log.data["train_loss"],
            "val_foreground_dice": fg_dice,
            "launches": launches, "launches_by_route": routes,
@@ -2232,6 +2471,7 @@ def cli_run_figures(fold_dir, commands):
     check_native_routes(f"cli ({fold_dir})", routes, NATIVE_2D)
     return {"commands_s": commands,
             "s_per_iteration_median_after_first": float(np.median(train["iteration_s"][1:])),
+            "s_per_iteration_median_replays": float(np.median(train["iteration_s"][2:])),
             "iteration_s": train["iteration_s"],
             "host_ms_per_batch_median_after_first": float(
                 np.median(train["host_batch_s"][1:]) * 1e3),
@@ -2266,7 +2506,8 @@ def cli_check_npz(out_dir, regions: bool):
 
 def cli_profile_iteration(plan_path, variant_name, dataset_json, seed):
     """One profiled training iteration of a run's recipe, plan and label
-    regime (after one warm-up iteration), on a synthetic batch."""
+    regime, on a synthetic batch: a replay of its program (after the eager
+    iteration and the captured one)."""
     import numpy as np
     import torch
 
@@ -2286,9 +2527,14 @@ def cli_profile_iteration(plan_path, variant_name, dataset_json, seed):
         shape = (plan.batch_size, *plan.patch_size)
         batch = (rng.normal(size=(*shape, 3)).astype(np.float32),
                  np.stack([train_labels(rng, plan.patch_size[0]) for _ in range(shape[0])]))
-        tr.train_step(*batch, lr=1e-3)
+        for _ in range(2):
+            tr.train_step(*batch, lr=1e-3)
+        (program,) = tr.train_program.programs.values()
         prof = device_profile(lambda: tr.train_step(*batch, lr=1e-3))
-        del tr
+        prof.update(replays=program.replays, capture_s=program.capture_s)
+        if program.replays != 2:
+            raise AssertionError(f"cli: the profiled iteration was not a replay: {prof}")
+        del tr, program
     gc.collect()
     torch.cuda.empty_cache()
     return prof
@@ -2620,7 +2866,7 @@ def phase_workflow(work, seed):
 
     # ---- 2-4: the second fold, the cross-validation summary, the best configuration
     user("train fold 1", "train", "-d", "1", "-c", "2d", "-f", "1", "-tr", WF_TRAINER,
-         "--epochs", "2", "--iters", "4", "--npz")
+         "--epochs", "1", "--iters", "4", "--npz")
     cv = inproc("accumulate_crossval_results", "accumulate_crossval_results", "-m", cfg_dir)
     per_fold = []
     for f in (0, 1):
@@ -2630,8 +2876,8 @@ def phase_workflow(work, seed):
             not math.isfinite(cv["foreground_mean"]["Dice"]):
         raise AssertionError(f"workflow: the CV summary holds {len(cv['metric_per_case'])} "
                              f"cases (folds {per_fold}), Dice {cv['foreground_mean']['Dice']}")
-    user("find_best_configuration", "find_best_configuration", "-d", "1", "-c", "2d",
-         "-tr", WF_TRAINER)
+    inproc("find_best_configuration", "find_best_configuration", "-d", "1", "-c", "2d",
+           "-tr", WF_TRAINER, "--raw", raw, "--preprocessed", pp, "--results", res)
     with open(os.path.join(res, "Dataset001_Ignore", "inference_information.json")) as f:
         info = json.load(f)
     if info["best_configuration"] != "2d" or not math.isfinite(info["score"]) or \
@@ -2768,15 +3014,15 @@ def phase_workflow(work, seed):
         raise AssertionError("workflow: the loaded momentum is not the checkpoint's "
                              f"(max |m| {momentum_max})")
     inproc("train --c", "train", "-d", "1", "-c", "2d", "-f", "1", "-tr", WF_TRAINER,
-           "--epochs", "3", "--iters", "4", "--c", "--raw", raw, "--preprocessed", pp,
+           "--epochs", "2", "--iters", "4", "--c", "--raw", raw, "--preprocessed", pp,
            "--results", res)
     with open(os.path.join(cfg_dir, "fold_1", "training_log.txt")) as f:
-        resumed = "resumed from checkpoint_latest.pkl at epoch 2" in f.read()
+        resumed = "resumed from checkpoint_latest.pkl at epoch 1" in f.read()
     ck3 = load_pytree(os.path.join(cfg_dir, "fold_1", "checkpoint_final.pkl"))
     losses = ck3["logger"]["data"]["train_loss"]
     m3, m2 = (flatten_tree(c["opt_state"]["momentum"]) for c in (ck3, ck))
     moved = max(float(np.abs(m3[k] - m2[k]).max()) for k in m2)
-    if not resumed or ck3["epoch"] != 3 or len(losses) != 3 or \
+    if not resumed or ck3["epoch"] != 2 or len(losses) != 2 or \
             not all(math.isfinite(v) for v in losses) or not moved > 0:
         raise AssertionError(f"workflow: --c resumed {resumed}, epoch {ck3['epoch']}, losses "
                              f"{losses}, momentum moved {moved}")
@@ -2843,7 +3089,7 @@ def phase_workflow(work, seed):
 VOL_TRAIN = 4                      # training volumes (fold 0: 3 train, 1 validation)
 VOL_SHAPE = (160, 256, 256)        # float32, 42 MB a volume
 VOL_SPACING = (2.5, 0.8, 0.8)      # anisotropic: 3.125 > ANISO_THRESHOLD, separate-z
-VOL_ITERS = 24                     # iterations of the one epoch of each configuration
+VOL_ITERS = 12                     # iterations of the one epoch of each configuration
 VOL_FULLRES = ((80, 128, 128), 2, (32, 64, 128, 256, 320, 320))
 VOL_LOWRES_PATCH = (112, 96, 96)
 VOL_MAX_FEATURES = 320             # the planner's 3D width (MAX_FEATURES_3D)
@@ -2989,6 +3235,7 @@ def phase_vol(work, seed):
     import numpy as np
 
     from ldiffusion_tpu_torch.core.checkpoint import load_pytree
+    from ldiffusion_tpu_torch.segmentor import cli
     from ldiffusion_tpu_torch.segmentor.plans_file import PlansFile
 
     tiny = vol_tiny(work, seed)
@@ -3018,14 +3265,17 @@ def phase_vol(work, seed):
     for cfg in ("3d_lowres", "3d_cascade_fullres", "3d_fullres"):
         user(f"train {cfg}", "train", *did, "-c", cfg, "-f", "0", *iters)
     preds = {}
-    for cfg in ("3d_fullres", "3d_cascade_fullres"):
+    for cfg in ("3d_cascade_fullres",):  # the fullres net predicts in its own validation
         preds[cfg] = os.path.join(work, f"vol_pred_{cfg}")
         user(f"predict {cfg}", "predict", "-i", os.path.join(ds, "imagesTs"), "-o", preds[cfg],
              *did, "-c", cfg, "-f", "0")
     fold_full = os.path.join(res, "Dataset300_Vol3D", "nnUNetTrainer__ldPlans__3d_fullres",
                              "fold_0")
-    user("evaluate_folder", "evaluate_folder", os.path.join(fold_full, "validation_gt"),
-         os.path.join(fold_full, "validation"), "-djfile", os.path.join(ds, "dataset.json"))
+    t0 = time.perf_counter()  # a host command: in this process
+    cli.main(["evaluate_folder", os.path.join(fold_full, "validation_gt"),
+              os.path.join(fold_full, "validation"), "-djfile",
+              os.path.join(ds, "dataset.json")], device="cuda")
+    commands["evaluate_folder (in process)"] = time.perf_counter() - t0
 
     # ---- gates
     pp_dir = os.path.join(pp, "Dataset300_Vol3D")
@@ -4391,12 +4641,15 @@ def main(argv=None) -> int:
     kernel_rows, launches, routes = {}, {}, {}
     by_path = {}  # each main path's launches, counted from 0 just before it
     walls = {"build": build_s}  # each phase's wall s, to trace the run's time
+    left = {}  # device bytes still allocated after each phase
 
     @contextlib.contextmanager
     def wall(name):
         t0 = time.perf_counter()
         yield
         walls[name] = time.perf_counter() - t0
+        gc.collect()  # what a phase leaves allocated once its objects are gone
+        left[name] = torch.cuda.memory_allocated()
 
     if "kernels" in phases:
         with wall("kernels"):
@@ -4483,6 +4736,7 @@ def main(argv=None) -> int:
                     routes[name] = d["launches_by_route"][name]
 
     log(json.dumps({"phase_wall_s": walls}))
+    log(json.dumps({"memory_allocated_after_phase": left}))
     log(json.dumps({"kernels": kernel_summary(kernel_rows, launches, routes, by_path)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,34 @@
 """Programs captured as CUDA graphs: the port's counterpart of the JAX
 package's jitted programs (``ldiffusion_tpu/api.py:313-346``,
-``ldiffusion_tpu/segmentor/predictor.py:280-318``), which compile once per
+``ldiffusion_tpu/segmentor/predictor.py:280-318``, the trainers' donated
+steps ``ldiffusion_tpu/train/ldiffusion.py:110-129`` and
+``ldiffusion_tpu/segmentor/trainer.py:319-403``), which compile once per
 cache key and then run without the host in the loop.
 
-A ``Program`` wraps ``fn(x)`` (one input tensor; a tensor or a tuple of
+A ``Program`` wraps ``fn(*inputs)`` (input tensors; a tensor or a tuple of
 tensors out) on a device. On a CUDA device:
 
 - its first call runs ``fn`` eagerly: the capture's warm-up (cuDNN makes its
   choices, the kernels set their shared-memory attributes, the GroupNorm
-  workspace grows);
-- its second copies the input into a static tensor, captures ``fn`` on it
+  workspace grows, an optimizer makes its state);
+- its second copies the inputs into static tensors, captures ``fn`` on them
   into a ``torch.cuda.CUDAGraph`` (memory from ``pool``: one
   ``torch.cuda.graph_pool_handle()`` shared by an owner's programs) and
   replays it;
-- later calls copy the input into the static tensor and replay.
+- later calls copy the inputs into the static tensors and replay.
 
 A replay returns the graph's static outputs, which the next replay of a
 program of the same pool may overwrite: read them (or enqueue their copy)
 before the next call. Replays are ordered on the current stream. On the CPU
 every call runs ``fn``; no graph is made. There is no switch that turns
 capture off, and a capture or replay that fails raises.
+
+``Program`` runs ``fn`` under ``torch.inference_mode``. ``TrainProgram``
+runs it with autograd (a training step: forward, backward, optimizer), and
+registers the owner's ``torch.Generator``s with its graph, so that each
+replay draws what an eager step would and advances them as far.
+``Jit`` keeps one program per input signature (each input's shape and
+dtype), the key ``jax.jit`` compiles by.
 
 Launch counters: the kernel wrappers count a launch in Python where they
 enqueue their kernel, which happens once, at capture. A ``Program`` records
@@ -31,6 +40,7 @@ launches the device ran.
 from __future__ import annotations
 
 import time
+import weakref
 
 import torch
 
@@ -80,50 +90,74 @@ def _add(pairs, deltas: list, sign: int = 1) -> None:
             setattr(owner, attr, cur + sign * d)
 
 
+def weak_method(method):
+    """``method`` (a bound method) called through a weak reference to its
+    object. An owner's program of its own method would otherwise close a
+    cycle (owner → program → method → owner) that keeps the owner, its
+    graphs and their pool's device memory alive after the last reference
+    is dropped, until the cycle collector happens to run."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        return ref()(*args)
+
+    return call
+
+
 class Program:
     """``fn`` run eagerly once, then captured and replayed (module docstring).
     ``counted``: more (owner, attribute) counters that ``fn`` raises and
-    replays repeat (a predictor's ``network_forwards``)."""
+    replays repeat (a predictor's ``network_forwards``); ``generators``: the
+    ``torch.Generator``s ``fn`` draws from."""
 
-    def __init__(self, fn, device, pool=None, counted=()):
+    def __init__(self, fn, device, pool=None, counted=(), generators=()):
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool
         self.counted = list(counted)
+        self.generators = list(generators)
         self.calls = 0
         self.replays = 0
         self.capture_s = 0.0
         self.graph = None
-        self.static_input = None
+        self.static_inputs = ()
         self.static_output = None
         self._pairs: list = []
         self._deltas: list = []
 
-    def __call__(self, x):
-        """``x``: the input, on the device or on the host (a pinned host
+    @staticmethod
+    def _mode():
+        return torch.inference_mode()
+
+    def __call__(self, *xs):
+        """``xs``: the inputs, on the device or on the host (a pinned host
         tensor is copied without blocking)."""
-        with torch.inference_mode():
+        with self._mode():
             if self.device.type != "cuda":
-                return self.fn(x.to(self.device))
+                return self.fn(*(x.to(self.device) for x in xs))
             self.calls += 1
             if self.graph is not None:
-                self.static_input.copy_(x, non_blocking=True)
+                for static, x in zip(self.static_inputs, xs):
+                    static.copy_(x, non_blocking=True)
             elif self.calls == 1:
-                return self.fn(x.to(self.device, non_blocking=True))
+                return self.fn(*(x.to(self.device, non_blocking=True) for x in xs))
             else:
-                self._capture(x)
+                self._capture(xs)
             return self._replay()
 
-    def _capture(self, x):
+    def _capture(self, xs):
         t0 = time.perf_counter()
-        # the input's strides, as the eager first use saw them
-        self.static_input = torch.empty_like(x, device=self.device).copy_(x, non_blocking=True)
+        # the inputs' strides, as the eager first use saw them
+        self.static_inputs = tuple(torch.empty_like(x, device=self.device)
+                                   .copy_(x, non_blocking=True) for x in xs)
         pairs = counters() + self.counted
         before = _read(pairs)
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
         try:
             with torch.cuda.graph(graph, pool=self.pool):
-                out = self.fn(self.static_input)
+                out = self.fn(*self.static_inputs)
         finally:
             deltas = _diff(_read(pairs), before)
             _add(pairs, deltas, -1)  # a capture launches nothing
@@ -136,3 +170,38 @@ class Program:
         self.replays += 1
         _add(self._pairs, self._deltas)
         return self.static_output
+
+
+class TrainProgram(Program):
+    """A ``Program`` run with autograd: a training step whose backward and
+    optimizer update the parameters and the optimizer's state in place. At
+    capture the backward makes each ``.grad`` a static tensor of the pool,
+    which every replay writes again; the owner must not replace a tensor the
+    graph reads (parameters, optimizer state), only write it in place."""
+
+    @staticmethod
+    def _mode():
+        return torch.enable_grad()
+
+
+class Jit:
+    """One program per input signature (each input's shape and dtype), the
+    key ``jax.jit`` compiles by: ``program_type(fn, device, pool,
+    generators=generators)`` made at a signature's first call. ``fn`` is an
+    owner's bound method, held weakly (``weak_method``)."""
+
+    def __init__(self, fn, device, pool=None, generators=(), program_type=Program):
+        self.fn = weak_method(fn)
+        self.device = device
+        self.pool = pool
+        self.generators = list(generators)
+        self.program_type = program_type
+        self.programs: dict = {}
+
+    def __call__(self, *xs):
+        key = tuple((tuple(x.shape), x.dtype) for x in xs)
+        program = self.programs.get(key)
+        if program is None:
+            program = self.programs[key] = self.program_type(
+                self.fn, self.device, self.pool, generators=self.generators)
+        return program(*xs)

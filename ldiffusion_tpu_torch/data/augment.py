@@ -625,12 +625,13 @@ def apply_augment(data, seg, p: Dict[str, torch.Tensor], cfg: AugmentConfig):
         on = p["blur_on"] & ~p["median_pick"] if "median_pick" in p else p["blur_on"]
         data = _sel(on, blur(data, p["blur_sigma"]), data)
     if "median_pick" in p:
-        on = p["median_pick"] & p["median_on"]
-        if bool(on.any()):  # the filters are the stack's costliest: only when picked
-            med = data
-            for i, size in enumerate((3, 5, 7)):
-                med = _sel(p["median_size"] == i, median_filter(data, size), med)
-            data = _sel(on, med, data)
+        # every size's filter, then each sample's pick, as the JAX program
+        # does: skipping them when no sample picks one is a host branch on
+        # device values, which a captured step cannot take
+        med = data
+        for i, size in enumerate((3, 5, 7)):
+            med = _sel(p["median_size"] == i, median_filter(data, size), med)
+        data = _sel(p["median_pick"] & p["median_on"], med, data)
     if "brightness_on" in p:
         if "brightness_shift" in p:  # DA5: additive, per channel
             data = _sel(p["brightness_on"], data + p["brightness_shift"][..., None, None], data)

@@ -86,6 +86,8 @@ class SDComponents:
     scheduler: PNDMScheduler = dataclasses.field(default_factory=PNDMScheduler)
     prompt_ids: tuple = DEFAULT_PROMPT_IDS
     tokenizer: Optional[CLIPTokenizer] = None
+    _prompt_ids_cache: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                           compare=False)
 
     @staticmethod
     def _configs(unet_config, vae_config, text_config):
@@ -216,6 +218,17 @@ class SDComponents:
         ids = torch.tensor(ids, dtype=torch.long, device=self.device)
         return apply_proj(self.proj, self.text(ids))
 
+    def prompt_id_tensor(self) -> torch.Tensor:
+        """(1, S) int64 ids of ``prompt_ids`` on the device, made at the
+        first call for these ids and device and kept: a captured training
+        step reads them, and cannot hold the host-to-device copy that makes
+        them."""
+        key = (self.prompt_ids, self.device)
+        if self._prompt_ids_cache is None or self._prompt_ids_cache[0] != key:
+            ids = torch.tensor([list(self.prompt_ids)], dtype=torch.long, device=self.device)
+            self._prompt_ids_cache = (key, ids)
+        return self._prompt_ids_cache[1]
+
     @property
     def latent_factor(self) -> int:
         """Image size / latent size of the VAE (8 for SD v1.5)."""
@@ -226,10 +239,8 @@ def trajectory_text_emb(components: SDComponents, batch_size: int):
     """Prompt embedding for the fixed prompt, computed at batch 1 and
     broadcast: CLIP last_hidden_state → learned projection. The text tower
     is frozen (no graph); the projection is trained."""
-    ids = torch.tensor([list(components.prompt_ids)], dtype=torch.long,
-                       device=components.device)
     with torch.no_grad():
-        hidden = components.text(ids)
+        hidden = components.text(components.prompt_id_tensor())
     emb = apply_proj(components.proj, hidden)
     return emb.expand((batch_size,) + emb.shape[1:])
 

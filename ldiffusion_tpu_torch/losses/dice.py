@@ -215,10 +215,10 @@ def deep_supervision_weights(n: int):
 def deep_supervision_loss(logits_list: Sequence, targets_list: Sequence, loss_fn):
     """Σ wᵢ·loss(logitsᵢ, targetsᵢ), highest resolution first (reference
     ``deep_supervision.py:5-30``; weights ``nnUNetTrainer.py:364-373``)."""
-    w = deep_supervision_weights(len(logits_list))
+    w = deep_supervision_weights(len(logits_list)).tolist()  # host numbers: no copy
     total = 0.0
     for i, (lg, tg) in enumerate(zip(logits_list, targets_list)):
-        total = total + w[i].to(lg.device) * loss_fn(lg, tg)
+        total = total + w[i] * loss_fn(lg, tg)
     return total
 
 

@@ -38,9 +38,11 @@ class ContrastIndices(NamedTuple):
 
 def _uniform_over(mask: torch.Tensor, n: int, generator, replacement: bool = False):
     """``n`` draws per row, uniform over the row's True entries (a row with
-    none draws uniformly over all: its anchor is invalid anyway)."""
+    none draws uniformly over all: its anchor is invalid anyway). The empty
+    rows are filled with ``torch.where``: a boolean index syncs with the host
+    (``nonzero``), which a captured step cannot."""
     w = mask.float()
-    w[w.sum(dim=1) == 0] = 1.0
+    w = torch.where(w.sum(dim=1, keepdim=True) == 0, torch.ones_like(w), w)
     return torch.multinomial(w, n, replacement=replacement, generator=generator)
 
 
@@ -72,8 +74,9 @@ def sample_contrast_indices(labels, generator: torch.Generator, num_negatives: i
         same = lab[None, :] == lab[anchor][:, None]  # (A, N)
         n_same = same.sum(dim=1)
         valid = present & (n_same > 1) & (n - n_same > num_negatives)
-        others = same.clone()
-        others[torch.arange(num_anchors, device=dev), anchor] = False
+        # self excluded by a comparison: an index assignment of a host
+        # ``False`` is a host-to-device copy, which a captured step cannot hold
+        others = same & (torch.arange(n, device=dev)[None, :] != anchor[:, None])
         positive = _uniform_over(others, 1, generator)[:, 0]
         negatives = _uniform_over(~same, num_negatives, generator, replacement=True)
         out.append((anchor, positive, negatives, valid))

@@ -46,6 +46,9 @@ def resize_nearest(x, size, channel_last: bool = True):
 
 
 def rgb_to_gray(x):
-    """(..., 3) → (..., 1): 0.2989 R + 0.5870 G + 0.1140 B."""
-    w = torch.tensor(GRAY_WEIGHTS, dtype=x.dtype, device=x.device)
-    return (x * w).sum(-1, keepdim=True)
+    """(..., 3) → (..., 1): 0.2989 R + 0.5870 G + 0.1140 B. The weights are
+    host numbers: a weight tensor made with ``torch.tensor(..., device=)``
+    is a host-to-device copy, which a captured training step cannot hold."""
+    r, g, b = x.unbind(-1)
+    wr, wg, wb = GRAY_WEIGHTS
+    return (r * wr + g * wg + b * wb)[..., None]

@@ -39,6 +39,7 @@ import functools
 import glob
 import itertools
 import os
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,7 +47,7 @@ import torch
 
 from ldiffusion_tpu_torch.core.checkpoint import load_pytree
 from ldiffusion_tpu_torch.core.device import resolve_device
-from ldiffusion_tpu_torch.core.graphs import Program
+from ldiffusion_tpu_torch.core.graphs import Program, weak_method
 from ldiffusion_tpu_torch.models.convert import dynunet_from_flax
 from ldiffusion_tpu_torch.models.dynunet import DynUNet
 from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3D
@@ -268,8 +269,9 @@ class SlidingWindowPredictor:
             program = self._predict_cache.get(key)
             if program is None:
                 program = self._predict_cache[key] = Program(
-                    functools.partial(self._bucket, positions, mode, shape), self.device,
-                    self.graph_pool(), counted=[(self, "network_forwards")])
+                    functools.partial(weak_method(self._bucket), positions, mode, shape),
+                    self.device,
+                    self.graph_pool(), counted=[(weakref.proxy(self), "network_forwards")])
             out = program(image)
             if mode == "seg":
                 return out

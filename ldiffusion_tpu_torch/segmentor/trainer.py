@@ -11,8 +11,9 @@ the end, ``checkpoint_final``, and resuming (``continue_training``).
 A trainer variant (``segmentor/variants.py``, the ``-tr`` names) replaces the
 recipe's config, augmentation, loss (Dice, CE, TopK10 with or without label
 smoothing, Dice+TopK10, Dice+focal, Dice without smoothing), schedule (poly,
-cosine), optimizer (SGD; "Adam": ``torch.optim.Adam`` with the decay coupled
-into the clipped gradient, as the JAX chain ``add_decayed_weights`` →
+cosine), optimizer (SGD, ``core/optim.py:SGDNesterov``; "Adam":
+``torch.optim.Adam``, ``capturable`` on a card, with the decay coupled into
+the clipped gradient, as the JAX chain ``add_decayed_weights`` →
 ``adamw(wd=0)``; Adan, ``core/optim.py``), norm (BatchNorm for
 nnUNetTrainerBN), sampling (probabilistic oversampling), deep supervision,
 data order of the spatial transform and the mirror axes; the Benchmark
@@ -27,6 +28,21 @@ One train step (``:330-352``): device augmentation → labels ``max(seg, 0)``
 targets → loss → backward → clip → optimizer. Patches come from
 ``PatchSampler`` at the enlarged initial size, through the host
 rotation/scaling (``HostSpatialAugmenter``) in a prefetch thread.
+
+The train and validation steps are programs, as the JAX trainer's are two
+``jax.jit``s (``:319-403``). ``step_fn(data, seg, lr)`` is the train step on
+device tensors (the DA draws from the trainer's generator and their
+application, ``clamp_min(0)``, the deep-supervision targets, the variant's
+loss and the backward, ``clip_grad_norm_``, the optimizer at ``lr``, a 0-d
+device tensor as JAX passes ``lr`` through ``_set_lr``); ``_val_counts`` the
+validation step. On one device ``train_step`` and ``val_step`` run them
+through ``core/graphs.py``'s ``Jit``: per batch shape (and dtype) eager at
+the first use, a CUDA graph captured at the second (the generator
+registered with the train step's, both in the trainer's pool), replayed
+after; the host fills ``lr`` before each replay (the poly schedule changes it
+every epoch) and reads each step's outputs with one sync. 2D and 3D plans
+take the same step. ``load_checkpoint`` writes the parameters and the
+optimizer's buffers in place, so the graphs read what it loaded.
 
 A 3D plan (``SegPlan3D``: 3d_fullres, 3d_lowres, 3d_cascade_fullres,
 ``:106-173``) builds the ``DynUNet3D`` (its input widened by the cascade's
@@ -70,7 +86,8 @@ validation counts are reduced over the processes. ``checkpoint_*.pkl``,
 ``progress.png``, the logs and ``benchmark_result.json`` are written by rank
 0. The final validation predicts the cases ``i % world == rank``, waits for
 every rank (``barrier``) and scores them all on rank 0
-(``trainer.py:567-703``).
+(``trainer.py:567-703``). Over a mesh the steps run eagerly: capturing DDP's
+collectives is left to the four-card work (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -91,7 +108,8 @@ from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.core.dist import MeshContext, is_main_process
 from ldiffusion_tpu_torch.core.logging import EpochLogger, TextLogger, dump_debug_json
-from ldiffusion_tpu_torch.core.optim import Adan
+from ldiffusion_tpu_torch.core.graphs import Jit, TrainProgram
+from ldiffusion_tpu_torch.core.optim import Adan, SGDNesterov
 from ldiffusion_tpu_torch.data.augment import (
     AugmentConfig,
     HostSpatialAugmenter,
@@ -278,16 +296,25 @@ class SegmentorTrainer:
             self.model = self.mesh.replicate_module(self.net)
         self.opt_name = getattr(variant, "optimizer", "sgd")
         params = self.net.parameters()
+        one_card = self.mesh is None and self.device.type == "cuda"
         if self.opt_name == "adan":  # decoupled decay inside the step
             self.opt = Adan(params, lr=config.initial_lr, weight_decay=config.weight_decay)
         elif self.opt_name == "adam":  # L2 coupled into the clipped gradient
             self.opt = torch.optim.Adam(params, lr=config.initial_lr,
-                                        weight_decay=config.weight_decay)
+                                        weight_decay=config.weight_decay, capturable=one_card)
         else:
-            self.opt = torch.optim.SGD(params, lr=config.initial_lr, momentum=config.momentum,
-                                       nesterov=True, weight_decay=config.weight_decay)
+            self.opt = SGDNesterov(params, lr=config.initial_lr, momentum=config.momentum,
+                                   weight_decay=config.weight_decay)
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        # one train and one validation program per batch shape on one device
+        # (module docstring); eager over a mesh
+        self.train_program = self.val_program = None
+        if self.mesh is None:
+            pool = torch.cuda.graph_pool_handle() if one_card else None
+            self.train_program = Jit(self.step_fn, self.device, pool,
+                                     generators=[self.generator], program_type=TrainProgram)
+            self.val_program = Jit(self._val_counts, self.device, pool)
         self._make_luts()
         # measurements: host seconds a train iteration (ending in the loss
         # read), of patch sampling + host spatial DA a batch, a validation
@@ -390,15 +417,44 @@ class SegmentorTrainer:
         loss.backward()
         return loss.detach()
 
-    def apply_update(self, lr: Optional[float] = None):
-        """clip_grad_norm_ then the optimizer step. Returns the norm before clipping."""
-        if lr is not None:
-            for group in self.opt.param_groups:
-                group["lr"] = lr
+    def _set_lr(self, lr: float):
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+
+    def _update(self, lr=None):
+        """clip_grad_norm_ then the optimizer step, at ``lr`` (a 0-d device
+        tensor standing in for the groups' rate during the step: a captured
+        step reads it at every replay) or at the groups' own. Returns the
+        norm before clipping."""
         norm = torch.nn.utils.clip_grad_norm_(self.net.parameters(), self.cfg.grad_clip)
-        self.opt.step()
+        kept = self.opt.param_groups[0]["lr"]
+        if lr is not None:
+            self._set_lr(lr)
+        try:
+            self.opt.step()
+        finally:
+            self._set_lr(kept)
+        return norm
+
+    def apply_update(self, lr: Optional[float] = None):
+        """clip_grad_norm_ then the optimizer step at ``lr`` (the groups' rate
+        from now on), as a step of its own (counted in ``step``). Returns the
+        norm before clipping."""
+        if lr is not None:
+            self._set_lr(lr)
+        norm = self._update()
         self.step += 1
         return norm
+
+    def step_fn(self, data, seg, lr):
+        """One whole train step on device tensors, what the program captures:
+        the device DA (``augment``), ``loss_and_grads``, ``_update`` at
+        ``lr``. data (B, C, *spatial) float32 and seg (B, *spatial) int64 of
+        the global batch; lr a 0-d float32 tensor. Returns (loss, gradient
+        norm), 0-d device tensors (this process's loss over a mesh)."""
+        data, seg = self.augment(data, seg)
+        loss = self.loss_and_grads(data, seg)
+        return loss, self._update(lr)
 
     def local_rows(self, x):
         """This process's rows of a global batch (all of it in one process)."""
@@ -435,30 +491,42 @@ class SegmentorTrainer:
 
     def train_step(self, data, seg, lr: Optional[float] = None):
         """One step on a host batch (the global batch; each process trains
-        its rows): device DA, loss, backward, update. Returns the global
-        batch's loss."""
+        its rows) at ``lr`` (the groups' rate from now on; None keeps it):
+        on one device through the batch shape's program (module docstring),
+        over a mesh ``step_fn`` eagerly. Returns the global batch's loss, a
+        0-d device tensor (a program's: read it before the next step)."""
+        if lr is not None:
+            self._set_lr(float(lr))
         data, seg = self._to_device(data, seg)
-        data, seg = self.augment(data, seg)
-        loss = self.loss_and_grads(data, seg)
-        self.apply_update(lr)
-        if self.mesh is not None:
+        if self.mesh is None:
+            rate = torch.full((), self.opt.param_groups[0]["lr"], dtype=torch.float32,
+                              device=self.device)
+            loss, _ = self.train_program(data, seg, rate)
+        else:
+            loss, _ = self.step_fn(data, seg, None)
             loss = self.global_sum(loss)[0].float() / self.mesh.batch_shards
+        self.step += 1
         return loss
 
     @torch.no_grad()
     def val_step(self, data, seg):
         """(loss, tp, fp, fn per head) of the full-resolution head over the
-        global batch (each process its rows, the counts summed); the regions
-        regime thresholds the sigmoid at 0.5 and puts a zero background
-        column in front."""
+        global batch of a host batch (each process its rows, the counts
+        summed); the regions regime thresholds the sigmoid at 0.5 and puts a
+        zero background column in front. On one device through the batch
+        shape's program: read the outputs before the next step."""
+        data, seg = self._to_device(data, seg)
         if self.mesh is None:
-            return self._val_counts(data, seg)
+            return self.val_program(data, seg)
         loss, *counts = self._val_counts(self.local_rows(data), self.local_rows(seg))
         loss, *counts = self.global_sum(loss, *counts)
         return (loss.float() / self.mesh.batch_shards, *counts)
 
     def _val_counts(self, data, seg):
-        data, seg = self._to_device(data, seg)
+        """The validation step on device tensors (what its program
+        captures); the counts are sums of one-hot products, as the JAX step
+        takes them (``torch.bincount`` reads its input's maximum on the
+        host)."""
         seg = seg.clamp_min(0)
         logits = self.net(data)
         bd = self.plan.batch_dice
@@ -475,12 +543,13 @@ class SegmentorTrainer:
                             for v in (ph * th, ph * (1 - th), (1 - ph) * th)))
         loss = losses.dc_and_ce_loss(logits, tgt, mask, bd, group=self.group)
         c = self.plan.num_classes
-        idx = (tgt * c + logits.argmax(dim=1)).reshape(-1)
+        ph, th = F.one_hot(logits.argmax(dim=1), c), F.one_hot(tgt, c)
         if mask is not None:
-            idx = idx[mask.reshape(-1) > 0]
-        cm = torch.bincount(idx, minlength=c * c).reshape(c, c)
-        tp = torch.diagonal(cm)
-        return loss, tp, cm.sum(0) - tp, cm.sum(1) - tp
+            keep = (mask > 0).long().unsqueeze(-1)
+            ph, th = ph * keep, th * keep
+        axes = tuple(range(ph.dim() - 1))
+        tp = (ph * th).sum(dim=axes)
+        return loss, tp, ph.sum(dim=axes) - tp, th.sum(dim=axes) - tp
 
     # ------------------------------------------------------------------
     def _iterators(self, train_ds, val_ds):
@@ -576,10 +645,12 @@ class SegmentorTrainer:
         tp, fp, fn = np.zeros(n_heads), np.zeros(n_heads), np.zeros(n_heads)
         for _ in range(cfg.val_iters_per_epoch):
             l, tpi, fpi, fni = self.val_step(*next(val_iter))
-            vl += float(l)
-            tp += tpi.cpu().numpy()
-            fp += fpi.cpu().numpy()
-            fn += fni.cpu().numpy()
+            read = torch.cat([l.reshape(1).double(), tpi.double(), fpi.double(),
+                              fni.double()]).cpu().numpy()  # one host read a step
+            vl += read[0]
+            tp += read[1:1 + n_heads]
+            fp += read[1 + n_heads:1 + 2 * n_heads]
+            fn += read[1 + 2 * n_heads:]
         self.epoch_log.log("val_loss", vl / cfg.val_iters_per_epoch, epoch)
         dice_pc = 2 * tp[1:] / np.maximum(2 * tp[1:] + fp[1:] + fn[1:], 1e-8)
         mean_fg = float(np.mean(dice_pc))
@@ -775,9 +846,22 @@ class SegmentorTrainer:
         self.log(f"pretrained weights: transferred {len(transferred)} tensors from {path}")
         return transferred
 
+    def _put_state(self, p, name: str, value):
+        """Write the optimizer's ``name`` buffer of ``p`` in place where it
+        exists (a captured step reads it), else make it: on ``p``'s device,
+        but for the count of an Adam that is not ``capturable``, which torch
+        keeps on the host."""
+        st = self.opt.state[p]
+        if name in st:
+            st[name].copy_(value)
+            return
+        host = name == "step" and not self.opt.param_groups[0].get("capturable", True)
+        st[name] = value.to("cpu" if host else p.device)
+
     def load_checkpoint(self, path: str):
         """Resume from a checkpoint of this trainer or of the JAX trainer
-        (its optax state mapped onto this optimizer's buffers)."""
+        (its optax state mapped onto this optimizer's buffers), the
+        parameters and buffers written in place."""
         ck = load_pytree(path)
         opt_state = ck.get("opt_state")
         if isinstance(opt_state, Inert):
@@ -794,13 +878,11 @@ class SegmentorTrainer:
         for name, key in zip(names, keys):
             bufs = dynunet_from_flax(opt_state[key], self.net_config)
             for pname, p in self.net.named_parameters():
-                self.opt.state[p][name] = bufs[pname].to(p.device)
+                self._put_state(p, name, bufs[pname])
         if self.opt_name != "sgd":
-            for p in self.net.parameters():  # Adam keeps a float tensor, Adan an int
-                self.opt.state[p]["step"] = (torch.tensor(float(ck["step"]))
-                                             if self.opt_name == "adam" else int(ck["step"]))
-        for group in self.opt.param_groups:
-            group["lr"] = float(opt_state["learning_rate"])
+            for p in self.net.parameters():
+                self._put_state(p, "step", torch.tensor(float(ck["step"])))
+        self._set_lr(float(opt_state["learning_rate"]))
         self.step = int(ck["step"])
         self.current_epoch = ck["epoch"]
         self.best_ema = ck["best_ema"]

@@ -21,6 +21,20 @@ Randomness: the Laplace noise and the contrastive indices are drawn from one
 ``torch.Generator`` seeded with ``config.seed``; ``loss_and_grads`` takes them
 as tensors, so a test can hand in the JAX package's draws.
 
+One program a step (the JAX ``_make_train_step``: one ``jax.jit`` over the
+draws, the trajectory, VGG and InfoNCE, the backward, the clip and AdamW,
+the state donated). ``step_fn`` is that step on device tensors: ``draw``,
+``loss_and_grads``, ``clip_grad_norm_``, AdamW (``capturable`` on a card:
+its step count and bias corrections on the device) and the cast of the
+masters into the modules, returning (loss, content, contrast, gradient
+norm) as device tensors. On one device ``train_step`` runs it through
+``core/graphs.py``'s ``Jit`` of ``TrainProgram``s: a batch shape's first
+step eagerly, its second captured as a CUDA graph (the generator registered
+with it, the memory from the trainer's pool), replays after; the four
+values are read with one host sync a step, as the JAX loop's
+``float(metrics["loss"])``. ``load_state`` writes the masters and the AdamW
+state in place, so the graphs read what it loaded.
+
 Over a mesh (``mesh=``, ``core/dist.py``; the JAX trainer's FSDP over
 (data, fsdp), the reference's ZeRO-3): the UNet and the projection go under
 FSDP2's ``fully_shard`` (each resnet, transformer and resampler a unit,
@@ -34,7 +48,8 @@ indices from the same generator, then keeps its rows (``local_rows``), so the
 draws do not depend on the world size; the losses are each process's mean
 over as many rows, and the mean of the gradients over the processes is the
 global batch's. ``mesh=None``, or a mesh without a process group, is the
-one-device path.
+one-device path. Over a mesh the step runs eagerly: capturing FSDP2's
+collectives is left to the four-card work (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -48,6 +63,7 @@ import torch.distributed as dist
 from ldiffusion_tpu_torch.core.checkpoint import load_pytree, reshard_like, save_pytree
 from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
 from ldiffusion_tpu_torch.core.dist import MeshContext, is_main_process
+from ldiffusion_tpu_torch.core.graphs import Jit, TrainProgram
 from ldiffusion_tpu_torch.core.logging import CSVLogger, TextLogger
 from ldiffusion_tpu_torch.diffusion.pipeline import (
     SDComponents,
@@ -122,9 +138,14 @@ class DiffusionWarmupTrainer:
             self.master = self.params  # the sharded parameters are the master copies
         for p in self.params:
             p.requires_grad_(True)
+        one_card = self.mesh is None and self.device.type == "cuda"
         self.opt = torch.optim.AdamW(self.master, lr=config.learning_rate,
                                      betas=tuple(config.betas), eps=config.eps,
-                                     weight_decay=config.weight_decay)
+                                     weight_decay=config.weight_decay, capturable=one_card)
+        # one program per batch shape on one device; eager over a mesh
+        self.program = None if self.mesh is not None else Jit(
+            self.step_fn, self.device, torch.cuda.graph_pool_handle() if one_card else None,
+            generators=[self.generator], program_type=TrainProgram)
         self.steps_done = 0
         self.history = []  # train_step's metrics, with its wall-clock "seconds"
 
@@ -192,7 +213,7 @@ class DiffusionWarmupTrainer:
         loss, content, contrast = self._global_mean([loss, aux["content"], aux["contrast"]])
         return loss.detach(), {"content": content, "contrast": contrast}
 
-    def apply_update(self):
+    def _update(self):
         """Clip, AdamW on the master copies, cast them into the modules.
         Returns the gradient norm before clipping."""
         norm = torch.nn.utils.clip_grad_norm_(self.master, self.cfg.grad_clip)
@@ -203,22 +224,38 @@ class DiffusionWarmupTrainer:
             with torch.no_grad():
                 for p, m in zip(self.params, self.master):
                     p.copy_(m)
+        return norm
+
+    def apply_update(self):
+        """``_update`` as a step of its own (counted in ``steps_done``).
+        Returns the gradient norm before clipping."""
+        norm = self._update()
         self.steps_done += 1
         return norm
+
+    def step_fn(self, images, labels):
+        """One whole step on device tensors, what the program captures:
+        ``draw``, ``loss_and_grads``, ``_update``. images (B, H, W, 3)
+        float32, labels (B, 64, 64) int64. Returns (loss, content, contrast,
+        gradient norm) of the global batch, 0-d device tensors."""
+        noise, indices = self.draw(images, labels)
+        loss, aux = self.loss_and_grads(images, labels, noise, indices)
+        return loss, aux["content"], aux["contrast"], self._update()
 
     def train_step(self, images, labels) -> dict:
         """images (B, H, W, 3) ImageNet-normalised (or this process's rows of
         them), labels (B, 64, 64) class ids of the global batch; numpy or
-        tensors. Returns float metrics of the global batch."""
+        tensors. On one device through the batch shape's program (module
+        docstring), over a mesh ``step_fn`` eagerly. Returns float metrics of
+        the global batch."""
         t0 = time.perf_counter()
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         labels = torch.as_tensor(labels, device=self.device).long()
-        noise, indices = self.draw(images, labels)
-        loss, aux = self.loss_and_grads(images, labels, noise, indices)
-        norm = self.apply_update()
-        metrics = {"loss": float(loss), **{k: float(v) for k, v in aux.items()},
-                   "grad_norm": float(norm)}
-        metrics["seconds"] = time.perf_counter() - t0  # the loss read waits for the device
+        run = self.step_fn if self.program is None else self.program
+        values = torch.stack([v.detach().float() for v in run(images, labels)]).tolist()
+        self.steps_done += 1
+        metrics = dict(zip(("loss", "content", "contrast", "grad_norm"), values))
+        metrics["seconds"] = time.perf_counter() - t0  # the read waits for the device
         self.history.append(metrics)
         return metrics
 
@@ -287,7 +324,10 @@ class DiffusionWarmupTrainer:
 
     def load_state(self, path: str):
         """Resume from ``save_state``'s file: every tensor re-sharded onto
-        this trainer's layout (a DTensor keeps this process's shard)."""
+        this trainer's layout (a DTensor keeps this process's shard), and
+        written in place where the trainer holds it already (a captured step
+        reads those tensors; the AdamW count on the device when the
+        optimizer is ``capturable``)."""
         ck = load_pytree(path)
 
         def port(tree):
@@ -297,13 +337,20 @@ class DiffusionWarmupTrainer:
         params, mu, nu = (port(t) for t in (ck["params"], ck["opt_state"]["mu"],
                                             ck["opt_state"]["nu"]))
         step = int(ck["step"])
+        capturable = self.opt.param_groups[0]["capturable"]
         with torch.no_grad():
             for (key, name), m in zip(self.names, self.master):
                 m.copy_(reshard_like(m, params[key][name]))
-                self.opt.state[m] = {
-                    "step": torch.tensor(float(step)),
-                    "exp_avg": reshard_like(m, mu[key][name]),
-                    "exp_avg_sq": reshard_like(m, nu[key][name])}
+                loaded = {"step": torch.tensor(float(step), device=m.device if capturable
+                                               else "cpu"),
+                          "exp_avg": reshard_like(m, mu[key][name]),
+                          "exp_avg_sq": reshard_like(m, nu[key][name])}
+                st = self.opt.state[m]
+                for k, v in loaded.items():
+                    if k in st:
+                        st[k].copy_(v)
+                    else:
+                        st[k] = v
             if self.mesh is None:
                 for p, m in zip(self.params, self.master):
                     p.copy_(m)

@@ -713,3 +713,224 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="workspace"):
         program(x)
     assert program.graph is None
+
+
+# ---------------------------------------------------------------------------
+# training steps as captured programs
+# ---------------------------------------------------------------------------
+
+def _max_diff(a: list, b: list) -> float:
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def _held_to_eager(captured: dict, eager: dict, eager_again: dict):
+    """The captured route against the eager one: bit-equal where two eager
+    runs from the same state are, else within twice their difference (the
+    spread of kernels whose sums take no fixed order)."""
+    for name in eager:
+        spread = _max_diff(eager_again[name], eager[name])
+        diff = _max_diff(captured[name], eager[name])
+        assert diff <= 2 * spread, (name, diff, spread)
+
+
+def _stage1_trainer(cuda):
+    import warnings
+
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
+    from ldiffusion_tpu_torch.losses.infonce import InfoNceLoss
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-VGG warning
+        info = InfoNceLoss.create(device=cuda, num_anchors=16, num_negatives=64, num_classes=4)
+    cfg = DiffusionTrainConfig(num_inference_steps=10, compute_dtype="float32", num_classes=4)
+    return DiffusionWarmupTrainer(SDComponents.random(seed=1, device=cuda), cfg, info_nce=info)
+
+
+def _stage1_run(cuda, captured: bool, steps: int = 4):
+    """``steps`` stage-1 steps from seed 1's weights and generator: through
+    ``train_step`` (eager, capture, replays) or ``step_fn`` each time."""
+    from ldiffusion_tpu_torch.core import graphs
+
+    tr = _stage1_trainer(cuda)
+    rng = np.random.default_rng(2)
+    labels = np.zeros((1, 64, 64), np.int64)
+    labels[:, :32], labels[:, 32:, :32], labels[:, :8, :8] = 1, 2, 3
+    values, launches = [], []
+    for _ in range(steps):
+        images = rng.normal(size=(1, 64, 64, 3)).astype(np.float32)
+        before = _launch_counts()
+        if captured:
+            m = tr.train_step(images, labels)
+            values.append([m[k] for k in ("loss", "content", "contrast", "grad_norm")])
+        else:
+            out = tr.step_fn(torch.from_numpy(images).to(cuda), torch.from_numpy(labels).to(cuda))
+            values.append(torch.stack(out).tolist())
+        torch.cuda.synchronize()
+        launches.append(graphs._diff(_launch_counts(), before))
+    st = tr.opt.state
+    return tr, launches, {"values": [torch.tensor(values)],
+                          "masters": [m.detach().clone() for m in tr.master],
+                          "exp_avg": [st[m]["exp_avg"].clone() for m in tr.master],
+                          "exp_avg_sq": [st[m]["exp_avg_sq"].clone() for m in tr.master]}
+
+
+@pytest.mark.gpu
+def test_captured_stage1_steps_match_the_eager_route(cuda):
+    """A tiny stage-1 trainer (f32): 4 steps through ``train_step`` (eager,
+    captured, 2 replays, the Laplace and contrastive draws inside the graph)
+    against 4 calls of ``step_fn`` from the same weights and generator seed:
+    losses, norms, masters and AdamW moments; each replayed step launches
+    what the eager step did."""
+    tr, launches, captured = _stage1_run(cuda, True)
+    _, _, eager = _stage1_run(cuda, False)
+    _, _, eager_again = _stage1_run(cuda, False)
+    _held_to_eager(captured, eager, eager_again)
+    (program,) = tr.program.programs.values()
+    assert program.graph is not None and program.replays == 3
+    assert launches[1] == launches[0] and launches[3] == launches[0], launches
+
+
+def _seg_trainer(cuda, root, plan_3d: bool = False, name: str = "nnUNetTrainer", augment=None):
+    from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.planner3d import SegPlan3D
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+    from ldiffusion_tpu_torch.segmentor.variants import get_variant
+
+    if plan_3d:
+        plan = SegPlan3D(patch_size=(8, 16, 16), batch_size=2, spacing=(1.0, 1.0, 1.0),
+                         features_per_stage=(8, 16, 32),
+                         strides=((1, 1, 1), (2, 2, 2), (1, 2, 2)),
+                         kernel_sizes=((3, 3, 3),) * 3, n_conv_per_stage=2, num_classes=3,
+                         in_channels=1, normalization="zscore", median_shape=(10, 20, 20),
+                         batch_dice=True)
+    else:
+        plan = SegPlan(patch_size=(32, 32), batch_size=2, features_per_stage=(8, 16, 32),
+                       strides=(1, 2, 2), n_conv_per_stage=2, num_classes=4, in_channels=3,
+                       normalization="zscore_image", intensity_properties={},
+                       median_shape=(48, 48), batch_dice=True)
+    variant = get_variant(name, base=SegmentorTrainConfig(compute_dtype="float32"))
+    return SegmentorTrainer(plan, variant.config, output_dir=str(root), variant=variant,
+                            augment=augment, device=cuda)
+
+
+def _seg_batch(rng, tr):
+    shape = (tr.plan.batch_size, *tr.plan.patch_size)
+    data = rng.normal(size=(*shape, tr.net_config.in_channels)).astype(np.float32)
+    seg = rng.integers(-1, tr.plan.num_classes, shape).astype(np.int32)
+    return data, seg
+
+
+def _seg_run(cuda, root, captured: bool, plan_3d: bool, steps: int = 4):
+    """``steps`` train steps (the lr changed before each) of a tiny
+    segmentor (its DA on): through ``train_step`` (eager, captured, replays)
+    or ``step_fn``."""
+    tr = _seg_trainer(cuda, root, plan_3d)
+    rng = np.random.default_rng(5)
+    losses = []
+    for k in range(steps):
+        lr = 0.01 * (1 - k / 10)
+        if captured:
+            losses.append(float(tr.train_step(*_seg_batch(rng, tr), lr=lr)))
+        else:
+            rate = torch.full((), lr, dtype=torch.float32, device=cuda)
+            losses.append(float(tr.step_fn(*tr._to_device(*_seg_batch(rng, tr)), rate)[0]))
+    return tr, {"losses": [torch.tensor(losses)],
+                "params": [p.detach().clone() for p in tr.net.parameters()],
+                "momentum": list(tr._momentum_state().values())}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan_3d", [False, True])
+def test_captured_segmentor_steps_match_the_eager_route(cuda, tmp_path, monkeypatch, plan_3d):
+    """A tiny 2D and 3D segmentor (f32, SGD, the default device DA), cuDNN
+    held to its deterministic algorithms (under its default ones two eager
+    runs of the 3D steps were not bit-equal): 4 train steps through their
+    program against the step function called eagerly, from the same seed;
+    then, on the trained parameters, 3 validation steps through their
+    program (eager, captured, replayed) against ``_val_counts`` called
+    eagerly on the same batches."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr, captured = _seg_run(cuda, tmp_path / "a", True, plan_3d)
+    _, eager = _seg_run(cuda, tmp_path / "b", False, plan_3d)
+    _, eager_again = _seg_run(cuda, tmp_path / "c", False, plan_3d)
+    _held_to_eager(captured, eager, eager_again)
+    tr.net.eval()
+    rng = np.random.default_rng(6)
+    val = {"program": [], "eager": [], "eager_again": []}
+    with torch.no_grad():
+        for _ in range(3):
+            batch = _seg_batch(rng, tr)
+            val["program"].extend(t.clone() for t in tr.val_step(*batch))
+            for run in ("eager", "eager_again"):
+                val[run].extend(tr._val_counts(*tr._to_device(*batch)))
+    _held_to_eager({"val": val["program"]}, {"val": val["eager"]}, {"val": val["eager_again"]})
+    (train,), (program,) = tr.train_program.programs.values(), tr.val_program.programs.values()
+    assert train.replays == 3 and program.replays == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nnUNetTrainer", "nnUNetTrainerAdam", "nnUNetTrainerAdan"])
+def test_a_replay_after_a_resume_reads_the_loaded_state(cuda, tmp_path, name):
+    """A trainer whose step is captured loads a checkpoint of 3 steps ago
+    (parameters and optimizer buffers written in place), and its next
+    replay gives what a fresh trainer's eager step from that checkpoint
+    gives (DA off: the generators' positions differ)."""
+    from ldiffusion_tpu_torch.data.augment import AugmentConfig
+
+    off = AugmentConfig(p_rotation=0.0, p_scaling=0.0, p_noise=0.0, p_blur=0.0,
+                        p_brightness=0.0, p_contrast=0.0, p_lowres=0.0, p_gamma_invert=0.0,
+                        p_gamma=0.0, p_mirror=0.0)
+    rng = np.random.default_rng(9)
+    tr = _seg_trainer(cuda, tmp_path / "t", name=name, augment=off)
+    batches = [_seg_batch(rng, tr) for _ in range(6)]
+    for b in batches[:3]:
+        tr.train_step(*b, lr=0.01)
+    path = str(tmp_path / "checkpoint.pkl")
+    tr.save_checkpoint(path)
+    for b in batches[3:5]:
+        tr.train_step(*b, lr=0.005)
+    tr.load_checkpoint(path)
+    (program,) = tr.train_program.programs.values()
+    replays = program.replays
+    tr.train_step(*batches[5])
+    assert program.replays == replays + 1
+    after = {}
+    for run in ("fresh", "fresh_again"):
+        fresh = _seg_trainer(cuda, tmp_path / run, name=name, augment=off)
+        fresh.load_checkpoint(path)
+        fresh.train_step(*batches[5])  # a first use: eager
+        after[run] = [p.detach().clone() for p in fresh.net.parameters()]
+    _held_to_eager({"params": [p.detach() for p in tr.net.parameters()]},
+                   {"params": after["fresh"]}, {"params": after["fresh_again"]})
+
+
+@pytest.mark.gpu
+def test_a_training_capture_that_fails_raises(cuda, monkeypatch):
+    """No fallback for a training program either: a step (forward through
+    the streamed GroupNorm, backward, an update) whose capture would grow
+    the GroupNorm's workspace raises, and the program holds no graph."""
+    from ldiffusion_tpu_torch.core.graphs import TrainProgram
+
+    x = torch.randn(1, 7, 9, 6, device=cuda)  # 24-byte rows: the streamed route
+    w = torch.ones(6, device=cuda, requires_grad=True)
+    bias = torch.zeros(6, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def step(t):
+        noisy = t + torch.rand(t.shape, generator=gen, device=cuda)
+        loss = tgn.groupnorm_silu_trainable(noisy, w, bias, groups=2).square().mean()
+        loss.backward()
+        with torch.no_grad():
+            w.sub_(0.1 * w.grad)
+        w.grad = None
+        return loss.detach()
+
+    program = TrainProgram(step, cuda, generators=[gen])
+    program(x)  # eager: the workspace grows here
+    monkeypatch.setattr(tgn, "_workspaces", {})  # as if it never had
+    with pytest.raises(RuntimeError, match="workspace"):
+        program(x)
+    assert program.graph is None

@@ -6,10 +6,17 @@ the contrastive sampler have no torch counterpart), so the JAX package's
 noise and contrastive indices are drawn from its keys, along its own
 ``split`` sequence, and handed to the port.
 
+The trajectory features and the loss over 12 steps are in
+``test_torch_port_trajectory.py`` and ``test_torch_port_train_loss.py`` (each
+of the three slow tests in a file of its own, so the suite's workers share
+them); the set-up is ``torch_port_common``'s.
+
 Tolerances (f32 on both sides; only the order of sums differs, through the
 UNet, the VAE decoder, VGG19 and their backward passes):
-- ``trajectory_features``: 1e-4 absolute (decodes in [-1, 1]);
-- one train step: the loss 1e-5 relative; each gradient tensor and the AdamW
+- one train step, and the same step through the function its program
+  captures (``step_fn`` by way of ``train_step``, with the JAX draws), whose
+  gradient norm is held to optax's ``global_norm`` at the loss's 1e-5 and
+  whose clipped gradients to the JAX gradients times 1/norm at 1e-4: the loss 1e-5 relative; each gradient tensor and the AdamW
   first moment (``mu``, 0.1·g after one step) within 1e-4 of the tensor's
   largest value, the second moment (``nu``, 0.001·g²) within 2e-4 (measured:
   1.6e-5, 1.6e-5, 3.1e-5). torch's ``clip_grad_norm_`` divides by the norm
@@ -39,7 +46,6 @@ from ldiffusion_tpu.core.config import DiffusionTrainConfig as JConfig
 from ldiffusion_tpu.core.config import MeshConfig
 from ldiffusion_tpu.core.dist import make_mesh
 from ldiffusion_tpu.data import dataset as jdata
-from ldiffusion_tpu.diffusion import pipeline as jpipe
 from ldiffusion_tpu.losses.infonce import InfoNceLoss as JInfoNce
 from ldiffusion_tpu.models.convert import load_unet_dir as j_load_unet_dir
 from ldiffusion_tpu.models.convert import save_unet_dir as j_save_unet_dir
@@ -51,7 +57,7 @@ from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
 from ldiffusion_tpu_torch.data import dataset as tdata
 from ldiffusion_tpu_torch.diffusion import pipeline as tpipe
 from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise
-from ldiffusion_tpu_torch.losses.infonce import ContrastIndices, InfoNceLoss
+from ldiffusion_tpu_torch.losses.infonce import ContrastIndices
 from ldiffusion_tpu_torch.models.convert import (
     load_unet_dir,
     proj_to_flax,
@@ -60,22 +66,24 @@ from ldiffusion_tpu_torch.models.convert import (
     unet_to_flax,
 )
 from ldiffusion_tpu_torch.models.unet import UNet2DCondition
-from ldiffusion_tpu_torch.models.vgg import VGG19Features, vgg_from_flax
-from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+from torch_port_common import STAGE1_ANCHORS as ANCHORS
+from torch_port_common import STAGE1_CLASSES as CLASSES
+from torch_port_common import STAGE1_NEGATIVES as NEGATIVES
 from torch_port_common import (
     flat,
     jax_contrast_indices,
     jax_laplace_noise,
     jax_random_components,
+    stage1_vgg_params,
 )
+from torch_port_common import port_stage1_trainer as _port_trainer
+from torch_port_common import stage1_data as _data
 
-TRAJ_TOL = 1e-4
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 NU_TOL = 2e-4
 PARAM_TOL = 2e-7
 NET_TOL = 1e-3
-ANCHORS, NEGATIVES, CLASSES = 8, 16, 4
 
 
 @pytest.fixture(scope="module")
@@ -85,46 +93,7 @@ def jc():
 
 @pytest.fixture(scope="module")
 def jax_vgg_params():
-    return jax.jit(JVGG().init)(jax.random.key(7), jnp.zeros((1, 64, 64, 3)))["params"]
-
-
-def _data(batch=2, seed=0):
-    rng = np.random.default_rng(seed)
-    images = rng.normal(size=(batch, 64, 64, 3)).astype(np.float32)
-    labels = np.zeros((batch, 64, 64), np.int32)
-    labels[:, :32] = 1
-    labels[:, 32:, :32] = 2
-    labels[-1, :8, :8] = 3
-    return images, labels
-
-
-def _port_info(jax_vgg_params, **kw) -> InfoNceLoss:
-    vgg = VGG19Features()
-    vgg.load_state_dict(vgg_from_flax(jax_vgg_params))
-    return InfoNceLoss(vgg=vgg.requires_grad_(False).eval(), **kw)
-
-
-def _port_trainer(jc, jax_vgg_params, **cfg) -> DiffusionWarmupTrainer:
-    comps = tpipe.SDComponents.from_flax(jc.params, device="cpu")
-    info = _port_info(jax_vgg_params, num_anchors=ANCHORS, num_negatives=NEGATIVES,
-                      num_classes=CLASSES)
-    config = DiffusionTrainConfig(compute_dtype="float32", num_classes=CLASSES, **cfg)
-    return DiffusionWarmupTrainer(comps, config, info_nce=info)
-
-
-def test_trajectory_features_match_jax_with_its_noise(jc):
-    images, _ = _data()
-    key = jax.random.key(1)
-    traj, rgb = jax.jit(lambda p, x: jpipe.trajectory_features(jc, p, x, key, 5, remat=False))(
-        jc.params, jnp.asarray(images))
-    noise = jax_laplace_noise(key, 6, (2, 32, 32, 4))  # PLMS: 5 steps visit 6 timesteps
-    comps = tpipe.SDComponents.from_flax(jc.params, device="cpu")
-    with torch.no_grad():
-        ptraj, prgb = tpipe.trajectory_features(comps, torch.from_numpy(images),
-                                                torch.from_numpy(noise), 5)
-    assert ptraj.shape == (2, 64, 64, 6) and prgb.shape == (2, 64, 64, 3)
-    np.testing.assert_allclose(ptraj.numpy(), np.asarray(traj), atol=TRAJ_TOL)
-    np.testing.assert_allclose(prgb.numpy(), np.asarray(rgb), atol=TRAJ_TOL)
+    return stage1_vgg_params()
 
 
 def test_laplace_noise_has_unit_laplace_moments():
@@ -156,9 +125,11 @@ def _close_per_tensor(port, want, tol):
         assert float(np.abs(port[name] - w).max()) <= tol * scale, name
 
 
-def test_train_step_matches_jax(jc, jax_vgg_params):
-    """One step from the same weights, noise and contrastive indices: loss,
-    gradients, AdamW moments and updated parameters."""
+@pytest.fixture(scope="module")
+def jax_step(jc, jax_vgg_params):
+    """One JAX train step from the components' weights (its loss, gradients,
+    AdamW state and parameters), and the noise and contrastive indices its
+    ``_loss_fn`` drew: one compile for the tests that hold a port step to it."""
     images, labels = _data()
     mesh = make_mesh(MeshConfig(data=1, fsdp=1), devices=jax.devices()[:1])
     jinfo = JInfoNce(vgg=JVGG(), vgg_params=jax_vgg_params, num_anchors=ANCHORS,
@@ -171,46 +142,67 @@ def test_train_step_matches_jax(jc, jax_vgg_params):
         jtr.state.params, jtr.frozen, jnp.asarray(images), jnp.asarray(labels), key)
     updates, opt_state = jax.jit(jtr.tx.update)(jgrads, jtr.state.opt_state, jtr.state.params)
     jparams = jax.jit(optax.apply_updates)(jtr.state.params, updates)
-    adam = _adam_state(opt_state)
-
     k_noise, k_contrast = jax.random.split(key)  # the JAX _loss_fn's split
-    noise = jax_laplace_noise(k_noise, 3, (2, 32, 32, 4))
-    idx = jax_contrast_indices(labels, k_contrast, NEGATIVES, ANCHORS, CLASSES)
-    trainer = _port_trainer(jc, jax_vgg_params, num_inference_steps=10, batch_size=2)
-    loss, _ = trainer.loss_and_grads(torch.from_numpy(images), torch.from_numpy(labels).long(),
-                                     torch.from_numpy(noise),
-                                     ContrastIndices(*(torch.from_numpy(a) for a in idx)))
-    assert float(loss) == pytest.approx(float(jloss), rel=LOSS_TOL)
-    _close_per_tensor(_port_tree(trainer, lambda m: m.grad), jgrads, GRAD_TOL)
+    return {"images": images, "labels": labels, "loss": float(jloss), "grads": jgrads,
+            "adam": _adam_state(opt_state), "params": jparams,
+            "noise": jax_laplace_noise(k_noise, 3, (2, 32, 32, 4)),
+            "indices": jax_contrast_indices(labels, k_contrast, NEGATIVES, ANCHORS, CLASSES)}
 
-    trainer.apply_update()
+
+def _held_to_the_jax_update(trainer, jax_step):
+    """The AdamW moments and the updated parameters against the JAX step's."""
     state = trainer.opt.state
+    adam = jax_step["adam"]
     _close_per_tensor(_port_tree(trainer, lambda m: state[m]["exp_avg"]), adam.mu, GRAD_TOL)
     _close_per_tensor(_port_tree(trainer, lambda m: state[m]["exp_avg_sq"]), adam.nu, NU_TOL)
-    params, grads = _port_tree(trainer, lambda m: m), flat(jax.device_get(jgrads))
+    params, grads = _port_tree(trainer, lambda m: m), flat(jax.device_get(jax_step["grads"]))
     lr = trainer.cfg.learning_rate
-    for name, want in flat(jax.device_get(jparams)).items():
+    for name, want in flat(jax.device_get(jax_step["params"])).items():
         g = np.abs(grads[name])
         tol = np.where(g > 1e-3 * g.max(), PARAM_TOL, 2 * lr)
         assert (np.abs(params[name] - want) <= tol).all(), name
 
 
-def test_loss_decreases_over_fixed_key_steps(jc, jax_vgg_params):
-    """The port's counterpart of the slow-marked JAX test_warmup_loss_decreases
-    (tests/test_convergence.py:81-117): 12 steps on one batch with one fixed
-    draw of noise and indices, lr 1e-3."""
-    trainer = _port_trainer(jc, jax_vgg_params, num_inference_steps=5, batch_size=2,
-                            learning_rate=1e-3)
-    images, labels = (torch.from_numpy(a) for a in _data(seed=1))
-    labels = labels.long()
-    noise, indices = trainer.draw(images, labels)
-    losses = []
-    for _ in range(12):
-        loss, _ = trainer.loss_and_grads(images, labels, noise, indices)
-        trainer.apply_update()
-        losses.append(float(loss))
-    assert all(np.isfinite(losses)), losses
-    assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+def test_train_step_matches_jax(jc, jax_vgg_params, jax_step):
+    """One step from the same weights, noise and contrastive indices: loss,
+    gradients, AdamW moments and updated parameters."""
+    images, labels = jax_step["images"], jax_step["labels"]
+    trainer = _port_trainer(jc, jax_vgg_params, num_inference_steps=10, batch_size=2)
+    loss, _ = trainer.loss_and_grads(torch.from_numpy(images), torch.from_numpy(labels).long(),
+                                     torch.from_numpy(jax_step["noise"]),
+                                     ContrastIndices(*(torch.from_numpy(a)
+                                                       for a in jax_step["indices"])))
+    assert float(loss) == pytest.approx(jax_step["loss"], rel=LOSS_TOL)
+    _close_per_tensor(_port_tree(trainer, lambda m: m.grad), jax_step["grads"], GRAD_TOL)
+
+    trainer.apply_update()
+    _held_to_the_jax_update(trainer, jax_step)
+
+
+def test_static_input_step_function_matches_the_jax_step(jc, jax_vgg_params, jax_step,
+                                                         monkeypatch):
+    """The function the step's program captures, ``step_fn(images,
+    labels)`` (the draws, the loss and gradients, the clip, AdamW, the cast
+    into the modules), with the JAX step's draws in place of the
+    generator's, through ``train_step`` (on the CPU its program calls it):
+    the loss, the gradient norm (optax's ``global_norm``), the clipped
+    gradients, the AdamW moments and the updated parameters."""
+    images, labels = jax_step["images"], jax_step["labels"]
+    trainer = _port_trainer(jc, jax_vgg_params, num_inference_steps=10, batch_size=2)
+    draws = (torch.from_numpy(jax_step["noise"]),
+             ContrastIndices(*(torch.from_numpy(a) for a in jax_step["indices"])))
+    monkeypatch.setattr(trainer, "draw", lambda images, labels: draws)
+    metrics = trainer.train_step(images, labels)
+    assert trainer.steps_done == 1 and len(trainer.history) == 1
+    assert metrics["loss"] == pytest.approx(jax_step["loss"], rel=LOSS_TOL)
+    norm = float(optax.global_norm(jax_step["grads"]))
+    assert metrics["grad_norm"] == pytest.approx(norm, rel=LOSS_TOL)
+    clipped = jax.tree_util.tree_map(lambda g: g * (trainer.cfg.grad_clip / norm),
+                                     jax_step["grads"])
+    _close_per_tensor(_port_tree(trainer, lambda m: m.grad), clipped, GRAD_TOL)
+    _held_to_the_jax_update(trainer, jax_step)
+    for p, m in zip(trainer.params, trainer.master):  # the masters cast into the modules
+        assert torch.equal(p.detach(), m.detach().to(p.dtype))
 
 
 def _unet_out(params_or_module, config, x, t, ctx):

@@ -406,3 +406,129 @@ def assert_step_close(got: dict, want: dict, grad_tol: float, nu_tol: float,
         g = np.abs(want["grad/" + k[6:]])
         tol = np.where(g > 1e-3 * g.max(), param_tol, 2 * lr)
         assert (np.abs(got[k] - want[k]) <= tol).all(), k
+
+
+# the JAX device DA's draws (DA5 and the default stack) in the port's names
+def _bump(key, h, w):
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    sy = jnp.exp(jax.random.uniform(k1, (), minval=jnp.log(max(h / 6.0, 1.0)),
+                                    maxval=jnp.log(float(h))))
+    sx = jnp.exp(jax.random.uniform(k2, (), minval=jnp.log(max(w / 6.0, 1.0)),
+                                    maxval=jnp.log(float(w))))
+    my = jax.random.uniform(k3, (), minval=-0.5, maxval=1.5) * h
+    mx = jax.random.uniform(k4, (), minval=-0.5, maxval=1.5) * w
+    return np.asarray(jnp.stack([sy, sx, my, mx]))
+
+
+def _draws_one(key, h, w, c, cfg):
+    """One sample's draws of ``_augment_one``, in the port's parameter names."""
+    r = jax.random
+    ks = r.split(key, 16)
+    u = np.asarray(r.uniform(ks[0], (12,)))
+    ks5 = r.split(ks[13], 12)
+    u5 = np.asarray(r.uniform(ks[14], (8,)))
+    p = {"noise_on": u[2] < cfg.p_noise,
+         "noise_var": r.uniform(ks[3], (), maxval=cfg.noise_var_max),
+         "noise": np.asarray(r.normal(ks[4], (h, w, c))).transpose(2, 0, 1),
+         "blur_on": u[3] < cfg.p_blur,
+         "blur_sigma": r.uniform(ks[5], (), minval=cfg.blur_sigma[0], maxval=cfg.blur_sigma[1]),
+         "median_pick": r.bernoulli(ks5[2], 0.5), "median_on": u5[2] < cfg.p_median,
+         "median_size": r.randint(ks5[3], (), 0, 3),
+         "brightness_on": u[4] < cfg.p_brightness,
+         "brightness_shift": np.asarray(r.normal(ks[6], (c,))) * cfg.brightness_additive_sigma
+         * np.asarray(r.bernoulli(ks[11], 0.5, (c,))),
+         "contrast_on": u[5] < cfg.p_contrast,
+         "contrast": r.uniform(ks[7], (), minval=cfg.contrast_range[0],
+                               maxval=cfg.contrast_range[1]),
+         "contrast_clip": r.bernoulli(ks[12], 0.5),
+         "lowres_on": u[6] < cfg.p_lowres, "lowres_factor4": r.uniform(ks[8], ()) < 0.5,
+         "gamma_invert_on": u[7] < cfg.p_gamma_invert,
+         "gamma_invert": r.uniform(ks[9], (), minval=cfg.gamma_range[0],
+                                   maxval=cfg.gamma_range[1]),
+         "gamma_on": u[8] < cfg.p_gamma,
+         "gamma": r.uniform(ks[10], (), minval=cfg.gamma_range[0], maxval=cfg.gamma_range[1]),
+         "mirror_h": u[9] < cfg.p_mirror, "mirror_w": u[10] < cfg.p_mirror,
+         "rot90_on": u5[0] < cfg.p_rot90, "rot90_k": r.randint(ks5[0], (), 0, 4),
+         "transpose_on": u5[1] < cfg.p_transpose,
+         "blank_on": u5[3] < cfg.p_blank_rect, "blank_n": r.randint(ks5[5], (), 1, 6),
+         "blank_channels": r.bernoulli(ks5[6], 0.5, (c,)),
+         "gradient_on": u5[4] < cfg.p_brightness_gradient, "gradient_bump": _bump(ks5[7], h, w),
+         "local_gamma_on": u5[5] < cfg.p_local_gamma, "local_gamma_bump": _bump(ks5[9], h, w),
+         "sharpen_on": u5[6] < cfg.p_sharpen,
+         "sharpen_strength": r.uniform(ks5[11], (), minval=cfg.sharpen_strength[0],
+                                       maxval=cfg.sharpen_strength[1])}
+    rects = []
+    for slot in r.split(ks5[4], 5):
+        k1, k2, k3, k4 = r.split(slot, 4)
+        rh = int(r.randint(k1, (), max(1, h // 10), max(2, h // 3 + 1)))
+        rw = int(r.randint(k2, (), max(1, w // 10), max(2, w // 3 + 1)))
+        rects.append([min(int(r.randint(k3, (), 0, h)), h - rh),
+                      min(int(r.randint(k4, (), 0, w)), w - rw), rh, rw])
+    p["blank_rects"] = np.asarray(rects)
+    km, ksign, kon = r.split(ks5[8], 3)
+    p["gradient_strength"] = np.asarray(
+        r.uniform(km, (c,), minval=1.0, maxval=5.0)
+        * jnp.where(r.bernoulli(ksign, 0.5, (c,)), 1.0, -1.0) * r.bernoulli(kon, 0.5, (c,)))
+    kg1, kg2, kpick, kon = r.split(ks5[10], 4)
+    p["local_gamma"] = np.asarray(jnp.where(r.bernoulli(kpick, 0.5, (c,)),
+                                            r.uniform(kg1, (c,), minval=0.01, maxval=0.8),
+                                            r.uniform(kg2, (c,), minval=1.5, maxval=4.0)))
+    p["local_gamma_channels"] = r.bernoulli(kon, 0.5, (c,))
+    return {k: np.asarray(v) for k, v in p.items()}
+
+
+def jax_draws(key, shape, cfg):
+    """The draws of ``jaug.augment_batch(key, ...)`` for an NHWC ``shape``,
+    batched, as the port's parameter dict (the keys ``cfg`` enables)."""
+    import torch
+
+    from ldiffusion_tpu_torch.data import augment as taug
+
+    b, h, w, c = shape
+    per = [_draws_one(k, h, w, c, cfg) for k in jax.random.split(key, b)]
+    tensors = {k: torch.from_numpy(np.stack([d[k] for d in per])) for k in per[0]}
+    want = taug.draw_augment_params((b, c, h, w), cfg, torch.Generator().manual_seed(0))
+    missing = set(want) - set(tensors)
+    assert not missing, missing
+    return {k: tensors[k] for k in want}
+
+
+# the stage-1 training tests' set-up (test_torch_port_train*.py, _trajectory.py)
+STAGE1_ANCHORS, STAGE1_NEGATIVES, STAGE1_CLASSES = 8, 16, 4
+
+
+def stage1_vgg_params():
+    """The JAX VGG19's parameters from key 7 (one jitted init)."""
+    from ldiffusion_tpu.models.vgg import VGG19Features as JVGG
+
+    return jax.jit(JVGG().init)(jax.random.key(7), jnp.zeros((1, 64, 64, 3)))["params"]
+
+
+def stage1_data(batch=2, seed=0):
+    """(images (B, 64, 64, 3), labels (B, 64, 64)): normal images, class
+    bands 0-2, class 3 on a corner of the last image."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(batch, 64, 64, 3)).astype(np.float32)
+    labels = np.zeros((batch, 64, 64), np.int32)
+    labels[:, :32] = 1
+    labels[:, 32:, :32] = 2
+    labels[-1, :8, :8] = 3
+    return images, labels
+
+
+def port_stage1_trainer(jc, jax_vgg_params, **cfg):
+    """The port's stage-1 trainer on the CPU in f32 from the JAX components'
+    weights and VGG (``cfg``: more ``DiffusionTrainConfig`` fields)."""
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
+    from ldiffusion_tpu_torch.diffusion import pipeline as tpipe
+    from ldiffusion_tpu_torch.losses.infonce import InfoNceLoss
+    from ldiffusion_tpu_torch.models.vgg import VGG19Features, vgg_from_flax
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    comps = tpipe.SDComponents.from_flax(jc.params, device="cpu")
+    vgg = VGG19Features()
+    vgg.load_state_dict(vgg_from_flax(jax_vgg_params))
+    info = InfoNceLoss(vgg=vgg.requires_grad_(False).eval(), num_anchors=STAGE1_ANCHORS,
+                       num_negatives=STAGE1_NEGATIVES, num_classes=STAGE1_CLASSES)
+    config = DiffusionTrainConfig(compute_dtype="float32", num_classes=STAGE1_CLASSES, **cfg)
+    return DiffusionWarmupTrainer(comps, config, info_nce=info)
