@@ -21,8 +21,10 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               they took and time the mma.sync kernels (the previous design)
               on the same inputs; the flash forward with logsumexp also at
               tools/bench_attn_exp2.py's three shapes; the inference kernels
-              also at the generation tail's shapes and at bench.py's batch-8
-              program's (the quant phase's (d)). GroupNorm rows take
+              also at the generation tail's shapes, at bench.py's batch-8
+              program's (the quant phase's (d)) and at the 1024² ROI's
+              shapes at batch 2 (the dataset build's
+              DiffusionTransform(batch_size=2)). GroupNorm rows take
               the route gn_route names, repeat bitwise, hold the other route
               (and the resident route at other slice widths) to the same
               tolerance and time it, and time the first GroupNorm kernel
@@ -92,7 +94,14 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               validation steps at that plan replayed against the step
               functions called eagerly from the same parameters, momentum
               and generator state (bit-equal or within twice the eager
-              spread); one replayed iteration profiled.
+              spread); one replayed iteration profiled. The dataset build
+              runs one DiffusionTransform program (first ROI eager, second
+              captured, the rest replayed); then a DiffusionTransform on 3 of
+              its ROIs, bit-equal to one_step_transform called eagerly on
+              each, and one of batch 2 (a full and a zero-padded chunk,
+              twice: 17 flash and 113 GroupNorm launches a chunk),
+              bit-equal to the eager batch-2 route, its rows within
+              SEG_BATCH2_MAX_ABS of batch 1's (``transform_check``).
   7. cell:    11 classes. SD-v1.5-width bf16 components from seeded random
               weights written as a diffusers-layout safetensors directory
               (own writer, tokenizer files), read back by
@@ -106,9 +115,24 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               gn_route route); one inference profiled. Then the ResNet-152
               classifier on an untransformed ROI of >= 300 instances, classes
               on the card (TF32 off) against the CPU (>= 99% equal), timed
-              with TF32 as shipped; and the committed "transformed" flow
-              proposer at 1024², card against CPU (PQ >= 0.99), with
-              follow_flows timed by method.
+              with TF32 as shipped on a classifier of its own (a program
+              keeps its capture's TF32 setting); the cell path's transforms
+              count 17 flash and 113 GroupNorm launches a ROI through
+              replays, and the head step replayed. Then the programs
+              (``programs`` on the ``cell`` line): follow_flows by method
+              and _device_propose of the "transformed" flow proposer at the
+              1024² crowded ROI and classify_rois at the PUMA-density ROI's
+              bucket, each used 5 times (the first use, the capture, 3
+              replays; programs, replays, capture s, first-use, eager and
+              replayed s; every replay bit-equal to the first use);
+              cache_features of two ROIs of one bucket, twice (each entry
+              bit-equal to its ROI's eager features, the entries distinct);
+              CELL_STEPS head steps on those features and flow-net steps
+              (features 32-64-128, batch 4, 64² scenes) through their
+              programs against the step functions called eagerly (cuDNN
+              deterministic; bit-equal or within twice the eager spread).
+              Last, the flow proposer at 1024², card against CPU (PQ >=
+              0.99).
   8. cli:     the pieces the segmentor CLI adds, tiny and f32 on cuda against
               the CPU (a BatchNorm ResEnc DynUNet's forward, backward and
               running statistics, Adan, the regions loss, DA5 with fixed
@@ -176,11 +200,12 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               ldiffusion_tpu_torch.segmentor`` processes: plan_and_preprocess
               (all three 3D configurations: 3d_fullres (80,128,128) batch 2,
               32-320 features; 3d_lowres (112,96,96); the cascade), train -c
-              3d_lowres, 3d_cascade_fullres (1 + 2 input channels, fed by the
-              lowres stage), 3d_fullres (one epoch of VOL_ITERS iterations
-              each), predict -c 3d_cascade_fullres on the test volume (the
-              fullres net predicts in its own validation), evaluate_folder on
-              fold 0's validation (through cli.main). Gates: the
+              3d_lowres, 3d_cascade_fullres (the fullres plan with 1 + 2
+              input channels, fed by the lowres stage; one epoch of
+              VOL_ITERS iterations each), predict -c 3d_cascade_fullres on
+              the test volume (the fullres net predicts in its own
+              validation), evaluate_folder on the cascade's fold-0
+              validation (through cli.main). Gates: the
               plans, every 3D crop and resample native, finite losses, masks
               of the input's shape with labels in {0, 1, 2}, the cascade's
               cache and its log lines. Figures (``vol`` line): s/iteration,
@@ -487,6 +512,11 @@ GN_EXTRA = [((2, 7, 9, 96, 8), "float32", "float32", 0),
             ((1, 9, 9, 36, 4), "bfloat16", "float32", 0),
             ((2, 7, 9, 96, 8), "bfloat16", "float32", 1),
             ((1, 50, 50, 100, 4), "float32", "float32", 1)]
+# the dataset build's DiffusionTransform(batch_size=2) at 1024²: the ROI's
+# shapes at batch 2 (attention as ATTN_PATH_SHAPES, GroupNorm as
+# GN_PATH_SHAPES); its launches are counted per batch in the seg phase
+B2_ATTN_SHAPES = [(2,) + shape[1:] for shape in ATTN_PATH_SHAPES]
+B2_GN_SHAPES = [(2,) + shape[1:] for shape in GN_PATH_SHAPES]
 # (B, S, H, D) of the differentiated flash attention at 512² training images,
 # SD-v1.5 width: UNet level 0 (4096 tokens) and level 1 (1024 tokens), each 5
 # self-attentions per UNet pass, 6 timesteps a step → 30 K6 launches a step
@@ -785,6 +815,9 @@ def phase_kernels(seed: int):
     for b, s, h, d in BENCH_ATTN_SHAPES:
         attn.append(attn_row(b, s, h, d, "bfloat16", gen, iters=5))
         log("kernel bench_shapes flash_attention_fwd", json.dumps(attn[-1]))
+    for b, s, h, d in B2_ATTN_SHAPES:
+        attn.append(attn_row(b, s, h, d, "bfloat16", gen, iters=5))
+        log("kernel batch2_shapes flash_attention_fwd", json.dumps(attn[-1]))
     for b, hh, ww, c, silu, eps in GN_PATH_SHAPES:
         gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
         log("kernel groupnorm_silu", json.dumps(gn[-1]))
@@ -794,6 +827,9 @@ def phase_kernels(seed: int):
     for b, hh, ww, c, silu, eps in BENCH_GN_SHAPES:
         gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
         log("kernel bench_shapes groupnorm_silu", json.dumps(gn[-1]))
+    for b, hh, ww, c, silu, eps in B2_GN_SHAPES:
+        gn.append(gn_row(b, hh, ww, c, 32, silu, eps, "bfloat16", gen, iters=10))
+        log("kernel batch2_shapes groupnorm_silu", json.dumps(gn[-1]))
     for (b, hh, ww, c, groups), dtype, sdtype, offset in GN_EXTRA:
         for silu in (True, False):
             r = gn_row(b, hh, ww, c, groups, silu, 1e-5, dtype, gen, iters=0, sdtype=sdtype,
@@ -1036,8 +1072,8 @@ FULL_SQUARE_ROIS = 8  # the folder's 1024² ROIs: the 3-slot ring wraps, most re
 
 
 def program_stats(caches) -> dict:
-    """Programs, captured graphs, replays and capture seconds over the
-    program caches of ``LDiffusionModel.tissue_programs``."""
+    """Programs, captured graphs, replays and capture seconds over program
+    caches (``LDiffusionModel.tissue_programs``, a ``Jit``'s ``programs``)."""
     progs = [p for cache in caches.values() for p in cache.values()]
     return {"programs": len(progs), "graphs_captured": sum(p.graph is not None for p in progs),
             "replays": sum(p.replays for p in progs),
@@ -1792,6 +1828,73 @@ def seg_route_check(tr, rng):
     return row
 
 
+# DiffusionTransform(batch_size=2) against batch 1 on the same ROIs: both bf16
+# at SD-v1.5 width; cuDNN and cuBLAS may pick other algorithms (another
+# summation order) at batch 2, and bf16 rounding spreads that through the
+# UNet and the VAE decoder; a pad or misplaced row would move pixels by O(0.5)
+SEG_BATCH2_MAX_ABS = 0.1
+SEG_TRANSFORM_ROIS = 3  # batch 2: one full chunk and a padded one
+
+
+def seg_transform_check(comps, paths):
+    """The dataset build's DiffusionTransform on ``paths`` (1024² ROIs):
+    batch 1 (the first use, the capture, a replay) against
+    ``one_step_transform`` called eagerly on each ROI, bit for bit; batch 2
+    over all of them twice (a full and a zero-padded chunk: the first use,
+    the capture, then replays; launches counted from 0 over the four chunks)
+    against the eager batch-2 route, bit for bit; batch 2's rows against
+    batch 1's (SEG_BATCH2_MAX_ABS)."""
+    import numpy as np
+    import torch
+
+    from ldiffusion_tpu_torch.data.dataset import load_image
+    from ldiffusion_tpu_torch.diffusion.pipeline import one_step_transform, trajectory_text_emb
+    from ldiffusion_tpu_torch.segmentor.dataset_builder import DiffusionTransform
+
+    images = np.stack([load_image(p, (1024, 1024)) for p in paths])
+    n = len(images)
+    tf1 = DiffusionTransform(comps)
+    secs1, one = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        one.append(tf1(images[i:i + 1])[0])
+        secs1.append(time.perf_counter() - t0)
+    padded = np.concatenate([images, np.zeros((-n % 2,) + images.shape[1:], np.float32)])
+    with torch.inference_mode():
+        eager1 = [one_step_transform(comps, torch.from_numpy(images[i:i + 1]).cuda(),
+                                     trajectory_text_emb(comps, 1)).float().cpu().numpy()[0]
+                  for i in range(n)]
+        eager2 = np.concatenate([
+            one_step_transform(comps, torch.from_numpy(padded[i:i + 2]).cuda(),
+                               trajectory_text_emb(comps, 2)).float().cpu().numpy()
+            for i in range(0, len(padded), 2)])[:n]
+    tf2 = DiffusionTransform(comps, batch_size=2)
+    secs2, two = [], []
+    reset_counters()  # batch 2's launches: four chunks
+    for _ in range(2):
+        t0 = time.perf_counter()
+        two.append(tf2(images))
+        secs2.append(time.perf_counter() - t0)
+    launches = read_counters()
+    chunks = 2 * (len(padded) // 2)  # two calls of two chunks
+    (p1,), (p2,) = tf1.program.programs.values(), tf2.program.programs.values()
+    row = {"rois": n, "batch1_s_per_roi": secs1, "batch2_s_per_call": secs2,
+           "batch1_replays": p1.replays, "batch2_replays": p2.replays,
+           "batch1_capture_s": p1.capture_s, "batch2_capture_s": p2.capture_s,
+           "batch1_bit_equal_to_eager": all(np.array_equal(a, b) for a, b in zip(one, eager1)),
+           "batch2_bit_equal_to_eager": all(np.array_equal(t, eager2) for t in two),
+           "batch2_vs_batch1_max_abs": float(np.abs(two[0] - np.stack(one)).max()),
+           "batch2_vs_batch1_mean_abs": float(np.abs(two[0] - np.stack(one)).mean()),
+           "batch2_vs_batch1_bound": SEG_BATCH2_MAX_ABS,
+           "batch2_launches_per_chunk": {k: launches[k] / chunks for k in INFERENCE_KERNELS}}
+    ok = (row["batch1_bit_equal_to_eager"] and row["batch2_bit_equal_to_eager"]
+          and row["batch2_vs_batch1_max_abs"] <= SEG_BATCH2_MAX_ABS
+          and p1.replays == n - 1 and p2.replays == chunks - 1
+          and row["batch2_launches_per_chunk"] == {"flash_attention_fwd": 17,
+                                                   "groupnorm_silu": 113})
+    return row, ok
+
+
 def seg_pairs(root, n, rng, size=1024):
     """n synthetic size² ROI/label PNG pairs, labels in the tissue pixel code."""
     import argparse as ap
@@ -1884,6 +1987,8 @@ def phase_seg(work, seed):
                         "validation": epochs * cfg.val_iters_per_epoch - 1}:
         raise AssertionError(f"seg: the epoch loop replayed {loop_replays} in {epochs} epochs")
     route = seg_route_check(tr, rng)
+    transform, transform_ok = seg_transform_check(
+        comps, [os.path.join(args.image_dir, f"roi_{i}.png") for i in range(SEG_TRANSFORM_ROIS)])
     batch = (rng.normal(size=(2, 1024, 1024, 3)).astype(np.float32),
              np.stack([train_labels(rng, 1024), train_labels(rng, 1024)]))
     tr.net.train()
@@ -1895,6 +2000,8 @@ def phase_seg(work, seed):
            "unet_dir_write_s": save_s, "unet_dir_bytes": unet_bytes,
            "unet_dir_load_s": prep["load_unet_s"],
            "dataset_build_s_per_roi": prep["dataset_build_s"] / prep["rois"],
+           "dataset_build_programs": prep["transform_programs"],
+           "dataset_build_replays": prep["transform_replays"], "transform_check": transform,
            "plan_and_preprocess_s": prep["plan_and_preprocess_s"],
            "s_per_iteration_median_after_first": float(np.median(tr.iter_seconds[1:])),
            "s_per_iteration_median_replays": float(np.median(tr.iter_seconds[2:])),
@@ -1917,6 +2024,12 @@ def phase_seg(work, seed):
     log("seg_train", json.dumps(row))
     if not all(math.isfinite(v) for v in row["train_losses"]):
         raise AssertionError(f"seg: non-finite training loss {row['train_losses']}")
+    # one program a build: the first ROI eager, the second captured, the rest replay
+    if (prep["transform_programs"], prep["transform_replays"]) != (1, prep["rois"] - 1):
+        raise AssertionError(f"seg: the dataset build ran {prep['transform_programs']} "
+                             f"programs, {prep['transform_replays']} replays")
+    if not transform_ok:
+        raise AssertionError(f"seg: the DiffusionTransform check failed: {transform}")
     return row
 
 
@@ -2090,19 +2203,215 @@ def cell_pairs(root, n, rng, size=1024):
                         num_inference_steps=25, num_classes=CELL_CLASSES, num_epochs=12)
 
 
-def follow_flows_ms(prop, image):
-    """follow_flows alone on the card, by method, at this image's flows
-    (CUDA events over 5 calls after one warm-up)."""
+CELL_STEPS = 4  # the flow-net and head steps of each route check
+
+
+def timed_call(fn):
+    """(host seconds of ``fn()`` to a sync, clones of its tensor outputs)."""
     import torch
 
-    from ldiffusion_tpu_torch.cell.instance import follow_flows
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return secs, [t.clone() for t in (out if isinstance(out, (tuple, list)) else (out,))]
 
+
+def program_family(jit, call, eager, calls=5):
+    """One program of ``jit`` through ``call()`` ``calls`` times: the first
+    use (eager), the captured call, replays; its outputs against the first
+    use's bit for bit; ``eager()`` (the program's function called directly)
+    3 times. Figures: programs made, replays, capture s, the first use's and
+    the captured call's s, the median replayed and eager s."""
+    import numpy as np
+    import torch
+
+    before = set(jit.programs)
+    runs = [timed_call(call) for _ in range(calls)]
     with torch.inference_mode():
-        out = prop._forward(image)
-        flows, prob = out[..., :2] / 5.0, torch.sigmoid(out[..., 2])
-        return {m: cuda_ms(lambda m=m: follow_flows(flows, prob, prop.n_iter,
-                                                    prop.prob_threshold, m), 5)
-                for m in ("squaring", "euler")}
+        eager_s = [timed_call(eager)[0] for _ in range(3)]
+    first = runs[0][1]
+    bit_equal = all(torch.equal(a, b) for _, outs in runs[1:] for a, b in zip(outs, first))
+    new = [p for k, p in jit.programs.items() if k not in before]
+    return {"programs": len(new), "replays": sum(p.replays for p in new),
+            "capture_s": sum(p.capture_s for p in new), "first_use_s": runs[0][0],
+            "captured_call_s": runs[1][0],
+            "replay_s": float(np.median([t for t, _ in runs[2:]])),
+            "eager_s": float(np.median(eager_s)), "bit_equal_to_first_use": bit_equal}
+
+
+def step_route(make, batches, state):
+    """``len(batches)`` training steps of a trainer from ``make()`` through
+    ``trainer.step`` (its program: eager, captured, replays) and, from a
+    fresh ``make()``, through ``trainer.step_fn`` called eagerly, twice:
+    ``state(trainer, losses)`` of each run held captured against eager,
+    bit-equal or within twice the two eager runs' difference. cuDNN runs its
+    deterministic algorithms. Figures: each route's step seconds, programs,
+    replays, capture s, the differences."""
+    import numpy as np
+    import torch
+
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for route in ("captured", "eager", "eager_again"):
+            tr = make()
+            losses, secs = [], []
+            for batch in batches:
+                t0 = time.perf_counter()
+                losses.append(tr.step(*batch) if route == "captured"
+                              else float(tr.step_fn(*batch)))
+                secs.append(time.perf_counter() - t0)
+            runs[route] = (tr, secs, state(tr, losses))
+    finally:
+        torch.backends.cudnn.deterministic = kept
+    tr, secs, captured = runs["captured"]
+    _, eager_secs, eager = runs["eager"]
+    eager_again = runs["eager_again"][2]
+    diffs = {k: max_abs_diff(captured[k], eager[k]) for k in eager}
+    spread = {k: max_abs_diff(eager_again[k], eager[k]) for k in eager}
+    programs = list(tr.program.programs.values())
+    row = {"steps": len(batches), "programs": len(programs),
+           "replays": sum(p.replays for p in programs),
+           "capture_s": sum(p.capture_s for p in programs), "captured_step_s": secs,
+           "replayed_step_s": float(np.median(secs[2:])),
+           "eager_step_s": float(np.median(eager_secs[1:])),
+           "max_abs_diff_captured_vs_eager": diffs, "max_abs_diff_eager_vs_eager": spread,
+           "bit_equal": all(d == 0.0 for d in diffs.values())}
+    bad = {k: (diffs[k], spread[k]) for k in diffs if diffs[k] > 2 * spread[k]}
+    return row, bad
+
+
+def adamw_state(params, opt, losses):
+    import torch
+
+    params = list(params)
+    st = opt.state
+    return {"losses": [torch.tensor(losses)], "params": [p.detach().clone() for p in params],
+            "exp_avg": [st[p]["exp_avg"].clone() for p in params],
+            "exp_avg_sq": [st[p]["exp_avg_sq"].clone() for p in params]}
+
+
+def flow_batches(rng, n, batch=4, size=64):
+    """n batches of ``batch`` size² crowded-cell scenes (the flow nets'
+    training scenes) and their masks_to_flows targets on the card."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from ldiffusion_tpu_torch.cell.instance import masks_to_flows
+
+    out = []
+    for _ in range(n):
+        imgs = [crowded_roi(rng, size, size) for _ in range(batch)]
+        masks = [ndimage.label(im[..., 0] > 0.4)[0] for im in imgs]
+        out.append((torch.from_numpy(np.stack(imgs)).cuda(),
+                    torch.from_numpy(np.stack([masks_to_flows(m) for m in masks])).cuda()))
+    return out
+
+
+def cell_programs(rng, ckpt, image, crowded):
+    """The cell level's programs on the card: follow_flows by method, the
+    proposer's _device_propose at the 1024² crowded ROI, classify_rois at
+    the PUMA-density ROI's bucket (program families: replays bit-equal to
+    the first use); cache_features of two ROIs of one bucket, twice (the
+    second time both replay: each entry equal to its ROI's eager features
+    bit for bit, the entries distinct); the head step on those features and
+    the flow-net step at the artifact's width (features 32-64-128, batch 4,
+    64² scenes), captured against eager (``step_route``)."""
+    import torch
+
+    from ldiffusion_tpu_torch.cell.classifier import (
+        CellSegClassifier,
+        CellTrainer,
+        extract_instance_boxes,
+    )
+    from ldiffusion_tpu_torch.cell.instance import FlowNetProposer, FlowNetTrainer
+
+    out, bad = {}, {}
+    prop = FlowNetProposer.load_pretrained("transformed", device="cuda")
+    x = torch.from_numpy(crowded).cuda()
+    with torch.inference_mode():
+        net_out = prop._net_out(x)
+        flows, prob = net_out[..., :2] / 5.0, torch.sigmoid(net_out[..., 2])
+    for method in ("squaring", "euler"):
+        out[f"follow_flows_{method}"] = program_family(
+            prop.programs["follow_flows"], lambda m=method: prop.follow(flows, prob, m),
+            lambda m=method: prop._follow(flows, prob, n_iter=prop.n_iter, method=m,
+                                          prob_threshold=prop.prob_threshold))
+    out["device_propose"] = program_family(
+        prop.programs["propose"], lambda: prop._device_propose(crowded),
+        lambda: prop._propose_out(x, n_iter=prop.n_iter, prob_threshold=prop.prob_threshold))
+    del prop, x, net_out, flows, prob
+
+    clf = CellSegClassifier(CELL_CLASSES, device="cuda")
+    clf.load(ckpt)
+    ids, boxes = extract_instance_boxes(clf.proposer.propose(image))
+    img_t = torch.from_numpy(image).cuda()
+    bb_t = torch.from_numpy(clf.pad_boxes(boxes)).cuda()
+    out["classify_rois"] = program_family(clf.programs["roi_logits"],
+                                          lambda: clf.programs["roi_logits"](img_t, bb_t),
+                                          lambda: clf._roi_logits(img_t, bb_t))
+    out["classify_rois"].update(instances=len(ids), bucket=clf._bucket(len(ids)))
+
+    pairs = []
+    for _ in range(2):
+        roi, inst = nuclei_roi(rng)
+        classes = rng.integers(1, CELL_CLASSES, inst.max() + 1)
+        classes[0] = 0
+        pairs.append((roi, classes[inst].astype("int32")))
+    tr = CellTrainer(clf)
+    tr.cache_features(pairs)  # the first use, then the capture
+    cache = tr.cache_features(pairs)  # both replay
+    buckets = [int(entry[0].shape[0]) for entry in cache]
+    own = True
+    with torch.inference_mode():
+        for (roi, _), (feats, _, _) in zip(pairs, cache):
+            _, boxes = extract_instance_boxes(clf.proposer.propose(roi))
+            want = clf._roi_features(torch.from_numpy(roi).cuda(),
+                                     torch.from_numpy(clf.pad_boxes(boxes)).cuda())
+            own = own and torch.equal(feats, want)
+    distinct = (not torch.equal(cache[0][0], cache[1][0])
+                and cache[0][0].data_ptr() != cache[1][0].data_ptr())
+    same = len(set(buckets)) == 1
+    feats_programs = list(clf.programs["roi_features"].programs.values())
+    out["cache_features"] = {"buckets": buckets, "programs": len(feats_programs),
+                             "replays": sum(p.replays for p in feats_programs),
+                             "entries_equal_their_rois_eager_features": own,
+                             "entries_distinct": distinct}
+    if not (same and own and distinct):
+        bad["cache_features"] = out["cache_features"]
+
+    head0 = {k: v.clone() for k, v in clf.head.state_dict().items()}
+
+    def head_trainer():
+        clf.head.load_state_dict(head0)
+        return CellTrainer(clf)
+
+    batches = [cache[i % 2] for i in range(CELL_STEPS)]
+    out["head_step"], bad_head = step_route(
+        head_trainer, batches, lambda t, losses: adamw_state(clf.head.parameters(), t.opt, losses))
+    out["head_step"]["bucket"] = buckets[0]
+    del tr, cache, clf, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def flow_trainer():
+        return FlowNetTrainer(FlowNetProposer.load_pretrained("transformed", device="cuda"))
+
+    out["flownet_step"], bad_flow = step_route(
+        flow_trainer, flow_batches(rng, CELL_STEPS),
+        lambda t, losses: adamw_state(t.proposer.net.parameters(), t.opt, losses))
+    out["flownet_step"].update(features=[32, 64, 128], batch=4, size=64)
+    bad.update({f"head_step {k}": v for k, v in bad_head.items()})
+    bad.update({f"flownet_step {k}": v for k, v in bad_flow.items()})
+    for name, fam in out.items():
+        if fam.get("bit_equal_to_first_use") is False:
+            bad[name] = "a replay differs from the first use"
+        if not fam["programs"] or not fam["replays"]:
+            bad[name] = f"programs {fam['programs']}, replays {fam['replays']}"
+    return out, bad
 
 
 def phase_cell(work, seed):
@@ -2203,29 +2512,34 @@ def phase_cell(work, seed):
         raise AssertionError(f"cell: no checkpoint at {ckpt}")
     tr = model.cell_trainer
     transforms = CELL_ROIS + len(per_roi)  # every train/validation ROI, then each inference
+    per_roi_launches = {k: launches[k] / transforms for k in INFERENCE_KERNELS}
+    api_programs = {name: program_stats({name: jit.programs}) for name, jit in (
+        ("head_step", tr.program), ("classify_rois", tr.model.programs["roi_logits"]),
+        ("roi_features", tr.model.programs["roi_features"]))}
     row.update({"checkpoint": os.path.relpath(ckpt, work), "inference": per_roi,
                 "feature_cache_s": tr.feature_cache_seconds, "s_per_epoch": tr.epoch_seconds,
                 "launches": launches, "launches_by_route": routes,
-                "launches_per_roi": {k: launches[k] / transforms for k in INFERENCE_KERNELS},
+                "launches_per_roi": per_roi_launches, "api_programs": api_programs,
                 "groupnorm_shapes": dict(watch.shapes)})
+    # the training ROIs' transforms replay from the third (one DiffusionTransform
+    # a build): each still counts one ROI's launches
+    if per_roi_launches != {"flash_attention_fwd": 17, "groupnorm_silu": 113}:
+        raise AssertionError(f"cell: launches per ROI {per_roi_launches}")
+    if not api_programs["head_step"]["replays"]:
+        raise AssertionError(f"cell: the head step never replayed: {api_programs}")
     row["profiled_inference"] = device_profile(
         lambda: model.inference(square, None, os.path.dirname(ckpt), CELL_CLASSES))
     del model, loaded, tr
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (3) the classifier at PUMA density, untransformed ROI, ResNet-152
+    # (3) the classifier at PUMA density, untransformed ROI, ResNet-152: the
+    # card (TF32 off) against the CPU, then as shipped (TF32 on) on a
+    # classifier of its own (a program keeps the TF32 setting of its capture)
     image, _ = nuclei_roi(rng)
     clf = {dev: CellSegClassifier(CELL_CLASSES, device=dev) for dev in ("cuda", "cpu")}
     for c in clf.values():
         c.load(ckpt)
-    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN: as shipped
-    clf["cuda"].predict_mask(image)  # warm-up
-    shipped = []
-    for _ in range(3):
-        clf["cuda"].predict_mask(image)
-        shipped.append(dict(clf["cuda"].last_predict))
-    torch.backends.cudnn.allow_tf32 = False
     instances = clf["cuda"].proposer.propose(image)
     ids, boxes = extract_instance_boxes(instances)
     classes = {dev: c.classify_rois(image, boxes) for dev, c in clf.items()}
@@ -2240,6 +2554,15 @@ def phase_cell(work, seed):
         enc_tf32_ms = cuda_ms(lambda: clf["cuda"].encode(patches), 3)
         torch.backends.cudnn.allow_tf32 = False
         resize_ms = cuda_ms(lambda: roi_resize_64(img_t, bb), 10)
+    del clf, patches
+    shipped_clf = CellSegClassifier(CELL_CLASSES, device="cuda")
+    shipped_clf.load(ckpt)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN: as shipped
+    shipped = []
+    for _ in range(4):  # the first use, the capture, replays
+        shipped_clf.predict_mask(image)
+        shipped.append(dict(shipped_clf.last_predict))
+    torch.backends.cudnn.allow_tf32 = False
     row["classifier_puma_density"] = {
         "instances": len(ids), "bucket": bucket, "class_agreement_cuda_cpu": agree,
         "min_agreement": CELL_CLASS_AGREEMENT, "predict_mask_tf32_as_shipped": shipped,
@@ -2249,25 +2572,30 @@ def phase_cell(work, seed):
         raise AssertionError(f"cell: {len(ids)} instances, fewer than {CELL_MIN_INSTANCES}")
     if agree < CELL_CLASS_AGREEMENT:
         raise AssertionError(f"cell: card and CPU classes agree on only {agree:.4%}")
-    del clf, patches
+    del shipped_clf
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (4) the flow proposer at 1024², card vs CPU
+    # (4) the cell level's programs (cell_programs), then the flow proposer
+    # at 1024², card vs CPU
     crowded = crowded_roi(rng)
+    row["programs"], bad = cell_programs(rng, ckpt, image, crowded)
     props = {dev: FlowNetProposer.load_pretrained("transformed", device=dev)
              for dev in ("cuda", "cpu")}
     maps = {dev: p.propose(crowded) for dev, p in props.items()}
-    t0 = time.perf_counter()
-    props["cuda"].propose(crowded)
-    propose_s = time.perf_counter() - t0
+    times = []
+    for _ in range(3):  # the capture, replays
+        t0 = time.perf_counter()
+        props["cuda"].propose(crowded)
+        times.append(time.perf_counter() - t0)
     pq = panoptic_quality(maps["cuda"], maps["cpu"])["pq"]
     row["flow_proposer"] = {"instances_cuda": int(maps["cuda"].max()),
                             "instances_cpu": int(maps["cpu"].max()), "pq_cuda_vs_cpu": pq,
-                            "min_pq": CELL_PQ_AGREEMENT, "propose_s": propose_s,
-                            "n_iter": props["cuda"].n_iter,
-                            "follow_flows_ms": follow_flows_ms(props["cuda"], crowded)}
+                            "min_pq": CELL_PQ_AGREEMENT, "propose_s": times,
+                            "n_iter": props["cuda"].n_iter}
     log("cell", json.dumps(row))
+    if bad:
+        raise AssertionError(f"cell: the programs' checks failed: {bad}")
     if pq < CELL_PQ_AGREEMENT or not maps["cuda"].max():
         raise AssertionError(f"cell: flow proposer card vs CPU PQ {pq}, "
                              f"{maps['cuda'].max()} instances")
@@ -3090,6 +3418,7 @@ VOL_TRAIN = 4                      # training volumes (fold 0: 3 train, 1 valida
 VOL_SHAPE = (160, 256, 256)        # float32, 42 MB a volume
 VOL_SPACING = (2.5, 0.8, 0.8)      # anisotropic: 3.125 > ANISO_THRESHOLD, separate-z
 VOL_ITERS = 12                     # iterations of the one epoch of each configuration
+VOL_TRAINED = ("3d_lowres", "3d_cascade_fullres")  # trained by `train` processes
 VOL_FULLRES = ((80, 128, 128), 2, (32, 64, 128, 256, 320, 320))
 VOL_LOWRES_PATCH = (112, 96, 96)
 VOL_MAX_FEATURES = 320             # the planner's 3D width (MAX_FEATURES_3D)
@@ -3262,15 +3591,17 @@ def phase_vol(work, seed):
     did = ("-d", "300")
     iters = ("--epochs", "1", "--iters", str(VOL_ITERS))
     user("plan_and_preprocess", "plan_and_preprocess", *did)
-    for cfg in ("3d_lowres", "3d_cascade_fullres", "3d_fullres"):
+    # the 3d_fullres plan's net trains in the cascade's fullres stage (its
+    # plan, 1 + 2 input channels) and steps in the profiled window below
+    for cfg in VOL_TRAINED:
         user(f"train {cfg}", "train", *did, "-c", cfg, "-f", "0", *iters)
     preds = {}
     for cfg in ("3d_cascade_fullres",):  # the fullres net predicts in its own validation
         preds[cfg] = os.path.join(work, f"vol_pred_{cfg}")
         user(f"predict {cfg}", "predict", "-i", os.path.join(ds, "imagesTs"), "-o", preds[cfg],
              *did, "-c", cfg, "-f", "0")
-    fold_full = os.path.join(res, "Dataset300_Vol3D", "nnUNetTrainer__ldPlans__3d_fullres",
-                             "fold_0")
+    fold_full = os.path.join(res, "Dataset300_Vol3D",
+                             "nnUNetTrainer__ldPlans__3d_cascade_fullres", "fold_0")
     t0 = time.perf_counter()  # a host command: in this process
     cli.main(["evaluate_folder", os.path.join(fold_full, "validation_gt"),
               os.path.join(fold_full, "validation"), "-djfile",
@@ -3290,7 +3621,7 @@ def phase_vol(work, seed):
             any(p.features_per_stage[-1] != VOL_MAX_FEATURES for p in plans.values()):
         raise AssertionError(f"vol: the lowres plan: {plans['3d_lowres']}")
     runs = {}
-    for cfg in ("3d_lowres", "3d_cascade_fullres", "3d_fullres"):
+    for cfg in VOL_TRAINED:
         fold = os.path.join(res, "Dataset300_Vol3D", f"nnUNetTrainer__ldPlans__{cfg}", "fold_0")
         timing = cli_timing(fold)
         train = timing["training"]
@@ -3347,7 +3678,7 @@ def phase_vol(work, seed):
                          "batch_dice": p.batch_dice} for k, p in plans.items()},
            "dataset_write_s": data_s, "commands_s": commands,
            "command_s_total": sum(commands.values()), "runs": runs, "predict": predict,
-           "fullres_validation_foreground_dice": eval_dice,
+           "cascade_validation_foreground_dice": eval_dice,
            "profiled_fullres_window": prof}
     log("vol", json.dumps(row))
     return {"launches": prof["launches"], "row": row}
@@ -4650,6 +4981,10 @@ def main(argv=None) -> int:
         walls[name] = time.perf_counter() - t0
         gc.collect()  # what a phase leaves allocated once its objects are gone
         left[name] = torch.cuda.memory_allocated()
+        # the next phase starts without this one's cached blocks: a capture
+        # empties the cache first (a capture in the seg phase after the
+        # kernels phase took 9.1 s, 0.08-0.13 s once the phases emptied it)
+        torch.cuda.empty_cache()
 
     if "kernels" in phases:
         with wall("kernels"):

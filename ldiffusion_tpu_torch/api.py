@@ -143,7 +143,7 @@ class LDiffusionModel:
         self.seg_trainer = None  # the last stage-2 trainer, kept for inspection
         self.cell_trainer = None  # the last cell trainer, kept for inspection
         self.cell_seconds = {}  # inference_cell's stages and counts, host clock
-        self.prepare_seconds = {}  # _prepare_tissue's phases, host clock
+        self.prepare_seconds = {}  # _prepare_tissue's phases (host clock), its transform's programs
         self.tissue_programs = {}  # inference_tissue's program caches, kept for inspection
         self._components = None if components is None else components.to(self.device)
 
@@ -241,11 +241,11 @@ class LDiffusionModel:
         comps = self._load_components(unet_override_dir=ldiffusion_weight)
         t1 = time.perf_counter()
         print("\033[32m[LDiffusion] Preparing data by L-Diffusion...\033[0m", flush=True)
+        transform = DiffusionTransform(comps)
         num, ds_path = on_main(
             build_transformed_dataset, train_ds.image_paths, train_ds.label_paths,
             val_ds.image_paths, val_ds.label_paths, num_classes, self.level,
-            DiffusionTransform(comps), os.path.join(self.work_dir, "seg_raw"),
-            image_size=self.image_size)
+            transform, os.path.join(self.work_dir, "seg_raw"), image_size=self.image_size)
         t2 = time.perf_counter()
         print("\033[32m[Segmentor] Data preprocessing and plan generation in "
               "progress...\033[0m", flush=True)
@@ -257,8 +257,11 @@ class LDiffusionModel:
         out_dir = os.path.join(self.work_dir, "segmentor", f"Dataset{num:03d}")
         on_main(plan.save, os.path.join(out_dir, "plans.json"))
         pp_all = PreprocessedDataset.build(images, labels, num_classes)
+        programs = transform.program.programs.values()
         self.prepare_seconds = {"load_unet_s": t1 - t0, "dataset_build_s": t2 - t1,
                                 "rois": len(train_ds) + len(val_ds),
+                                "transform_programs": len(programs),
+                                "transform_replays": sum(p.replays for p in programs),
                                 "plan_and_preprocess_s": time.perf_counter() - t2}
         return {"plan": plan, "out_dir": out_dir, "pp_all": pp_all, "ds_path": ds_path,
                 "num_classes": num_classes}

@@ -12,6 +12,17 @@ adapter and the linear layer, with per-instance cross-entropy against each
 instance's majority ground-truth class (the JAX package's working version of
 the reference's gradient-less loss).
 
+The device work runs as ``core/graphs.py`` programs, the JAX package's
+jitted functions, one per bucket (``classify_patches``: float16 batch →
+encoder → head, the JAX ``_make_logits_fn``) or per (image shape, bucket)
+(``classify_rois``: crop, resize, normalise, encoder, head, the JAX
+``_roi_logits_fn_cached``; ``roi_features``, the JAX
+``CellTrainer._roi_feats_fn``), in the classifier's memory pool; the
+trainer's head step is a ``TrainProgram`` per bucket (AdamW ``capturable``
+on a card). Each runs eagerly at its first use, is captured as a CUDA graph
+at its second and replays after; on the CPU each call runs the function. A
+program's output holds until the next call of a program of its pool.
+
 The checkpoint (``save``/``load``) is the JAX package's pickle,
 ``{"head": flax tree, "num_classes"}``, so each package reads the other's.
 It does not hold the encoder: each package rebuilds its encoder from a fixed
@@ -36,6 +47,7 @@ from torch import nn
 from ldiffusion_tpu_torch.cell.instance import DistanceWatershedProposer, InstanceProposer
 from ldiffusion_tpu_torch.core.checkpoint import load_pytree, save_pytree
 from ldiffusion_tpu_torch.core.device import resolve_device
+from ldiffusion_tpu_torch.core.graphs import Jit, TrainProgram
 from ldiffusion_tpu_torch.core.logging import TextLogger
 from ldiffusion_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
 from ldiffusion_tpu_torch.losses.dice import micro_dice
@@ -174,6 +186,10 @@ class CellSegClassifier:
         self.proposer = proposer or DistanceWatershedProposer()
         self._norm = (torch.from_numpy(IMAGENET_MEAN).to(device),
                       torch.from_numpy(IMAGENET_STD).to(device))
+        pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self.programs = {name: Jit(fn, device, pool) for name, fn in (
+            ("patch_logits", self._patch_logits), ("roi_logits", self._roi_logits),
+            ("roi_features", self._roi_features))}
         self.last_predict: dict = {}  # stage times and counts of the last predict_mask
 
     @property
@@ -187,12 +203,16 @@ class CellSegClassifier:
         with torch.no_grad():
             return self.encoder(x)
 
+    def _roi_features(self, image, boxes):
+        patches = roi_resize_64(image, boxes)
+        return self.encode((patches - self._norm[0]) / self._norm[1])
+
     def roi_features(self, image, boxes: np.ndarray):
         """(H, W, 3) image in [0, 1] + (bucket, 4) padded boxes → features:
-        crop, resize and normalise on the device."""
-        img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
-        patches = roi_resize_64(img, torch.from_numpy(boxes).to(self.device))
-        return self.encode((patches - self._norm[0]) / self._norm[1])
+        crop, resize and normalise on the device, through the program of
+        (image shape, bucket)."""
+        return self.programs["roi_features"](torch.as_tensor(image, dtype=torch.float32),
+                                             torch.from_numpy(boxes))
 
     @staticmethod
     def _top1(logits, n: int) -> np.ndarray:
@@ -207,18 +227,20 @@ class CellSegClassifier:
             return max(32, 1 << (n - 1).bit_length())
         return -(-n // 512) * 512
 
+    def _patch_logits(self, batch):
+        return self.head(self.encode(batch.float()))
+
     def classify_patches(self, patches: np.ndarray) -> np.ndarray:
         """(N, 64, 64, 3) normalised patches → classes in 1..C−1. The batch is
         zero-padded to its bucket and cast to float16 before the encoder, as
-        the JAX package sends it (the encoder computes in float32)."""
+        the JAX package sends it (the encoder computes in float32); the
+        bucket's program gives the logits."""
         n = patches.shape[0]
         if n == 0:
             return np.zeros((0,), np.int64)
         batch = np.zeros((self._bucket(n),) + patches.shape[1:], np.float16)
         batch[:n] = patches
-        with torch.inference_mode():
-            x = torch.from_numpy(batch).to(self.device).float()
-            return self._top1(self.head(self.encode(x)), n)
+        return self._top1(self.programs["patch_logits"](torch.from_numpy(batch)), n)
 
     def pad_boxes(self, boxes) -> np.ndarray:
         """(N, 4) boxes → (bucket, 4) float32, padded with full-patch boxes
@@ -229,14 +251,19 @@ class CellSegClassifier:
         bb[:n] = np.asarray(boxes, np.float32)
         return bb
 
+    def _roi_logits(self, image, boxes):
+        return self.head(self._roi_features(image, boxes))
+
     def classify_rois(self, image: np.ndarray, boxes) -> np.ndarray:
         """Classes in 1..C−1 for each (x1, y1, x2, y2) box of ``image``
-        ((H, W, 3) in [0, 1]), crops made on the device."""
+        ((H, W, 3) in [0, 1]), crops made on the device, in the program of
+        (image shape, bucket)."""
         n = len(boxes)
         if n == 0:
             return np.zeros((0,), np.int64)
-        with torch.inference_mode():
-            return self._top1(self.head(self.roi_features(image, self.pad_boxes(boxes))), n)
+        logits = self.programs["roi_logits"](torch.as_tensor(image, dtype=torch.float32),
+                                             torch.from_numpy(self.pad_boxes(boxes)))
+        return self._top1(logits, n)
 
     def _class_lut(self, instances: np.ndarray, ids, classes) -> np.ndarray:
         """Instance id → class (0 for background and skipped instances)."""
@@ -289,14 +316,21 @@ class CellSegClassifier:
 
 
 class CellTrainer:
-    """AdamW over the adapter and the linear layer (lr 1e-4; betas, eps and
-    weight decay 1e-4 as optax.adamw's defaults); per-instance CE; the best
-    validation micro-Dice checkpoint (reference ``segmentor.py:243-299``)."""
+    """AdamW over the adapter and the linear layer (``lr``, 1e-4; betas, eps
+    and weight decay 1e-4 as optax.adamw's defaults); per-instance CE; the
+    best validation micro-Dice checkpoint (reference
+    ``segmentor.py:243-299``). The head step is one ``TrainProgram`` per
+    bucket (the JAX trainer's jitted step), AdamW ``capturable`` on a
+    card."""
 
-    def __init__(self, model: CellSegClassifier):
+    def __init__(self, model: CellSegClassifier, lr: float = 1e-4):
         self.model = model
-        self.opt = torch.optim.AdamW(model.head.parameters(), lr=1e-4, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=1e-4)
+        one_card = model.device.type == "cuda"
+        self.opt = torch.optim.AdamW(model.head.parameters(), lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=1e-4, capturable=one_card)
+        self.program = Jit(self.step_fn, model.device,
+                           torch.cuda.graph_pool_handle() if one_card else None,
+                           program_type=TrainProgram)
         self.log = TextLogger()
         self.feature_cache_seconds = 0.0  # host seconds, proposals + encoder features
         self.epoch_seconds = []  # host seconds a training epoch, validation included
@@ -312,20 +346,27 @@ class CellTrainer:
             minlength=(int(instances.max()) + 1) * n_cls).reshape(-1, n_cls)
         return joint.argmax(axis=1)[np.asarray(ids, np.int64)].astype(np.int32)
 
-    def step(self, feats, labels, valid) -> float:
-        """One AdamW step on the cached features of one image; ``valid`` masks
-        the bucket's pad rows."""
+    def step_fn(self, feats, labels, valid):
+        """One AdamW step on the cached features of one image, what the
+        program captures; ``valid`` masks the bucket's pad rows. Returns the
+        loss, a 0-d device tensor."""
         self.opt.zero_grad(set_to_none=True)
         logp = torch.log_softmax(self.model.head(feats), dim=-1)
         nll = -logp.gather(1, labels[:, None].long())[:, 0]
         loss = (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
         loss.backward()
         self.opt.step()
-        return float(loss.detach())
+        return loss.detach()
+
+    def step(self, feats, labels, valid) -> float:
+        """One step through the bucket's program; the loss is read after it,
+        as the JAX loop reads ``float(loss)``."""
+        return float(self.program(feats, labels, valid))
 
     def cache_features(self, train_pairs):
         """[(features, labels, valid)] of every training image with instances:
-        the encoder is frozen, so its features are computed once."""
+        the encoder is frozen, so its features are computed once (a copy of
+        the program's output, which the next image's call overwrites)."""
         model, cache = self.model, []
         for img, gt in train_pairs:
             inst = model.proposer.propose(img)
@@ -337,7 +378,8 @@ class CellTrainer:
             labels[:len(ids)] = self.instance_majority_labels(inst, gt, ids)
             valid = np.zeros((bb.shape[0],), np.float32)
             valid[:len(ids)] = 1.0
-            cache.append((model.roi_features(img, bb), torch.from_numpy(labels).to(model.device),
+            cache.append((model.roi_features(img, bb).clone(),
+                          torch.from_numpy(labels).to(model.device),
                           torch.from_numpy(valid).to(model.device)))
         return cache
 

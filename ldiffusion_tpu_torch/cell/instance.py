@@ -10,6 +10,17 @@ the reference runs Cellpose ``cyto2``, ``model/conductor.py:156-180``).
   and a foreground mask, and the host labels the pixels by the connected
   component of their sink. ``FlowNetTrainer`` trains it from instance masks
   (``masks_to_flows`` targets).
+
+The device work runs as ``core/graphs.py`` programs, the JAX package's
+jitted functions: the proposer's net forward (one program per image shape,
+the JAX ``_net_fn``), ``follow_flows`` (per (H, W, ``n_iter``, ``method``,
+``prob_threshold``)) and ``_device_propose`` (per (H, W, ``n_iter``,
+``prob_threshold``)) share the proposer's memory pool; the trainer's step is
+a ``TrainProgram`` per batch shape (AdamW ``capturable`` on a card). Each
+runs eagerly at its first use, is captured as a CUDA graph at its second and
+replays after; on the CPU each call runs the function. The settings are
+part of the keys, so a setting changed between two calls takes effect at
+the next call.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import torch
 from scipy import ndimage
 
 from ldiffusion_tpu_torch.core.device import resolve_device
+from ldiffusion_tpu_torch.core.graphs import Jit, TrainProgram
 from ldiffusion_tpu_torch.models.convert import (
     dynunet_from_flax,
     dynunet_to_flax,
@@ -218,12 +230,21 @@ class FlowNetProposer:
     """DynUNet → flows (the net regresses 5× flows) and sigmoid cell
     probability → ``follow_flows`` → clustering. ``n_iter`` and
     ``prob_threshold`` are read at every call, so changing them takes effect
-    at the next ``propose``."""
+    at the next ``propose``. The device side runs through the proposer's
+    programs (module docstring): a device tensor it returns holds until the
+    next call of one of them."""
 
     net: DynUNet
     n_iter: int = 200
     prob_threshold: float = 0.5
     min_size: int = 15
+
+    def __post_init__(self):
+        dev = self.device
+        pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        self.programs = {name: Jit(fn, dev, pool) for name, fn in (
+            ("net", self._net_out), ("follow_flows", self._follow),
+            ("propose", self._propose_out))}
 
     @classmethod
     def create(cls, features=(32, 64, 128, 256), device=None, **kw) -> "FlowNetProposer":
@@ -267,33 +288,56 @@ class FlowNetProposer:
                                     "with the JAX package's artifacts/ directory")
         return cls.load(str(path), device=device, **kw)
 
-    def _forward(self, image):
-        """(H, W, 3) image → the net's (H, W, 3) output, float32."""
-        x = torch.as_tensor(image, dtype=torch.float32).to(self.device)
+    def _net_out(self, x):
+        """(H, W, 3) float32 on the device → the net's (H, W, 3) output."""
         return self.net(x.permute(2, 0, 1)[None])[0].permute(1, 2, 0)
 
+    def _forward(self, image):
+        """(H, W, 3) image → the net's (H, W, 3) output, float32, through the
+        image shape's program."""
+        return self.programs["net"](torch.as_tensor(image, dtype=torch.float32))
+
     def predict_flows(self, image) -> np.ndarray:
-        with torch.inference_mode():
-            return self._forward(image).cpu().numpy()
+        return self._forward(image).cpu().numpy()
+
+    def _follow(self, flows, cellprob, *, n_iter, method, prob_threshold):
+        return follow_flows(flows, cellprob, n_iter, prob_threshold, method)
+
+    def follow(self, flows, cellprob, method: str = "squaring"):
+        """``follow_flows`` at this proposer's ``n_iter`` and
+        ``prob_threshold`` through the program of (H, W, ``n_iter``,
+        ``method``, ``prob_threshold``), as the JAX ``follow_flows`` is
+        jitted with ``n_iter`` and ``method`` static."""
+        return self.programs["follow_flows"](flows, cellprob, n_iter=self.n_iter, method=method,
+                                             prob_threshold=float(self.prob_threshold))
 
     def device_flows_and_pos(self, image):
         """(positions (H, W, 2), cellprob (H, W)) on the device: the explicit
-        route ``propose`` is held against."""
-        out = self._forward(image)
+        route ``propose`` is held against (two programs)."""
+        with torch.inference_mode():
+            out = self._forward(image)
+            flows, cellprob = out[..., :2] / 5.0, torch.sigmoid(out[..., 2])
+            return self.follow(flows, cellprob), cellprob
+
+    def _propose_out(self, x, *, n_iter, prob_threshold):
+        out = self._net_out(x)
         flows, cellprob = out[..., :2] / 5.0, torch.sigmoid(out[..., 2])
-        return follow_flows(flows, cellprob, self.n_iter, self.prob_threshold), cellprob
+        pos = follow_flows(flows, cellprob, n_iter, prob_threshold)
+        h, w = cellprob.shape
+        py = torch.round(pos[..., 0]).clamp(0, h - 1).to(torch.int32)
+        px = torch.round(pos[..., 1]).clamp(0, w - 1).to(torch.int32)
+        return py * w + px, cellprob > prob_threshold
 
     def _device_propose(self, image):
-        """The device side of ``propose``: net → sigmoid → ``follow_flows`` →
+        """The device side of ``propose`` as one program of (H, W,
+        ``n_iter``, ``prob_threshold``): net → sigmoid → ``follow_flows`` →
         (rounded flat sink index int32, foreground mask)."""
         h, w = image.shape[:2]
         if h * w >= 2 ** 31:
             raise ValueError(f"a {h}x{w} image overflows the int32 flat sink index")
-        with torch.inference_mode():
-            pos, cellprob = self.device_flows_and_pos(image)
-            py = torch.round(pos[..., 0]).clamp(0, h - 1).to(torch.int32)
-            px = torch.round(pos[..., 1]).clamp(0, w - 1).to(torch.int32)
-            return py * w + px, cellprob > self.prob_threshold
+        return self.programs["propose"](torch.as_tensor(image, dtype=torch.float32),
+                                        n_iter=self.n_iter,
+                                        prob_threshold=float(self.prob_threshold))
 
     def propose(self, image) -> np.ndarray:
         sink_flat, fg = self._device_propose(image)
@@ -316,21 +360,34 @@ def optax_sigmoid_bce(logits, targets):
 
 
 class FlowNetTrainer:
-    """AdamW over the flow net: lr 1e-3, betas (0.9, 0.999), eps 1e-8 and
-    weight decay 1e-4, optax.adamw's defaults (torch's decay default is
-    1e-2)."""
+    """AdamW over the flow net: ``lr`` (1e-3), betas (0.9, 0.999), eps 1e-8
+    and weight decay 1e-4, optax.adamw's defaults (torch's decay default is
+    1e-2). The step is one ``TrainProgram`` per batch shape (the JAX
+    trainer's jitted step; a short last batch is its own), AdamW
+    ``capturable`` on a card."""
 
-    def __init__(self, proposer: FlowNetProposer):
+    def __init__(self, proposer: FlowNetProposer, lr: float = 1e-3):
         self.proposer = proposer
-        self.opt = torch.optim.AdamW(proposer.net.parameters(), lr=1e-3, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=1e-4)
+        dev = proposer.device
+        one_card = dev.type == "cuda"
+        self.opt = torch.optim.AdamW(proposer.net.parameters(), lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=1e-4, capturable=one_card)
+        self.program = Jit(self.step_fn, dev, torch.cuda.graph_pool_handle() if one_card else None,
+                           program_type=TrainProgram)
 
-    def step(self, images, flow_targets) -> float:
+    def step_fn(self, images, flow_targets):
+        """One AdamW step on device tensors, what the program captures.
+        Returns the loss, a 0-d device tensor."""
         self.opt.zero_grad(set_to_none=True)
         loss = self.proposer.loss_fn(images, flow_targets)
         loss.backward()
         self.opt.step()
-        return float(loss.detach())
+        return loss.detach()
+
+    def step(self, images, flow_targets) -> float:
+        """One step through the batch shape's program; the loss is read
+        after it, as the JAX loop reads ``float(loss)``."""
+        return float(self.program(images, flow_targets))
 
     def train(self, images, instance_masks, epochs: int = 10, batch_size: int = 4,
               seed: int = 0):

@@ -2,8 +2,11 @@
 package's jitted programs (``ldiffusion_tpu/api.py:313-346``,
 ``ldiffusion_tpu/segmentor/predictor.py:280-318``, the trainers' donated
 steps ``ldiffusion_tpu/train/ldiffusion.py:110-129`` and
-``ldiffusion_tpu/segmentor/trainer.py:319-403``), which compile once per
-cache key and then run without the host in the loop.
+``ldiffusion_tpu/segmentor/trainer.py:319-403``, the cell level's
+``ldiffusion_tpu/cell/instance.py:135-388`` and
+``ldiffusion_tpu/cell/classifier.py:199-384``, the dataset builder's
+``ldiffusion_tpu/segmentor/dataset_builder.py:35-64``), which compile once
+per cache key and then run without the host in the loop.
 
 A ``Program`` wraps ``fn(*inputs)`` (input tensors; a tensor or a tuple of
 tensors out) on a device. On a CUDA device:
@@ -28,7 +31,7 @@ runs it with autograd (a training step: forward, backward, optimizer), and
 registers the owner's ``torch.Generator``s with its graph, so that each
 replay draws what an eager step would and advances them as far.
 ``Jit`` keeps one program per input signature (each input's shape and
-dtype), the key ``jax.jit`` compiles by.
+dtype) and static keyword values, the key ``jax.jit`` compiles by.
 
 Launch counters: the kernel wrappers count a launch in Python where they
 enqueue their kernel, which happens once, at capture. A ``Program`` records
@@ -39,6 +42,7 @@ launches the device ran.
 """
 from __future__ import annotations
 
+import functools
 import time
 import weakref
 
@@ -98,8 +102,8 @@ def weak_method(method):
     is dropped, until the cycle collector happens to run."""
     ref = weakref.WeakMethod(method)
 
-    def call(*args):
-        return ref()(*args)
+    def call(*args, **kwargs):
+        return ref()(*args, **kwargs)
 
     return call
 
@@ -185,10 +189,12 @@ class TrainProgram(Program):
 
 
 class Jit:
-    """One program per input signature (each input's shape and dtype), the
-    key ``jax.jit`` compiles by: ``program_type(fn, device, pool,
-    generators=generators)`` made at a signature's first call. ``fn`` is an
-    owner's bound method, held weakly (``weak_method``)."""
+    """One program per input signature (each input's shape and dtype) and
+    static values (the keywords of a call, ``jax.jit``'s
+    ``static_argnames``), the key ``jax.jit`` compiles by:
+    ``program_type(fn, device, pool, generators=generators)`` made at a
+    key's first call, with the static values bound to ``fn`` as keywords.
+    ``fn`` is an owner's bound method, held weakly (``weak_method``)."""
 
     def __init__(self, fn, device, pool=None, generators=(), program_type=Program):
         self.fn = weak_method(fn)
@@ -198,10 +204,11 @@ class Jit:
         self.program_type = program_type
         self.programs: dict = {}
 
-    def __call__(self, *xs):
-        key = tuple((tuple(x.shape), x.dtype) for x in xs)
+    def __call__(self, *xs, **static):
+        key = tuple((tuple(x.shape), x.dtype) for x in xs) + tuple(sorted(static.items()))
         program = self.programs.get(key)
         if program is None:
+            fn = functools.partial(self.fn, **static) if static else self.fn
             program = self.programs[key] = self.program_type(
-                self.fn, self.device, self.pool, generators=self.generators)
+                fn, self.device, self.pool, generators=self.generators)
         return program(*xs)

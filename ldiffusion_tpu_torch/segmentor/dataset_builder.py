@@ -5,9 +5,14 @@ diffusion transform and is written in the ``DatasetXXX_Custom`` layout
 (imagesTr/labelsTr/imagesTs/labelsTs + ``dataset.json``). The transform is
 skipped when the images differ in size (reference ``utils.py:213``).
 
-The transform is the same ``one_step_transform`` that inference runs, under
-``torch.inference_mode()``: on the card it launches the port's flash forward
-and GroupNorm kernels once per image.
+The transform is the same ``one_step_transform`` that inference runs, in
+batches of ``batch_size`` (the JAX ``DiffusionTransform``, one jitted
+program per batch size): one ``core/graphs.py`` program per input shape in
+the transform's own memory pool, eager at its first use, captured as a CUDA
+graph at its second and replayed after (on the CPU each call runs the
+function). On the card a build through one transform launches the port's
+flash forward and GroupNorm kernels from graph replays from its third
+batch on.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ldiffusion_tpu_torch.core.graphs import Jit
 from ldiffusion_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD, load_image
 from ldiffusion_tpu_torch.data.labels import label_lut
 from ldiffusion_tpu_torch.diffusion.pipeline import (
@@ -30,22 +36,34 @@ from ldiffusion_tpu_torch.diffusion.pipeline import (
 
 
 class DiffusionTransform:
-    """The one-step diffusion feature transform, one image at a time, on the
-    components' device."""
+    """The one-step diffusion feature transform in batches of
+    ``batch_size`` on the components' device: the prompt embedding for the
+    batch made once, one program per input shape (module docstring), the
+    last chunk zero-padded and its pad rows dropped."""
 
-    def __init__(self, components: SDComponents):
+    def __init__(self, components: SDComponents, batch_size: int = 1):
         self.c = components
+        self.batch_size = batch_size
+        dev = components.device
+        self.program = Jit(self._transform, dev,
+                           torch.cuda.graph_pool_handle() if dev.type == "cuda" else None)
+        with torch.inference_mode():
+            self._emb = trajectory_text_emb(components, batch_size)
+
+    def _transform(self, images):
+        return one_step_transform(self.c, images, self._emb)
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
-        """images: (B, H, W, 3) ImageNet-normalised → (B, H, W, 3) float32 in
-        [0, 1]."""
-        out = []
-        with torch.inference_mode():
-            emb = trajectory_text_emb(self.c, 1)
-            for image in images:
-                x = torch.from_numpy(np.ascontiguousarray(image[None], np.float32))
-                out.append(one_step_transform(self.c, x.to(self.c.device), emb)
-                           .float().cpu().numpy())
+        """images: (N, H, W, 3) ImageNet-normalised → (N, H, W, 3) float32 in
+        [0, 1]. Each chunk's output is copied to the host before the next
+        chunk runs."""
+        b, out = self.batch_size, []
+        for s in range(0, images.shape[0], b):
+            chunk = np.ascontiguousarray(images[s:s + b], np.float32)
+            n = chunk.shape[0]
+            if n < b:
+                chunk = np.concatenate([chunk, np.zeros((b - n,) + chunk.shape[1:], np.float32)])
+            out.append(self.program(torch.from_numpy(chunk)).float().cpu().numpy()[:n])
         return np.concatenate(out) if out else images
 
 

@@ -32,6 +32,7 @@ from ldiffusion_tpu_torch import native as tnative
 from ldiffusion_tpu_torch.data import augment as taug
 from ldiffusion_tpu_torch.data.patches import PatchSampler
 from ldiffusion_tpu_torch.segmentor.preprocess import PreprocessedCase, PreprocessedDataset
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 AFFINE_TOL = 1e-5
 DEVICE_DA_TOL = 5e-5

@@ -30,6 +30,7 @@ from ldiffusion_tpu_torch.models.dynunet3d import DynUNet3D, DynUNet3DConfig
 from ldiffusion_tpu_torch.segmentor import predictor as tpred
 from ldiffusion_tpu_torch.segmentor.label_manager import LabelManager
 from ldiffusion_tpu_torch.segmentor.planner3d import SegPlan3D
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 NET_TOL = 1e-5
 LOGIT_TOL = 1e-4

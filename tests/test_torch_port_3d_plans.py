@@ -25,6 +25,7 @@ from ldiffusion_tpu_torch.segmentor import fingerprint as tfp
 from ldiffusion_tpu_torch.segmentor import planner3d as tplan
 from ldiffusion_tpu_torch.segmentor import plans_file as tplans
 from ldiffusion_tpu_torch.segmentor import preprocess as tpre
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 LARGE = {"shapes_after_crop": [[300, 320, 310], [290, 330, 300], [310, 300, 320]],
          "spacings": [[1.0, 0.9, 0.9], [1.2, 0.8, 0.8], [1.1, 0.85, 0.85]], "num_channels": 1}

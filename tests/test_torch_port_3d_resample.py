@@ -19,6 +19,7 @@ from ldiffusion_tpu_torch.data.io import NumpyIO
 from ldiffusion_tpu_torch.segmentor import export as texport
 from ldiffusion_tpu_torch.segmentor import resample as tres
 from ldiffusion_tpu_torch.segmentor.label_manager import LabelManager
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 SPACINGS = {"isotropic": (1.0, 1.2, 0.9), "aniso_z": (4.0, 0.8, 0.8),
             "aniso_y": (0.8, 3.5, 0.8), "aniso_x": (1.0, 1.0, 3.4)}

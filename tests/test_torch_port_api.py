@@ -42,6 +42,7 @@ from ldiffusion_tpu_torch.models.convert import load_unet_dir, proj_from_flax, u
 from ldiffusion_tpu_torch.models.resnet import ResNetConfig
 from ldiffusion_tpu_torch.segmentor.predictor import SlidingWindowPredictor as TPredictor
 from torch_port_common import jax_random_components
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 MASK_AGREEMENT = 0.995
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -19,6 +19,7 @@ from ldiffusion_tpu.ops.attention import _flash_attention_bhsd_lse, _flash_backw
 from ldiffusion_tpu_torch.models.layers import FusedGroupNormSiLU
 from ldiffusion_tpu_torch.ops import attention as tatt
 from ldiffusion_tpu_torch.ops import groupnorm as tgn
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 OUT_TOL = 2e-5
 LSE_TOL = (2e-4, 1e-5)

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from ldiffusion_tpu.ops import attention as jatt
 from ldiffusion_tpu_torch.ops import attention as tatt
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 SMEM_PER_BLOCK = 232448
 CONSUMER_REGS = 240

@@ -40,6 +40,7 @@ from ldiffusion_tpu_torch.models.convert import (
     dynunet_to_flax,
     unflatten_tree,
 )
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))

@@ -42,6 +42,7 @@ from ldiffusion_tpu_torch.models.convert import (
     to_flax,
 )
 from ldiffusion_tpu_torch.models.resnet import ResNetConfig, ResNetEncoder
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 FEATURE_TOL = 1e-4
 RESIZE_TOL = 1e-5

@@ -42,6 +42,7 @@ from ldiffusion_tpu_torch.models import convert
 from ldiffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from ldiffusion_tpu_torch.ops import resize as tresize
 from torch_port_common import JittedModule, flat, random_params
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 TOL = 1e-4
 LOSS_TOL = 1e-5

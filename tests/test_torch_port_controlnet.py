@@ -41,6 +41,7 @@ from ldiffusion_tpu_torch.models.convert import (
 from ldiffusion_tpu_torch.models.layers import Transformer2D
 from ldiffusion_tpu_torch.models.unet import UNet2DConditionConfig
 from torch_port_common import JittedModule, flat, jax_components_of, jitted, random_params
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 TOL = 1e-4
 EMBED = (8, 16)

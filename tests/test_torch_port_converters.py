@@ -38,6 +38,7 @@ from ldiffusion_tpu_torch.diffusion.schedulers import laplace_noise
 from ldiffusion_tpu_torch.segmentor import batch_running as tbatch
 from ldiffusion_tpu_torch.segmentor import cli as tcli
 from test_public_converters import _make_amos, _make_mnms, _touch
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 
 def same_tree(a, b):

@@ -41,6 +41,7 @@ from torch_port_common import (
     spawn_ranks,
     stage1_world,
 )
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 LOSS_TOL, GRAD_TOL, NU_TOL, PARAM_TOL = 1e-5, 1e-4, 2e-4, 2e-7
 PORT_LOSS_TOL, PORT_GRAD_TOL, PORT_NU_TOL, PORT_PARAM_TOL = 1e-6, 5e-5, 1e-4, 5e-8

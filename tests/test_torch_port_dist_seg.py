@@ -47,6 +47,7 @@ from ldiffusion_tpu_torch.segmentor.planner import SegPlan
 from ldiffusion_tpu_torch.segmentor.variants import get_variant
 from test_torch_port_seg_train import _find_trace
 from torch_port_common import flat, rank_outputs, spawn_ranks, write_inputs
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 NO_DA = dict(p_rotation=0.0, p_scaling=0.0, p_noise=0.0, p_blur=0.0, p_brightness=0.0,
              p_contrast=0.0, p_lowres=0.0, p_gamma_invert=0.0, p_gamma=0.0, p_mirror=0.0)

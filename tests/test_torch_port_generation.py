@@ -42,6 +42,7 @@ from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
 from ldiffusion_tpu_torch.tools import pixel_latent_vector as tplv
 from ldiffusion_tpu_torch.tools import sample as tsample
 from torch_port_common import jax_components_of, jax_laplace_noise, jitted
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 STEP_TOL = 1e-5
 CSV_TOL = 1e-4

@@ -32,6 +32,7 @@ from ldiffusion_tpu_torch.models.unet import UNet2DCondition, UNet2DConditionCon
 from ldiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ldiffusion_tpu_torch.ops import attention as tatt
 from ldiffusion_tpu_torch.ops import groupnorm as tgn
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 SMEM_PER_BLOCK = 232448
 MAX_CLUSTER = 16

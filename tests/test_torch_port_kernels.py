@@ -934,3 +934,230 @@ def test_a_training_capture_that_fails_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="workspace"):
         program(x)
     assert program.graph is None
+
+
+# ---------------------------------------------------------------------------
+# the cell level's and the dataset builder's programs
+# ---------------------------------------------------------------------------
+
+# the dataset build's DiffusionTransform(batch_size=2) at 1024²: the ROI's
+# attention and GroupNorm shapes at batch 2 (chip_smoke.py's B2_*_SHAPES)
+B2_ATTN_SHAPES = [(2, 16384, 8, 40), (2, 4096, 8, 80), (2, 1024, 8, 160), (2, 16384, 1, 512)]
+B2_GN_SHAPES = [((2, 16, 16, 1280), 1e-5, True), ((2, 16, 16, 2560), 1e-5, True),
+                ((2, 16, 16, 1280), 1e-6, False), ((2, 64, 64, 320), 1e-5, True),
+                ((2, 64, 64, 960), 1e-5, True), ((2, 128, 128, 320), 1e-6, False),
+                ((2, 128, 128, 640), 1e-5, True), ((2, 128, 128, 512), 1e-6, True),
+                ((2, 128, 128, 960), 1e-5, True), ((2, 256, 256, 256), 1e-6, True),
+                ((2, 256, 256, 512), 1e-6, True), ((2, 512, 512, 256), 1e-6, True),
+                ((2, 1024, 1024, 128), 1e-6, True), ((2, 1024, 1024, 128), 1e-5, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", B2_ATTN_SHAPES)
+def test_batch2_transform_attention_takes_wgmma_and_matches_plain(cuda, shape):
+    _check_attention_takes_wgmma(cuda, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,eps,silu", B2_GN_SHAPES)
+def test_batch2_transform_groupnorm_takes_its_route_and_matches_plain(cuda, shape, eps, silu):
+    _check_groupnorm_takes_its_route(cuda, shape, eps, silu)
+
+
+def _tiny_cell(cuda):
+    """A tiny flow proposer (features 8-16) and a tiny-encoder classifier on
+    the card, and two 64² images with their instance maps."""
+    from ldiffusion_tpu_torch.cell.classifier import CellSegClassifier
+    from ldiffusion_tpu_torch.cell.instance import FlowNetProposer
+    from ldiffusion_tpu_torch.models.resnet import ResNetConfig
+
+    rng = np.random.default_rng(21)
+    images, insts = [], []
+    yy, xx = np.mgrid[:64, :64]
+    for _ in range(2):
+        inst = np.zeros((64, 64), np.int32)
+        for k in range(1, 9):
+            cy, cx = rng.integers(8, 56, 2)
+            inst[((yy - cy) ** 2 + (xx - cx) ** 2 <= 25) & (inst == 0)] = k
+        img = np.full((64, 64, 3), 0.1, np.float32) + 0.03 * rng.random((64, 64, 3),
+                                                                         dtype=np.float32)
+        img[inst > 0] += 0.7
+        images.append(img)
+        insts.append(inst)
+    prop = FlowNetProposer.create(features=(8, 16), device=cuda, n_iter=50)
+    clf = CellSegClassifier(5, encoder_cfg=ResNetConfig.tiny(), device=cuda)
+    return prop, clf, images, insts
+
+
+def _three_uses(call):
+    """Three calls (the first use, the capture, a replay) and clones of each
+    call's tensor outputs."""
+    outs = []
+    for _ in range(3):
+        out = call()
+        outs.append([t.clone() for t in (out if isinstance(out, tuple) else (out,))])
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.gpu
+def test_cell_and_transform_programs_replay_the_eager_first_use_bitwise(cuda):
+    """Each new program (the proposer's net forward, follow_flows by method,
+    _device_propose; classify_patches, classify_rois, roi_features; the
+    DiffusionTransform at batch 1 and 2, the tiny SD components, f32): three
+    uses, each replay's output equal to the first use's bit for bit, and one
+    graph made."""
+    from ldiffusion_tpu_torch.cell.classifier import extract_instance_boxes
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
+    from ldiffusion_tpu_torch.segmentor.dataset_builder import DiffusionTransform
+
+    prop, clf, images, insts = _tiny_cell(cuda)
+    img = images[0]
+    with torch.inference_mode():
+        out = prop._net_out(torch.from_numpy(img).to(cuda))
+        flows, prob = out[..., :2] / 5.0, torch.sigmoid(out[..., 2])
+    _, boxes = extract_instance_boxes(insts[0])
+    bb = clf.pad_boxes(boxes)
+    patches = np.random.default_rng(22).normal(size=(20, 64, 64, 3)).astype(np.float32)
+    comps = SDComponents.random(device=cuda)
+    norm = np.random.default_rng(23).normal(size=(3, 64, 64, 3)).astype(np.float32)
+    tf1, tf2 = DiffusionTransform(comps), DiffusionTransform(comps, batch_size=2)
+    cases = [
+        ("net", prop.programs["net"], lambda: prop._forward(img)),
+        ("follow_squaring", prop.programs["follow_flows"],
+         lambda: prop.follow(flows, prob, "squaring")),
+        ("follow_euler", prop.programs["follow_flows"],
+         lambda: prop.follow(flows, prob, "euler")),
+        ("propose", prop.programs["propose"], lambda: prop._device_propose(img)),
+        ("patch_logits", clf.programs["patch_logits"],
+         lambda: clf.programs["patch_logits"](torch.from_numpy(
+             np.concatenate([patches, np.zeros((12, 64, 64, 3), np.float32)]).astype(
+                 np.float16)))),
+        ("roi_logits", clf.programs["roi_logits"],
+         lambda: clf.programs["roi_logits"](torch.from_numpy(img), torch.from_numpy(bb))),
+        ("roi_features", clf.programs["roi_features"], lambda: clf.roi_features(img, bb)),
+        ("transform_b1", tf1.program, lambda: torch.from_numpy(tf1(norm[:1]))),
+        ("transform_b2", tf2.program, lambda: torch.from_numpy(tf2(norm[:2]))),
+    ]
+    for name, jit, call in cases:
+        before = set(jit.programs)
+        outs = _three_uses(call)
+        (program,) = [p for k, p in jit.programs.items() if k not in before]
+        assert program.graph is not None and program.replays == 2, name
+        for replay in outs[1:]:
+            for a, b in zip(replay, outs[0]):
+                assert torch.equal(a, b), name
+    # the classifier's and the proposer's user calls reach the same programs
+    assert clf.classify_patches(patches).shape == (20,)
+    assert prop.propose(img).shape == (64, 64)
+
+
+@pytest.mark.gpu
+def test_cached_features_do_not_alias(cuda):
+    """``cache_features`` of two images of one bucket, twice: the second
+    time both replay the program, and each entry still holds its own
+    image's features (the eager function's, bit for bit), not the static
+    output the next replay overwrites."""
+    from ldiffusion_tpu_torch.cell.classifier import CellTrainer, extract_instance_boxes
+
+    _, clf, images, insts = _tiny_cell(cuda)
+    fixed = iter([])
+
+    class Proposer:
+        def propose(self, image):
+            return next(fixed)
+
+    clf.proposer = Proposer()
+    tr = CellTrainer(clf)
+    pairs = [(img, np.where(inst > 0, 1 + inst % 4, 0)) for img, inst in zip(images, insts)]
+    fixed = iter(insts)
+    tr.cache_features(pairs)  # the first use, then the capture
+    fixed = iter(insts)
+    cache = tr.cache_features(pairs)  # both replay
+    (program,) = clf.programs["roi_features"].programs.values()
+    assert program.replays == 3
+    assert not torch.equal(cache[0][0], cache[1][0])
+    with torch.inference_mode():
+        for img, inst, (feats, _, _) in zip(images, insts, cache):
+            _, boxes = extract_instance_boxes(inst)
+            want = clf._roi_features(torch.from_numpy(img).to(cuda),
+                                     torch.from_numpy(clf.pad_boxes(boxes)).to(cuda))
+            assert torch.equal(feats, want)
+
+
+def _cell_step_run(cuda, which: str, captured: bool, steps: int = 4):
+    """``steps`` steps of a tiny flow-net or head trainer from the same
+    weights: through ``step`` (eager, captured, replays) or ``step_fn``."""
+    from ldiffusion_tpu_torch.cell.classifier import CellTrainer
+    from ldiffusion_tpu_torch.cell.instance import FlowNetTrainer, masks_to_flows
+
+    prop, clf, images, insts = _tiny_cell(cuda)
+    rng = np.random.default_rng(24)
+    if which == "flownet":
+        tr, params = FlowNetTrainer(prop, lr=3e-3), list(prop.net.parameters())
+        x = torch.from_numpy(np.stack(images)).to(cuda)
+        y = torch.from_numpy(np.stack([masks_to_flows(m) for m in insts])).to(cuda)
+        batches = [(x.roll(k, 1), y.roll(k, 1)) for k in range(steps)]
+    else:
+        tr, params = CellTrainer(clf, lr=1e-2), list(clf.head.parameters())
+        batches = [(torch.from_numpy(rng.normal(size=(32, 64, 2, 2)).astype(np.float32)).to(cuda),
+                    torch.from_numpy(rng.integers(0, 5, 32)).to(cuda),
+                    torch.from_numpy((np.arange(32) < 20 + k).astype(np.float32)).to(cuda))
+                   for k in range(steps)]
+    losses = [tr.step(*b) if captured else float(tr.step_fn(*b)) for b in batches]
+    st = tr.opt.state
+    return tr, {"losses": [torch.tensor(losses)], "params": [p.detach().clone() for p in params],
+                "exp_avg": [st[p]["exp_avg"].clone() for p in params],
+                "exp_avg_sq": [st[p]["exp_avg_sq"].clone() for p in params]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["flownet", "head"])
+def test_captured_cell_steps_match_the_eager_route(cuda, monkeypatch, which):
+    """The flow-net and the head trainer (cuDNN held to its deterministic
+    algorithms): 4 steps through their program against the step function
+    called eagerly from the same weights and batches."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr, captured = _cell_step_run(cuda, which, True)
+    _, eager = _cell_step_run(cuda, which, False)
+    _, eager_again = _cell_step_run(cuda, which, False)
+    _held_to_eager(captured, eager, eager_again)
+    (program,) = tr.program.programs.values()
+    assert program.graph is not None and program.replays == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("owner", ["proposer", "classifier", "transform", "head_step"])
+def test_a_cell_program_capture_that_fails_raises(cuda, monkeypatch, owner):
+    """No fallback for the new programs either: with graph capture refused
+    (before CUDA is asked to capture), the second use raises and the program
+    holds no graph; the first use ran eagerly."""
+    from ldiffusion_tpu_torch.cell.classifier import CellTrainer
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
+    from ldiffusion_tpu_torch.segmentor.dataset_builder import DiffusionTransform
+
+    prop, clf, images, insts = _tiny_cell(cuda)
+    if owner == "proposer":
+        jit, call = prop.programs["propose"], lambda: prop._device_propose(images[0])
+    elif owner == "classifier":
+        bb = clf.pad_boxes([(8, 8, 20, 20)])
+        jit, call = clf.programs["roi_logits"], lambda: clf.classify_rois(images[0], bb[:1])
+    elif owner == "transform":
+        tf = DiffusionTransform(SDComponents.random(device=cuda))
+        norm = np.zeros((1, 64, 64, 3), np.float32)
+        jit, call = tf.program, lambda: tf(norm)
+    else:
+        tr = CellTrainer(clf)
+        batch = (torch.zeros(32, 64, 2, 2, device=cuda),
+                 torch.zeros(32, dtype=torch.int64, device=cuda), torch.ones(32, device=cuda))
+        jit, call = tr.program, lambda: tr.step(*batch)
+    call()  # the first use: eager
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        call()
+    (program,) = jit.programs.values()
+    assert program.graph is None and program.replays == 0

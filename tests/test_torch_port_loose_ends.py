@@ -36,6 +36,7 @@ from ldiffusion_tpu_torch.data.patches import PatchSampler as TSampler
 from ldiffusion_tpu_torch.segmentor import export as texport
 from ldiffusion_tpu_torch.segmentor import postprocess as tpost
 from ldiffusion_tpu_torch.segmentor import preprocess as tpre
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 F32_TOL = 1e-6
 

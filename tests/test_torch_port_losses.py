@@ -30,6 +30,7 @@ from ldiffusion_tpu_torch.losses.infonce import (
 from ldiffusion_tpu_torch.models.vgg import VGG19Features, convert_vgg19, vgg_from_flax
 from ldiffusion_tpu_torch.ops.resize import resize_bilinear, rgb_to_gray
 from torch_port_common import jax_contrast_indices
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 EXACT_TOL = 1e-6
 RESIZE_TOL = 5e-5

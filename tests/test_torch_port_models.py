@@ -34,6 +34,7 @@ from ldiffusion_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncode
 from ldiffusion_tpu_torch.models.dynunet import DynUNet, DynUNetConfig
 from ldiffusion_tpu_torch.models.unet import UNet2DCondition, UNet2DConditionConfig
 from ldiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 TOL = 1e-3
 KEY = jax.random.key(0)

@@ -20,6 +20,7 @@ from ldiffusion_tpu.ops.resize import upsample_nearest_2x as j_upsample
 from ldiffusion_tpu_torch.ops import attention as tatt
 from ldiffusion_tpu_torch.ops import groupnorm as tgn
 from ldiffusion_tpu_torch.ops.resize import upsample_nearest_2x
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 XLA_TOL = 1e-5
 INTERPRET_TOL = 2e-4

@@ -23,6 +23,7 @@ from ldiffusion_tpu_torch.models.convert import dynunet_from_flax
 from ldiffusion_tpu_torch.segmentor import predictor as tpred
 from ldiffusion_tpu_torch.segmentor.planner import SegPlan
 from torch_port_common import jax_random_components
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 SCHED_TOL = 1e-6
 NET_TOL = 1e-3

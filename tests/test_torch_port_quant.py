@@ -37,6 +37,7 @@ from ldiffusion_tpu_torch.models.unet import UNet2DCondition, UNet2DConditionCon
 from ldiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ldiffusion_tpu_torch.ops import quant as tq
 from torch_port_common import GATED_VAE, GATED_VAE_SITES, jax_components_of, jax_laplace_noise
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 OP_RTOL = 1e-6    # of the output's largest magnitude
 NONE_TOL = 1e-5   # a block in f32, summation order only

@@ -10,6 +10,7 @@ import pytest
 
 from test_torch_port_quant_transform import check_quantized_mode
 from torch_port_common import GATED_VAE_SITES, quant_transform_world
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 # The first site's amax is of activations that differ only by summation
 # order. Record mode quantizes as it goes, so every later site's input

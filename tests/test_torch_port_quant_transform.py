@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 from torch_port_common import quant_transform_world
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 NONE_TOL = 1e-3        # test_torch_port_pipeline's bound of the f32 transform
 TRANSFORM_TOL = 0.1    # measured 0.034 (int8), 0.038 (int8_all)

@@ -30,6 +30,7 @@ from ldiffusion_tpu_torch.diffusion import pipeline as tpipe
 from ldiffusion_tpu_torch.models.convert import load_sd_component, save_unet_dir
 from ldiffusion_tpu_torch.models.safetensors_io import load_safetensors
 from ldiffusion_tpu_torch.models.tokenizer import CLIPTokenizer
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 TRANSFORM_TOL = 1e-5
 PROMPTS = ("A pathological slide", "  a PATHOLOGICAL\tslide  ", "a slide, of tissue!",

@@ -32,6 +32,7 @@ from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
 from ldiffusion_tpu_torch.models.convert import save_unet_dir
 from ldiffusion_tpu_torch.segmentor.planner import SegPlan
 from torch_port_common import jax_random_components
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _labels(rng, n, size, classes):

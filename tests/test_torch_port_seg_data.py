@@ -44,6 +44,7 @@ from ldiffusion_tpu_torch.segmentor import fingerprint as tfp
 from ldiffusion_tpu_torch.segmentor import planner as tplan
 from ldiffusion_tpu_torch.segmentor import preprocess as tpre
 from ldiffusion_tpu_torch.segmentor import splits as tsplits
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _cases(n=4, size=48, seed=0, classes=4):

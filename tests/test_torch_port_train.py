@@ -78,6 +78,7 @@ from torch_port_common import (
 )
 from torch_port_common import port_stage1_trainer as _port_trainer
 from torch_port_common import stage1_data as _data
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4

@@ -8,6 +8,7 @@ import torch
 from torch_port_common import jax_random_components, stage1_vgg_params
 from torch_port_common import port_stage1_trainer as _port_trainer
 from torch_port_common import stage1_data as _data
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ from ldiffusion_tpu.diffusion import pipeline as jpipe
 from ldiffusion_tpu_torch.diffusion import pipeline as tpipe
 from torch_port_common import jax_laplace_noise, jax_random_components
 from torch_port_common import stage1_data as _data
+from torch_port_common import two_torch_threads  # noqa: F401 (autouse)
 
 TRAJ_TOL = 1e-4
 

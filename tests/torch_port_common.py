@@ -5,12 +5,26 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from ldiffusion_tpu.diffusion.pipeline import SDComponents, init_proj
 from ldiffusion_tpu.losses import infonce as jinfo
 from ldiffusion_tpu.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from ldiffusion_tpu.models.unet import UNet2DCondition, UNet2DConditionConfig
 from ldiffusion_tpu.models.vae import AutoencoderKL, VAEConfig
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Two intra-op threads for torch's CPU ops in a module that imports this
+    fixture: the suite runs six workers on one host, and a worker on every
+    core oversubscribes it (six port files at once took 2.3 times as long);
+    the previous count comes back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_random_components() -> SDComponents:
