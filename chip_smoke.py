@@ -196,10 +196,11 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               step of a cascade-width plan, the volumes' device DA with the
               same draws, the 3D sliding window's logits; SEG_TINY_TOL, 1e-4).
               Then 4 + 1 seeded 160x256x256 float32 volumes at spacing
-              (2.5, 0.8, 0.8) as a .npy dataset, through ``python -m
-              ldiffusion_tpu_torch.segmentor`` processes: plan_and_preprocess
-              (all three 3D configurations: 3d_fullres (80,128,128) batch 2,
-              32-320 features; 3d_lowres (112,96,96); the cascade), train -c
+              (2.5, 0.8, 0.8) as a .npy dataset: plan_and_preprocess
+              through cli.main (all three 3D configurations: 3d_fullres
+              (80,128,128) batch 2, 32-320 features; 3d_lowres (112,96,96);
+              the cascade), then ``python -m ldiffusion_tpu_torch.segmentor``
+              processes: train -c
               3d_lowres, 3d_cascade_fullres (the fullres plan with 1 + 2
               input channels, fed by the lowres stage; one epoch of
               VOL_ITERS iterations each), predict -c 3d_cascade_fullres on
@@ -273,11 +274,22 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               seeded weights and draws: the loss, the gradient norm, every
               gradient and updated parameter held to the one-device step
               (DIST_*), the route counters (K2-K6, reset before each step)
-              equal; an FSDP2 trainer's state after a step (tiny configs)
-              gathered, saved, loaded and re-sharded bit-equal. One
-              segmentor step at the seg phase's plan under
-              DDP, plain and nnUNetTrainerBN (batch Dice and BatchNorm over
-              the group), against the one-device step. Then ``python -m
+              equal. Then the FSDP2 trainer from that state takes
+              DIST_ROUTE_STEPS steps through ``train_step`` (its program:
+              eager first use, capture with FSDP2's collectives inside the
+              graph, replay) and one profiled replay, against as many
+              ``step_fn`` calls from the same state: bit-equal or within
+              twice the eager spread, each step's launches by route the
+              eager step's; eager, captured and replayed s/step, capture s,
+              allocated and reserved peaks. An FSDP2 trainer's state after
+              a step (tiny configs) gathered, saved, loaded and re-sharded
+              bit-equal. One segmentor step at the seg phase's plan
+              data-parallel over the mesh (its gradients averaged by one
+              all-reduce), plain and nnUNetTrainerBN (batch Dice and
+              BatchNorm over the group), against the one-device step; then
+              DIST_SEG_ROUTE_STEPS train and 2 validation steps through
+              their programs against the eager route, the same rule, s per
+              iteration by route. Then ``python -m
               torch.distributed.run --nproc_per_node 1 -m
               ldiffusion_tpu_torch.ldiffusion`` on ``random:tiny``: exit 0,
               the UNet directory and rank 0's loss log. Each step's wall,
@@ -3590,7 +3602,9 @@ def phase_vol(work, seed):
 
     did = ("-d", "300")
     iters = ("--epochs", "1", "--iters", str(VOL_ITERS))
-    user("plan_and_preprocess", "plan_and_preprocess", *did)
+    t0 = time.perf_counter()  # a host command: in this process (the cli phase runs it as users do)
+    cli.main(["plan_and_preprocess", *did, "--raw", raw, "--preprocessed", pp], device="cuda")
+    commands["plan_and_preprocess (in process)"] = time.perf_counter() - t0
     # the 3d_fullres plan's net trains in the cascade's fullres stage (its
     # plan, 1 + 2 input channels) and steps in the profiled window below
     for cfg in VOL_TRAINED:
@@ -4430,6 +4444,46 @@ DIST_FLIP_SHARE = 1e-2
 DIST_SEG_LOSS_RTOL = 1e-3
 DIST_SEG_MOMENTUM = 3e-2
 DIST_LAUNCH_TIMEOUT_S = 600
+# The steps over the mesh through their programs (eager first use, capture,
+# replays) against the eager route from the same state: stage 1 at 512²
+# (an eager step takes 2.5-6 s: three steps through the program, two eager,
+# keep the phase short), the segmentor at the 1024² plan
+DIST_ROUTE_STEPS = 3
+DIST_SEG_ROUTE_STEPS = 4
+
+
+def whole(t):
+    """A copy on the card of ``t`` whole (a DTensor gathered)."""
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
+
+
+def launches_since(before) -> dict:
+    """The launches and the launches by route since ``before`` =
+    (``read_counters()``, ``read_routes()``)."""
+    counts, routes = before
+    return {"launches": {k: n - counts[k] for k, n in read_counters().items()},
+            "launches_by_route": {name: {r: n - routes[name].get(r, 0)
+                                         for r, n in by_route.items()}
+                                  for name, by_route in read_routes().items()}}
+
+
+def held_to_eager(where: str, captured: dict, eager: dict, run_again) -> dict:
+    """The captured route's tensors against the eager route's: bit-equal, or
+    within twice the difference between two eager runs (``run_again()``,
+    called only when they are not bit-equal; ``captured`` is emptied before
+    it, to free its tensors). Raises otherwise; returns the figures."""
+    diff = {k: max_abs_diff(captured[k], eager[k]) for k in eager}
+    captured.clear()
+    spread = None
+    if any(diff.values()):
+        again = run_again()
+        spread = {k: max_abs_diff(again[k], eager[k]) for k in eager}
+    bad = {k: (diff[k], spread[k]) for k in diff if diff[k] and not diff[k] <= 2 * spread[k]}
+    if bad:
+        raise AssertionError(f"{where}: the captured steps left the eager route: {bad}")
+    return {"captured_vs_eager_max_abs": diff, "eager_vs_eager_max_abs": spread,
+            "bit_equal": not any(diff.values()),
+            "bound": "bit-equal, or at most twice the eager-vs-eager difference"}
 
 
 def free_port() -> int:
@@ -4451,9 +4505,6 @@ def dist_stage1(work, seed, mesh):
     from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
     from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
 
-    def whole(t):  # a copy on the card (a DTensor gathered), compared there
-        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
-
     rng = np.random.default_rng(seed + 13)
     images, labels = tr_batch(rng, 512)
     x = torch.as_tensor(images, device="cuda")
@@ -4468,8 +4519,9 @@ def dist_stage1(work, seed, mesh):
         sections[key] = sections.get(key, 0.0) + now - t_mark[0]
         t_mark[0] = now
 
+    base = sd15_components(seed + 1, torch.float32)  # built once: ~7 s at this width
     for name in ("one_device", "fsdp2"):
-        comps = sd15_components(seed + 1, torch.float32)
+        comps = copy.deepcopy(base) if name == "one_device" else base
         mark("components")
         tr = DiffusionWarmupTrainer(comps, cfg, work_dir=os.path.join(work, f"dist_{name}"),
                                     mesh=mesh if name == "fsdp2" else None)
@@ -4499,7 +4551,8 @@ def dist_stage1(work, seed, mesh):
         params = [whole(m) for m in tr.master]
         run = {"loss": float(loss), "grad_norm": float(norm), "step_wall_s": wall,
                "device_span_ms": start.elapsed_time(end),
-               "peak_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "peak_reserved_bytes": torch.cuda.max_memory_reserved(), "launches": launches,
                "launches_by_route": routes}
         if name == "one_device":
             ref["params"], ref["grads"] = params, grads
@@ -4516,10 +4569,17 @@ def dist_stage1(work, seed, mesh):
                 n += d.numel()
             run["vs_one_device"] = {"grad_share": grad_share, "flipped_share": flips / n,
                                     "largest_param_diff_over_lr": moved, "elements": n}
+            ref.clear()  # the device memory the programs' check needs
+            grads = params = None
         mark("gather_and_compare")
+        if name == "fsdp2":
+            run["programs"] = dist_stage1_programs(tr, x, y)
+            mark("programs")
         runs[name] = run
         log(f"dist stage1 {name}", json.dumps(run))
         del tr, comps, params
+        if name == "fsdp2":
+            del base
         gc.collect()
         torch.cuda.empty_cache()
         mark("free")
@@ -4541,7 +4601,95 @@ def dist_stage1(work, seed, mesh):
     if min(sharded["launches"].values()) == 0 or not sharded["sharded_params"]:
         raise AssertionError(f"dist stage1: {sharded['launches']}, "
                              f"{sharded['sharded_params']} DTensor parameters")
+    per_step = sharded["programs"]["launches_each_step"]
+    if any(step["launches_by_route"] != sharded["launches_by_route"] or
+           step["launches"] != sharded["launches"] for step in per_step):
+        raise AssertionError(f"dist stage1: the program's steps launched {per_step}, the "
+                             f"eager FSDP2 step {sharded['launches_by_route']}")
     return out
+
+
+def dist_stage1_programs(tr, x, y):
+    """The FSDP2 trainer after its compared step: DIST_ROUTE_STEPS steps
+    through ``train_step``, its batch shape's program (the eager first use,
+    then state S; the capture, FSDP2's all-gathers and reduce-scatters, the
+    losses' all-reduce and the clip's norm inside the graph; replays), then
+    one replay profiled (device activity only); the steps after the first
+    use against as many ``step_fn`` calls from S (the eager route; the first
+    use is that route by construction): losses, gradient norms, gathered
+    masters and AdamW moments held by ``held_to_eager``. Each step's
+    launches by route, s/step by route, the capture's s, the allocated and
+    reserved peaks of the programs' steps."""
+    import numpy as np
+    import torch
+
+    st = tr.opt.state
+    n0, values, per_step = len(tr.history), [], []
+    eager_s = []
+
+    def step():
+        before = read_counters(), read_routes()
+        m = tr.train_step(x, y)
+        values.append([m[k] for k in TRAIN_ROUTE_KEYS])
+        per_step.append(launches_since(before))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()  # the eager first use: state S after it
+    held = list(tr.master) + [v for m in tr.master for v in st[m].values() if torch.is_tensor(v)]
+    start = [t.detach().clone() for t in held]
+    gen_state = tr.generator.get_state()
+
+    def result(vals):
+        return {"values": [torch.tensor(vals)], "masters": [whole(m) for m in tr.master],
+                "exp_avg": [whole(st[m]["exp_avg"]) for m in tr.master],
+                "exp_avg_sq": [whole(st[m]["exp_avg_sq"]) for m in tr.master]}
+
+    for _ in range(DIST_ROUTE_STEPS - 1):
+        step()
+    peaks = {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "max_memory_reserved": torch.cuda.max_memory_reserved()}
+    captured = result(values[1:])
+    (program,) = tr.program.programs.values()
+    before = read_counters(), read_routes()
+    t0 = time.perf_counter()
+    profiled = device_profile(lambda: tr.train_step(x, y))
+    profile_s = time.perf_counter() - t0
+    per_step.append(launches_since(before))
+    hist = [h["seconds"] for h in tr.history[n0:]]
+
+    def eager_route():
+        with torch.no_grad():
+            for t, t0 in zip(held, start):
+                t.copy_(t0)
+        tr.generator.set_state(gen_state)
+        vals = []
+        for _ in range(DIST_ROUTE_STEPS - 1):
+            t0 = time.perf_counter()
+            out = tr.step_fn(x, y)
+            vals.append(torch.stack([v.detach().float() for v in out]).tolist())
+            eager_s.append(time.perf_counter() - t0)
+        return result(vals)
+
+    eager = eager_route()
+    held_row = held_to_eager("dist stage1", captured, eager, eager_route)
+    del captured, eager, start
+    row = {"steps": DIST_ROUTE_STEPS, "losses": [v[0] for v in values], **held_row,
+           "compared": "the steps after the first use, from its state",
+           "step_s": hist, "first_use_step_s": hist[0],
+           "eager_step_s": float(np.median([hist[0], *eager_s])),
+           "capture_step_s": hist[1],
+           "replayed_step_s": float(np.median(hist[2:DIST_ROUTE_STEPS])),
+           "capture_s": program.capture_s, "replays": program.replays,
+           "programs": len(tr.program.programs), **peaks,
+           "launches_each_step": per_step, "profiled_replay": profiled,
+           "profile_and_parse_s": profile_s,
+           "profiled_replay_is_a_replay": program.replays == DIST_ROUTE_STEPS}
+    log("dist stage1 programs", json.dumps(row))
+    if not row["profiled_replay_is_a_replay"] or program.graph is None:
+        raise AssertionError(f"dist stage1: {program.replays} replays, graph "
+                             f"{program.graph is not None}")
+    return row
 
 
 def dist_checkpoint_round_trip(work, seed, mesh):
@@ -4589,9 +4737,10 @@ def dist_checkpoint_round_trip(work, seed, mesh):
 
 def dist_stage2(work, seed, mesh):
     """One segmentor step at the seg phase's plan (1024², batch 2, bf16)
-    under DDP, plain and nnUNetTrainerBN (batch Dice and the BatchNorm over
-    the group), against the one-device step from the same weights and
-    draws."""
+    data-parallel over the mesh, plain and nnUNetTrainerBN (batch Dice and
+    the BatchNorm over the group), against the one-device step from the
+    same weights and draws; then the mesh trainer's programs
+    (``dist_stage2_programs``)."""
     import numpy as np
     import torch
 
@@ -4629,7 +4778,7 @@ def dist_stage2(work, seed, mesh):
                               dynunet_batch_stats_to_flax(tr.net.state_dict(),
                                                           tr.net_config)).items()}}
             if m is not None:
-                runs[name]["wrapped"] = type(tr.model).__name__
+                runs[name]["programs"] = dist_stage2_programs(tr, data, seg)
             del tr
         one, ddp = runs["one_device"], runs["ddp"]
 
@@ -4649,7 +4798,7 @@ def dist_stage2(work, seed, mesh):
                "loss_rel_diff": abs(ddp["loss"] - one["loss"]) / abs(one["loss"]),
                "momentum_diff": mom, "update_diff": upd,
                "running_stats_diff": worst(ddp["stats"], one["stats"]),
-               "batch_norm_tensors": len(one["stats"]), "wrapped": ddp["wrapped"],
+               "batch_norm_tensors": len(one["stats"]), "programs": ddp["programs"],
                "step_wall_s": {k: r["step_wall_s"] for k, r in runs.items()},
                "peak_bytes": {k: r["peak_bytes"] for k, r in runs.items()}}
         key = variant or "default"
@@ -4657,12 +4806,75 @@ def dist_stage2(work, seed, mesh):
         log(f"dist stage2 {key}", json.dumps(row))
         if row["loss_rel_diff"] > DIST_SEG_LOSS_RTOL or mom > DIST_SEG_MOMENTUM or \
                 upd > DIST_SEG_MOMENTUM or row["running_stats_diff"] > 1e-3 or \
-                row["wrapped"] != "DistributedDataParallel" or \
                 (variant is not None) != bool(row["batch_norm_tensors"]):
-            raise AssertionError(f"dist stage2 {key}: DDP step off the one-device step: {row}")
+            raise AssertionError(f"dist stage2 {key}: the mesh step off the one-device step: "
+                                 f"{row}")
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def dist_stage2_programs(tr, data, seg):
+    """The data-parallel segmentor after its compared step (its train
+    program's eager first use; state S): DIST_SEG_ROUTE_STEPS steps through
+    ``train_step`` (the capture, with the gradients' all-reduce, the batch
+    Dice's and BatchNorm's sums and the loss's sum inside the graph, then
+    replays) and 2 validation steps through ``val_step`` (the eager first
+    use, the capture), against ``step_fn`` and ``_val_step`` called eagerly
+    from S: losses, validation sums, parameters, buffers and the optimizer's
+    state held by ``held_to_eager``. The s/iteration by route, each ending
+    in the loss's read."""
+    import numpy as np
+    import torch
+
+    held = [*tr.net.parameters(), *tr.net.buffers(),
+            *(v for p in tr.net.parameters() for v in tr.opt.state[p].values()
+              if torch.is_tensor(v))]
+    start = [t.detach().clone() for t in held]
+    gen_state = tr.generator.get_state()
+    walls = {"eager": [], "programs": []}
+
+    def run(captured: bool):
+        with torch.no_grad():
+            for t, t0 in zip(held, start):
+                t.copy_(t0)
+        tr.generator.set_state(gen_state)
+        torch.cuda.synchronize()
+        tr.net.train()
+        losses = []
+        for _ in range(DIST_SEG_ROUTE_STEPS):
+            t0 = time.perf_counter()
+            if captured:
+                losses.append(float(tr.train_step(data, seg, lr=0.01)))
+            else:
+                rate = torch.full((), 0.01, dtype=torch.float32, device="cuda")
+                losses.append(float(tr.step_fn(*tr._to_device(data, seg), rate)[0]))
+            walls["programs" if captured else "eager"].append(time.perf_counter() - t0)
+        tr.net.eval()
+        sums = []
+        with torch.no_grad():
+            for _ in range(2):
+                out = tr.val_step(data, seg) if captured else \
+                    tr._val_step(*tr._to_device(data, seg))
+                sums.extend(t.clone() for t in out)
+        tr.net.train()
+        return {"losses": [torch.tensor(losses)], "validation": sums,
+                "state": [t.detach().clone() for t in held]}
+
+    eager = run(False)
+    captured = run(True)
+    (train,), (val,) = tr.train_program.programs.values(), tr.val_program.programs.values()
+    row = {"steps": DIST_SEG_ROUTE_STEPS, "validation_steps": 2,
+           **held_to_eager("dist stage2", captured, eager, lambda: run(False)),
+           "replays": {"train": train.replays, "validation": val.replays},
+           "capture_s": {"train": train.capture_s, "validation": val.capture_s},
+           "eager_s_per_iteration": float(np.median(walls["eager"])),
+           "replayed_s_per_iteration": float(np.median(walls["programs"][1:])),
+           "capture_step_s": walls["programs"][0]}
+    if row["replays"] != {"train": DIST_SEG_ROUTE_STEPS, "validation": 1} or \
+            train.graph is None or val.graph is None:
+        raise AssertionError(f"dist stage2: replays {row['replays']}")
+    return row
 
 
 def dist_launcher(work, seed):
@@ -4760,6 +4972,8 @@ def tr_batch(rng, size):
 
 def kernel_family(name: str) -> str:
     n = name.lower()
+    if "nccl" in n:
+        return "collective (NCCL)"
     if "flash_fwd" in n:
         return "flash_attention_fwd (ours)"
     if "flash_bwd" in n:

@@ -45,8 +45,9 @@ from ldiffusion_tpu_torch.models.convert import (
 from ldiffusion_tpu_torch.models.dynunet import DynUNet, DynUNetConfig
 from ldiffusion_tpu_torch.models.layers import init_random_
 
-# the JAX package's committed flow-net weights, read by path (never imported)
-ARTIFACTS = Path(__file__).resolve().parents[2] / "ldiffusion_tpu" / "artifacts"
+# the committed flow-net weights, the port's own copy (byte-equal to the JAX
+# package's ``ldiffusion_tpu/artifacts/``)
+ARTIFACTS = Path(__file__).resolve().parents[1] / "artifacts"
 
 
 class InstanceProposer(Protocol):
@@ -277,7 +278,7 @@ class FlowNetProposer:
     @classmethod
     def load_pretrained(cls, domain: str = "synthetic", device=None,
                         **kw) -> "FlowNetProposer":
-        """The JAX package's committed weights, ``flownet_{domain}.npz``
+        """The committed weights, ``ARTIFACTS/flownet_{domain}.npz``
         (``"synthetic"``: raw synthetic instances; ``"transformed"``: one-step
         diffusion-transformed ones, the domain the cell path feeds)."""
         if domain not in ("synthetic", "transformed"):
@@ -285,7 +286,7 @@ class FlowNetProposer:
         path = ARTIFACTS / f"flownet_{domain}.npz"
         if not path.exists():
             raise FileNotFoundError(f"the flow-net artifact {path} is missing: it ships "
-                                    "with the JAX package's artifacts/ directory")
+                                    "in ldiffusion_tpu_torch/artifacts/")
         return cls.load(str(path), device=device, **kw)
 
     def _net_out(self, x):

@@ -22,7 +22,16 @@ ranks in order (rank = (d·fsdp + f)·tensor + t):
 otherwise, which is replication when ``fsdp`` is 1. The JAX package keeps
 leaves under 2^18 elements replicated (``min_size_to_shard``); FSDP2 shards
 every parameter of a unit, a layout choice that leaves the numbers as they
-are. ``replicate_module`` wraps a module in DDP over the batch group.
+are. ``replicate_module`` and ``mean_gradients`` are the data-parallel
+counterpart (the JAX data-parallel pjit, the reference's DDP): the module's
+parameters and buffers are broadcast once from the batch group's first rank,
+and after each backward the gradients are averaged over the group by one
+all-reduce of one flat f32 buffer, the one gradient all-reduce that pjit
+inserts into the JAX step. There is no ``DistributedDataParallel``: its
+reducer buckets gradients in host-side state from autograd hooks, and a
+captured CUDA graph (``core/graphs.py``) holds DDP only after many eager
+iterations on a side stream. A step made of these device ops and
+collectives is captured whole.
 """
 from __future__ import annotations
 
@@ -256,12 +265,35 @@ class MeshContext:
         return module
 
     def replicate_module(self, module: torch.nn.Module) -> torch.nn.Module:
-        """DDP over the batch group: replicated parameters, gradients
-        averaged over data×fsdp."""
-        from torch.nn.parallel import DistributedDataParallel
+        """``module`` replicated over the batch group: its parameters and
+        buffers broadcast from the group's first rank once, here (DDP's
+        start). The buffers are not synchronised again (each rank keeps its
+        own, as DDP's ``broadcast_buffers=False``); ``mean_gradients``
+        averages the gradients after each backward. Returns ``module``."""
+        src = dist.get_process_group_ranks(self.batch_group)[0]
+        tensors = [*module.parameters(), *module.buffers()]
+        with torch.no_grad():
+            for dtype in dict.fromkeys(t.dtype for t in tensors):  # the same order on every rank
+                same = [t for t in tensors if t.dtype == dtype]
+                flat = torch.cat([t.reshape(-1) for t in same])
+                dist.broadcast(flat, src=src, group=self.batch_group)
+                for t, part in zip(same, flat.split([t.numel() for t in same])):
+                    t.copy_(part.view_as(t))
+        return module
 
-        return DistributedDataParallel(module, process_group=self.batch_group,
-                                       broadcast_buffers=False)
+    def mean_gradients(self, params: Iterable[torch.nn.Parameter]) -> None:
+        """The gradients of ``params`` averaged over data×fsdp, in place:
+        flattened into one f32 buffer, all-reduced over the batch group,
+        divided by ``batch_shards`` and written back. Device ops and one
+        collective, so a captured step holds it."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        dist.all_reduce(flat, group=self.batch_group)
+        flat.div_(self.batch_shards)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
 
 def make_mesh(config: Optional[MeshConfig] = None, device=None,

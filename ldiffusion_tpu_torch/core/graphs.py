@@ -23,7 +23,8 @@ tensors out) on a device. On a CUDA device:
 A replay returns the graph's static outputs, which the next replay of a
 program of the same pool may overwrite: read them (or enqueue their copy)
 before the next call. Replays are ordered on the current stream. On the CPU
-every call runs ``fn``; no graph is made. There is no switch that turns
+every call runs ``fn``; no graph is made. ``calls`` counts the calls on
+every device, ``replays`` the replays. There is no switch that turns
 capture off, and a capture or replay that fails raises.
 
 ``Program`` runs ``fn`` under ``torch.inference_mode``. ``TrainProgram``
@@ -137,9 +138,9 @@ class Program:
         """``xs``: the inputs, on the device or on the host (a pinned host
         tensor is copied without blocking)."""
         with self._mode():
+            self.calls += 1
             if self.device.type != "cuda":
                 return self.fn(*(x.to(self.device) for x in xs))
-            self.calls += 1
             if self.graph is not None:
                 for static, x in zip(self.static_inputs, xs):
                     static.copy_(x, non_blocking=True)

@@ -29,7 +29,6 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
 from ldiffusion_tpu_torch.core.dist import all_reduce_sum
 
@@ -37,11 +36,15 @@ from ldiffusion_tpu_torch.core.dist import all_reduce_sum
 def _one_hot(targets, num_classes: int):
     """(B, *spatial) → (B, C, *spatial) float32; out-of-range targets are
     all-zero rows, as ``jax.nn.one_hot`` gives them."""
-    t = targets.long()
-    valid = (t >= 0) & (t < num_classes)
-    oh = F.one_hot(torch.where(valid, t, torch.zeros_like(t)), num_classes).float()
-    oh = oh * valid.unsqueeze(-1)
-    return oh.movedim(-1, 1)
+    return one_hot(targets, num_classes).float().movedim(-1, 1)
+
+
+def one_hot(labels, num_classes: int):
+    """(...) int labels → (..., num_classes) bool, a comparison with the
+    class ids as ``jax.nn.one_hot`` takes it; a label outside [0,
+    num_classes) is an all-false row. Device ops only: ``F.one_hot`` reads
+    the labels' minimum and maximum to the host on the CPU."""
+    return labels.unsqueeze(-1) == torch.arange(num_classes, device=labels.device)
 
 
 SMOOTH = 1e-5

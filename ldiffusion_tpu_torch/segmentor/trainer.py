@@ -35,14 +35,16 @@ device tensors (the DA draws from the trainer's generator and their
 application, ``clamp_min(0)``, the deep-supervision targets, the variant's
 loss and the backward, ``clip_grad_norm_``, the optimizer at ``lr``, a 0-d
 device tensor as JAX passes ``lr`` through ``_set_lr``); ``_val_counts`` the
-validation step. On one device ``train_step`` and ``val_step`` run them
-through ``core/graphs.py``'s ``Jit``: per batch shape (and dtype) eager at
-the first use, a CUDA graph captured at the second (the generator
-registered with the train step's, both in the trainer's pool), replayed
-after; the host fills ``lr`` before each replay (the poly schedule changes it
-every epoch) and reads each step's outputs with one sync. 2D and 3D plans
-take the same step. ``load_checkpoint`` writes the parameters and the
-optimizer's buffers in place, so the graphs read what it loaded.
+validation step (``_val_step``: ``_val_counts`` of this process's rows,
+summed over the processes). On one device and over a mesh alike,
+``train_step`` and ``val_step`` run them through ``core/graphs.py``'s
+``Jit``: per batch shape (and dtype) eager at the first use, a CUDA graph
+captured at the second (the generator registered with the train step's,
+both in the trainer's pool; over a mesh the collectives inside the graph),
+replayed after; the host fills ``lr`` before each replay (the poly schedule
+changes it every epoch) and reads each step's outputs with one sync. 2D
+and 3D plans take the same step. ``load_checkpoint`` writes the parameters
+and the optimizer's buffers in place, so the graphs read what it loaded.
 
 A 3D plan (``SegPlan3D``: 3d_fullres, 3d_lowres, 3d_cascade_fullres,
 ``:106-173``) builds the ``DynUNet3D`` (its input widened by the cascade's
@@ -76,18 +78,20 @@ recipe's raises ``NotImplementedError``, as it cannot be resumed in JAX
 either.
 
 Over a mesh (``mesh=``, ``core/dist.py``; the JAX trainer's data-parallel
-pjit, the reference's DDP): the net is wrapped in DDP over the batch group,
-its parameters and the optimizer state replicated; the batch-Dice group goes
-to the loss and the BatchNorm group to a ``BN`` net (``set_norm_group``), so
-both see the global batch. Every process samples the global batch (the same
-seeds), draws the device augmentation for all of it from the same
-generator, and keeps its rows (``MeshContext.local_rows``); the loss and the
-validation counts are reduced over the processes. ``checkpoint_*.pkl``,
-``progress.png``, the logs and ``benchmark_result.json`` are written by rank
-0. The final validation predicts the cases ``i % world == rank``, waits for
-every rank (``barrier``) and scores them all on rank 0
-(``trainer.py:567-703``). Over a mesh the steps run eagerly: capturing DDP's
-collectives is left to the four-card work (ROADMAP queue 1 item 5).
+pjit, the reference's DDP): the net is replicated over the batch group
+(``replicate_module``: its parameters broadcast once; the optimizer state
+replicated), and after the backward ``mean_gradients`` averages the
+gradients with one all-reduce, the one pjit inserts; the batch-Dice group
+goes to the loss and the BatchNorm group to a ``BN`` net
+(``set_norm_group``), so both see the global batch. Every process samples
+the global batch (the same seeds), draws the device augmentation for all of
+it from the same generator, and keeps its rows (``MeshContext.local_rows``);
+the loss and the validation counts are summed over the processes inside the
+step (``global_sum``), so one program returns the global values.
+``checkpoint_*.pkl``, ``progress.png``, the logs and
+``benchmark_result.json`` are written by rank 0. The final validation
+predicts the cases ``i % world == rank``, waits for every rank
+(``barrier``) and scores them all on rank 0 (``trainer.py:567-703``).
 """
 from __future__ import annotations
 
@@ -196,7 +200,7 @@ def downsample_seg(seg, s, num_labels: int):
     may exceed the head count)."""
     nd = seg.dim() - 1
     s = tuple(int(v) for v in s) if isinstance(s, (tuple, list)) else (int(s),) * nd
-    onehot = F.one_hot((seg + 1).long(), num_labels + 1).movedim(-1, 1).float()
+    onehot = losses.one_hot(seg + 1, num_labels + 1).movedim(-1, 1).float()
     pool = F.avg_pool3d if nd == 3 else F.avg_pool2d
     counts = pool(onehot, s, s)
     return (counts.argmax(dim=1) - 1).to(seg.dtype)
@@ -288,33 +292,29 @@ class SegmentorTrainer:
         self.net = net.to(self.device, memory_format=torch.channels_last_3d if self.is_3d
                           else torch.channels_last)
         self.net.compute_dtype = self.compute_dtype
-        self.model = self.net  # what the train step calls: DDP's wrapper over a mesh
         self.group = None  # the batch-Dice and BatchNorm group
         if self.mesh is not None:
             self.group = self.mesh.batch_group
             set_norm_group(self.net, self.group)
-            self.model = self.mesh.replicate_module(self.net)
+            self.mesh.replicate_module(self.net)
         self.opt_name = getattr(variant, "optimizer", "sgd")
         params = self.net.parameters()
-        one_card = self.mesh is None and self.device.type == "cuda"
+        on_card = self.device.type == "cuda"
         if self.opt_name == "adan":  # decoupled decay inside the step
             self.opt = Adan(params, lr=config.initial_lr, weight_decay=config.weight_decay)
         elif self.opt_name == "adam":  # L2 coupled into the clipped gradient
             self.opt = torch.optim.Adam(params, lr=config.initial_lr,
-                                        weight_decay=config.weight_decay, capturable=one_card)
+                                        weight_decay=config.weight_decay, capturable=on_card)
         else:
             self.opt = SGDNesterov(params, lr=config.initial_lr, momentum=config.momentum,
                                    weight_decay=config.weight_decay)
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
-        # one train and one validation program per batch shape on one device
-        # (module docstring); eager over a mesh
-        self.train_program = self.val_program = None
-        if self.mesh is None:
-            pool = torch.cuda.graph_pool_handle() if one_card else None
-            self.train_program = Jit(self.step_fn, self.device, pool,
-                                     generators=[self.generator], program_type=TrainProgram)
-            self.val_program = Jit(self._val_counts, self.device, pool)
+        # one train and one validation program per batch shape (module docstring)
+        pool = torch.cuda.graph_pool_handle() if on_card else None
+        self.train_program = Jit(self.step_fn, self.device, pool,
+                                 generators=[self.generator], program_type=TrainProgram)
+        self.val_program = Jit(self._val_step, self.device, pool)
         self._make_luts()
         # measurements: host seconds a train iteration (ending in the loss
         # read), of patch sampling + host spatial DA a batch, a validation
@@ -404,17 +404,19 @@ class SegmentorTrainer:
 
     def loss_and_grads(self, data, seg):
         """Forward + backward on an augmented (B, C, *spatial) batch and its
-        (B, *spatial) labels; leaves the raw gradients on the parameters (and
-        updates a BatchNorm net's running statistics). Returns the loss,
-        detached."""
+        (B, *spatial) labels; leaves the raw gradients on the parameters,
+        averaged over the processes over a mesh (and updates a BatchNorm
+        net's running statistics). Returns this process's loss, detached."""
         self.opt.zero_grad(set_to_none=True)
         seg = seg.clamp_min(0)  # RemoveLabelTransform(-1, 0)
-        outputs = self.model(data, train=True)
+        outputs = self.net(data, train=True)
         if not isinstance(outputs, list):
             outputs = [outputs]
         loss = losses.deep_supervision_loss(outputs, self.ds_targets(seg, len(outputs)),
                                             self._one_loss)
         loss.backward()
+        if self.mesh is not None:
+            self.mesh.mean_gradients(self.net.parameters())
         return loss.detach()
 
     def _set_lr(self, lr: float):
@@ -451,28 +453,29 @@ class SegmentorTrainer:
         the device DA (``augment``), ``loss_and_grads``, ``_update`` at
         ``lr``. data (B, C, *spatial) float32 and seg (B, *spatial) int64 of
         the global batch; lr a 0-d float32 tensor. Returns (loss, gradient
-        norm), 0-d device tensors (this process's loss over a mesh)."""
+        norm) of the global batch, 0-d device tensors (over a mesh the loss
+        summed over the processes, ``global_sum``, inside the step)."""
         data, seg = self.augment(data, seg)
         loss = self.loss_and_grads(data, seg)
-        return loss, self._update(lr)
+        norm = self._update(lr)
+        if self.mesh is not None:
+            loss = self.global_sum(loss)[0].float() / self.mesh.batch_shards
+        return loss, norm
 
     def local_rows(self, x):
         """This process's rows of a global batch (all of it in one process)."""
         return x if self.mesh is None else self.mesh.local_rows(x)
 
     def global_sum(self, *values):
-        """Each tensor summed over the batch group (itself in one process)."""
+        """Each device tensor summed over the batch group in float64 (itself
+        in one process): one all-reduce of one flat buffer, made on the
+        device (nothing copied from the host: a captured step holds it)."""
         if self.mesh is None:
             return values
-        flat = torch.cat([torch.as_tensor(v, dtype=torch.float64, device=self.device).reshape(-1)
-                          for v in values])
+        flat = torch.cat([v.to(torch.float64).reshape(-1) for v in values])
         dist.all_reduce(flat, group=self.group)
-        out, i = [], 0
-        for v in values:
-            n = torch.as_tensor(v).numel()
-            out.append(flat[i:i + n].reshape(torch.as_tensor(v).shape))
-            i += n
-        return out
+        return [part.view(v.shape) for v, part in
+                zip(values, flat.split([v.numel() for v in values]))]
 
     def augment(self, data, seg):
         """The device DA, drawn for the global batch (``data`` holds all of
@@ -491,20 +494,16 @@ class SegmentorTrainer:
 
     def train_step(self, data, seg, lr: Optional[float] = None):
         """One step on a host batch (the global batch; each process trains
-        its rows) at ``lr`` (the groups' rate from now on; None keeps it):
-        on one device through the batch shape's program (module docstring),
-        over a mesh ``step_fn`` eagerly. Returns the global batch's loss, a
-        0-d device tensor (a program's: read it before the next step)."""
+        its rows) at ``lr`` (the groups' rate from now on; None keeps it),
+        through the batch shape's program (module docstring). Returns the
+        global batch's loss, a 0-d device tensor (a program's: read it
+        before the next step)."""
         if lr is not None:
             self._set_lr(float(lr))
         data, seg = self._to_device(data, seg)
-        if self.mesh is None:
-            rate = torch.full((), self.opt.param_groups[0]["lr"], dtype=torch.float32,
-                              device=self.device)
-            loss, _ = self.train_program(data, seg, rate)
-        else:
-            loss, _ = self.step_fn(data, seg, None)
-            loss = self.global_sum(loss)[0].float() / self.mesh.batch_shards
+        rate = torch.full((), self.opt.param_groups[0]["lr"], dtype=torch.float32,
+                          device=self.device)
+        loss, _ = self.train_program(data, seg, rate)
         self.step += 1
         return loss
 
@@ -513,12 +512,17 @@ class SegmentorTrainer:
         """(loss, tp, fp, fn per head) of the full-resolution head over the
         global batch of a host batch (each process its rows, the counts
         summed); the regions regime thresholds the sigmoid at 0.5 and puts a
-        zero background column in front. On one device through the batch
-        shape's program: read the outputs before the next step."""
-        data, seg = self._to_device(data, seg)
-        if self.mesh is None:
-            return self.val_program(data, seg)
+        zero background column in front. Through the batch shape's program:
+        read the outputs before the next step."""
+        return self.val_program(*self._to_device(data, seg))
+
+    def _val_step(self, data, seg):
+        """The validation step of a global batch on device tensors (what its
+        program captures): ``_val_counts`` of this process's rows, the loss
+        and the counts summed over the processes."""
         loss, *counts = self._val_counts(self.local_rows(data), self.local_rows(seg))
+        if self.mesh is None:
+            return (loss, *counts)
         loss, *counts = self.global_sum(loss, *counts)
         return (loss.float() / self.mesh.batch_shards, *counts)
 
@@ -543,7 +547,7 @@ class SegmentorTrainer:
                             for v in (ph * th, ph * (1 - th), (1 - ph) * th)))
         loss = losses.dc_and_ce_loss(logits, tgt, mask, bd, group=self.group)
         c = self.plan.num_classes
-        ph, th = F.one_hot(logits.argmax(dim=1), c), F.one_hot(tgt, c)
+        ph, th = (losses.one_hot(t, c).long() for t in (logits.argmax(dim=1), tgt))
         if mask is not None:
             keep = (mask > 0).long().unsqueeze(-1)
             ph, th = ph * keep, th * keep

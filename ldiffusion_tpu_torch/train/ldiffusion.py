@@ -27,13 +27,14 @@ the state donated). ``step_fn`` is that step on device tensors: ``draw``,
 ``loss_and_grads``, ``clip_grad_norm_``, AdamW (``capturable`` on a card:
 its step count and bias corrections on the device) and the cast of the
 masters into the modules, returning (loss, content, contrast, gradient
-norm) as device tensors. On one device ``train_step`` runs it through
-``core/graphs.py``'s ``Jit`` of ``TrainProgram``s: a batch shape's first
-step eagerly, its second captured as a CUDA graph (the generator registered
-with it, the memory from the trainer's pool), replays after; the four
-values are read with one host sync a step, as the JAX loop's
-``float(metrics["loss"])``. ``load_state`` writes the masters and the AdamW
-state in place, so the graphs read what it loaded.
+norm) as device tensors. On one device and over a mesh alike,
+``train_step`` runs it through ``core/graphs.py``'s ``Jit`` of
+``TrainProgram``s: a batch shape's first step eagerly, its second captured
+as a CUDA graph (the generator registered with it, the memory from the
+trainer's pool), replays after; the four values are read with one host
+sync a step, as the JAX loop's ``float(metrics["loss"])``. ``load_state``
+writes the masters and the AdamW state in place, so the graphs read what it
+loaded.
 
 Over a mesh (``mesh=``, ``core/dist.py``; the JAX trainer's FSDP over
 (data, fsdp), the reference's ZeRO-3): the UNet and the projection go under
@@ -48,8 +49,16 @@ indices from the same generator, then keeps its rows (``local_rows``), so the
 draws do not depend on the world size; the losses are each process's mean
 over as many rows, and the mean of the gradients over the processes is the
 global batch's. ``mesh=None``, or a mesh without a process group, is the
-one-device path. Over a mesh the step runs eagerly: capturing FSDP2's
-collectives is left to the four-card work (ROADMAP queue 1 item 5).
+one-device path. Over a mesh the captured step holds FSDP2's collectives
+(the all-gathers before each unit's forward and backward, the gradients'
+reduce-scatters, their side streams forked from and joined back to the
+capture stream), the losses' all-reduce (``_global_mean``) and the clip's
+norm over the shards, as the JAX step's one ``jax.jit`` over the mesh holds
+the all-gathers and reduce-scatters XLA schedules. FSDP2's lazy
+initialisation and the first use of each NCCL communicator happen in the
+eager first step; the unsharded parameters that FSDP2 frees after each
+forward and gathers again in the backward are the graph's memory, from the
+trainer's pool.
 """
 from __future__ import annotations
 
@@ -138,14 +147,14 @@ class DiffusionWarmupTrainer:
             self.master = self.params  # the sharded parameters are the master copies
         for p in self.params:
             p.requires_grad_(True)
-        one_card = self.mesh is None and self.device.type == "cuda"
+        on_card = self.device.type == "cuda"
         self.opt = torch.optim.AdamW(self.master, lr=config.learning_rate,
                                      betas=tuple(config.betas), eps=config.eps,
-                                     weight_decay=config.weight_decay, capturable=one_card)
-        # one program per batch shape on one device; eager over a mesh
-        self.program = None if self.mesh is not None else Jit(
-            self.step_fn, self.device, torch.cuda.graph_pool_handle() if one_card else None,
-            generators=[self.generator], program_type=TrainProgram)
+                                     weight_decay=config.weight_decay, capturable=on_card)
+        # one program per batch shape (module docstring)
+        self.program = Jit(self.step_fn, self.device,
+                           torch.cuda.graph_pool_handle() if on_card else None,
+                           generators=[self.generator], program_type=TrainProgram)
         self.steps_done = 0
         self.history = []  # train_step's metrics, with its wall-clock "seconds"
 
@@ -245,14 +254,12 @@ class DiffusionWarmupTrainer:
     def train_step(self, images, labels) -> dict:
         """images (B, H, W, 3) ImageNet-normalised (or this process's rows of
         them), labels (B, 64, 64) class ids of the global batch; numpy or
-        tensors. On one device through the batch shape's program (module
-        docstring), over a mesh ``step_fn`` eagerly. Returns float metrics of
-        the global batch."""
+        tensors. Through the batch shape's program (module docstring).
+        Returns float metrics of the global batch."""
         t0 = time.perf_counter()
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         labels = torch.as_tensor(labels, device=self.device).long()
-        run = self.step_fn if self.program is None else self.program
-        values = torch.stack([v.detach().float() for v in run(images, labels)]).tolist()
+        values = torch.stack([v.detach().float() for v in self.program(images, labels)]).tolist()
         self.steps_done += 1
         metrics = dict(zip(("loss", "content", "contrast", "grad_norm"), values))
         metrics["seconds"] = time.perf_counter() - t0  # the read waits for the device

@@ -733,7 +733,7 @@ def _held_to_eager(captured: dict, eager: dict, eager_again: dict):
         assert diff <= 2 * spread, (name, diff, spread)
 
 
-def _stage1_trainer(cuda):
+def _stage1_trainer(cuda, mesh=None):
     import warnings
 
     from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
@@ -745,15 +745,22 @@ def _stage1_trainer(cuda):
         warnings.simplefilter("ignore")  # the random-VGG warning
         info = InfoNceLoss.create(device=cuda, num_anchors=16, num_negatives=64, num_classes=4)
     cfg = DiffusionTrainConfig(num_inference_steps=10, compute_dtype="float32", num_classes=4)
-    return DiffusionWarmupTrainer(SDComponents.random(seed=1, device=cuda), cfg, info_nce=info)
+    return DiffusionWarmupTrainer(SDComponents.random(seed=1, device=cuda), cfg, info_nce=info,
+                                  mesh=mesh)
 
 
-def _stage1_run(cuda, captured: bool, steps: int = 4):
+def _whole(t):
+    """A tensor whole (a DTensor gathered), copied."""
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
+
+
+def _stage1_run(cuda, captured: bool, steps: int = 4, mesh=None):
     """``steps`` stage-1 steps from seed 1's weights and generator: through
-    ``train_step`` (eager, capture, replays) or ``step_fn`` each time."""
+    ``train_step`` (eager, capture, replays) or ``step_fn`` each time (under
+    FSDP2 over ``mesh``)."""
     from ldiffusion_tpu_torch.core import graphs
 
-    tr = _stage1_trainer(cuda)
+    tr = _stage1_trainer(cuda, mesh)
     rng = np.random.default_rng(2)
     labels = np.zeros((1, 64, 64), np.int64)
     labels[:, :32], labels[:, 32:, :32], labels[:, :8, :8] = 1, 2, 3
@@ -771,9 +778,9 @@ def _stage1_run(cuda, captured: bool, steps: int = 4):
         launches.append(graphs._diff(_launch_counts(), before))
     st = tr.opt.state
     return tr, launches, {"values": [torch.tensor(values)],
-                          "masters": [m.detach().clone() for m in tr.master],
-                          "exp_avg": [st[m]["exp_avg"].clone() for m in tr.master],
-                          "exp_avg_sq": [st[m]["exp_avg_sq"].clone() for m in tr.master]}
+                          "masters": [_whole(m) for m in tr.master],
+                          "exp_avg": [_whole(st[m]["exp_avg"]) for m in tr.master],
+                          "exp_avg_sq": [_whole(st[m]["exp_avg_sq"]) for m in tr.master]}
 
 
 @pytest.mark.gpu
@@ -792,7 +799,54 @@ def test_captured_stage1_steps_match_the_eager_route(cuda):
     assert launches[1] == launches[0] and launches[3] == launches[0], launches
 
 
-def _seg_trainer(cuda, root, plan_3d: bool = False, name: str = "nnUNetTrainer", augment=None):
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A world-size-1 NCCL process group and its (data, fsdp, tensor) mesh,
+    left after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ldiffusion_tpu_torch.core.config import MeshConfig
+    from ldiffusion_tpu_torch.core.dist import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    device = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=device)
+    try:
+        yield make_mesh(MeshConfig(), device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_captured_fsdp2_stage1_steps_match_the_eager_route(cuda, nccl_mesh, monkeypatch):
+    """The tiny stage-1 trainer under FSDP2 (NCCL, world size 1): 4 steps
+    through ``train_step`` (eager, captured with FSDP2's all-gathers and
+    reduce-scatters and the losses' all-reduce inside the graph, 2 replays)
+    against 4 calls of ``step_fn`` from the same weights and seed: losses,
+    norms, gathered masters and AdamW moments; each replayed step launches
+    what the eager step did. cuDNN held to its deterministic algorithms, as
+    for the segmentors: FSDP2 hands the convolutions contiguous f32 weights,
+    for which cuDNN's default algorithms made two eager runs differ (masters
+    1.2e-6 apart) and a twice-that bound a coin toss."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr, launches, captured = _stage1_run(cuda, True, mesh=nccl_mesh)
+    _, _, eager = _stage1_run(cuda, False, mesh=nccl_mesh)
+    _, _, eager_again = _stage1_run(cuda, False, mesh=nccl_mesh)
+    _held_to_eager(captured, eager, eager_again)
+    (program,) = tr.program.programs.values()
+    assert program.graph is not None and program.replays == 3
+    assert all(hasattr(m, "to_local") for m in tr.master)
+    assert tr.opt.param_groups[0]["capturable"]
+    assert launches[1] == launches[0] and launches[3] == launches[0], launches
+
+
+def _seg_trainer(cuda, root, plan_3d: bool = False, name: str = "nnUNetTrainer", augment=None,
+                 mesh=None):
     from ldiffusion_tpu_torch.core.config import SegmentorTrainConfig
     from ldiffusion_tpu_torch.segmentor.planner import SegPlan
     from ldiffusion_tpu_torch.segmentor.planner3d import SegPlan3D
@@ -813,7 +867,7 @@ def _seg_trainer(cuda, root, plan_3d: bool = False, name: str = "nnUNetTrainer",
                        median_shape=(48, 48), batch_dice=True)
     variant = get_variant(name, base=SegmentorTrainConfig(compute_dtype="float32"))
     return SegmentorTrainer(plan, variant.config, output_dir=str(root), variant=variant,
-                            augment=augment, device=cuda)
+                            augment=augment, device=cuda, mesh=mesh)
 
 
 def _seg_batch(rng, tr):
@@ -823,11 +877,11 @@ def _seg_batch(rng, tr):
     return data, seg
 
 
-def _seg_run(cuda, root, captured: bool, plan_3d: bool, steps: int = 4):
+def _seg_run(cuda, root, captured: bool, plan_3d: bool, steps: int = 4, mesh=None):
     """``steps`` train steps (the lr changed before each) of a tiny
     segmentor (its DA on): through ``train_step`` (eager, captured, replays)
-    or ``step_fn``."""
-    tr = _seg_trainer(cuda, root, plan_3d)
+    or ``step_fn`` (data-parallel over ``mesh``)."""
+    tr = _seg_trainer(cuda, root, plan_3d, mesh=mesh)
     rng = np.random.default_rng(5)
     losses = []
     for k in range(steps):
@@ -869,6 +923,35 @@ def test_captured_segmentor_steps_match_the_eager_route(cuda, tmp_path, monkeypa
     _held_to_eager({"val": val["program"]}, {"val": val["eager"]}, {"val": val["eager_again"]})
     (train,), (program,) = tr.train_program.programs.values(), tr.val_program.programs.values()
     assert train.replays == 3 and program.replays == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan_3d", [False, True])
+def test_captured_mesh_segmentor_steps_match_the_eager_route(cuda, nccl_mesh, tmp_path,
+                                                             monkeypatch, plan_3d):
+    """The tiny 2D and 3D segmentors data-parallel over the mesh (NCCL,
+    world size 1; the gradients' all-reduce, the batch Dice's sums and the
+    loss's sum inside the graph), cuDNN deterministic: 4 train steps through
+    their program against ``step_fn`` called eagerly, then 3 validation
+    steps through their program against ``_val_step`` called eagerly."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr, captured = _seg_run(cuda, tmp_path / "a", True, plan_3d, mesh=nccl_mesh)
+    _, eager = _seg_run(cuda, tmp_path / "b", False, plan_3d, mesh=nccl_mesh)
+    _, eager_again = _seg_run(cuda, tmp_path / "c", False, plan_3d, mesh=nccl_mesh)
+    _held_to_eager(captured, eager, eager_again)
+    tr.net.eval()
+    rng = np.random.default_rng(6)
+    val = {"program": [], "eager": [], "eager_again": []}
+    with torch.no_grad():
+        for _ in range(3):
+            batch = _seg_batch(rng, tr)
+            val["program"].extend(t.clone() for t in tr.val_step(*batch))
+            for run in ("eager", "eager_again"):
+                val[run].extend(tr._val_step(*tr._to_device(*batch)))
+    _held_to_eager({"val": val["program"]}, {"val": val["eager"]}, {"val": val["eager_again"]})
+    (train,), (program,) = tr.train_program.programs.values(), tr.val_program.programs.values()
+    assert train.replays == 3 and program.replays == 2
+    assert tr.mesh is not None and tr.group is not None
 
 
 @pytest.mark.gpu

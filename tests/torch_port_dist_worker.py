@@ -10,11 +10,16 @@ package's draws among them) and writes ``DIR/out_<RANK>.npz``. ``TASK``:
     under FSDP2 on a (DATA, FSDP) mesh; the loss, gradients, norm, updated
     parameters and AdamW moments, gathered; then the state's round trip
     through ``save_state`` / ``load_state``;
-  * ``seg``: one ``SegmentorTrainer`` step under DDP, plain and BN;
-  * ``dice``: the batch-Dice loss and its gradient, DDP's mean over ranks;
+  * ``seg``: one ``SegmentorTrainer`` step, data-parallel, plain and BN;
+  * ``dice``: the batch-Dice loss and its gradient, averaged over ranks;
   * ``val``: the final validation, each rank its interleaved cases;
   * ``mesh``: the groups of a (data=2, tensor=2) mesh, and of a mesh over
-    ranks 0 and 1 alone (the segmentor CLI's subgroup); no inputs.
+    ranks 0 and 1 alone (the segmentor CLI's subgroup); no inputs;
+  * ``graphs DATA FSDP``: both trainers over a (DATA, FSDP) mesh through
+    their programs (``core/graphs.py:Jit``), one step of each under
+    ``HostReadGuard``.
+
+``HostReadGuard`` and ``card_optimizer`` serve the test processes too.
 """
 import json
 import os
@@ -25,6 +30,7 @@ import warnings
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ldiffusion_tpu_torch.core.config import MeshConfig
 from ldiffusion_tpu_torch.core.dist import make_mesh
@@ -42,6 +48,47 @@ def _inputs(root, wait_s: float = 120.0):
         time.sleep(0.05)
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+class HostReadGuard(TorchDispatchMode):
+    """Records every op that reads a tensor's value to the host, what a
+    captured step cannot hold (a copy to the host and a wait for the
+    device): ``reads`` lists each as "op at file:line", the innermost
+    frame of the port."""
+
+    READS = (torch.ops.aten._local_scalar_dense, torch.ops.aten.is_nonzero,
+             torch.ops.aten.nonzero, torch.ops.aten.equal)
+
+    def __init__(self):
+        super().__init__()
+        self.reads = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in self.READS:
+            import traceback
+
+            port = [f for f in traceback.extract_stack() if "ldiffusion_tpu_torch" in f.filename]
+            where = f"{port[-1].filename}:{port[-1].lineno}" if port else "?"
+            self.reads.append(f"{func} at {where}")
+        return func(*args, **(kwargs or {}))
+
+
+def card_optimizer(opt, monkeypatch=None):
+    """``opt`` (torch's Adam or AdamW) as the trainers make it on a card,
+    ``capturable``: its step count and bias corrections on the parameters'
+    device, before its first step. torch allows it on the CPU only through
+    its list of devices, which is widened here (through ``monkeypatch``
+    when given, so that a test undoes it); the CPU's own route keeps the
+    count on the host and reads it every step, by design."""
+    import torch.optim.adam as adam_module
+
+    devices = adam_module._get_capturable_supported_devices
+    (monkeypatch.setattr if monkeypatch else setattr)(
+        adam_module, "_get_capturable_supported_devices",
+        lambda *a, **k: [*devices(*a, **k), "cpu"])
+    for group in opt.param_groups:
+        group["capturable"] = True
+    return opt
 
 
 def _flat(prefix, tree):
@@ -120,7 +167,8 @@ def _seg_trainer(x, root, mesh, variant):
 
 
 def seg(root, data, with_bn):
-    """One SGD step of the segmentor under DDP (plain, or nnUNetTrainerBN)."""
+    """One SGD step of the data-parallel segmentor (plain, or
+    nnUNetTrainerBN)."""
     from ldiffusion_tpu_torch.models.convert import (
         dynunet_batch_stats_to_flax,
         dynunet_to_flax,
@@ -137,9 +185,9 @@ def seg(root, data, with_bn):
 
 
 def dice(root, data):
-    """The batch-Dice loss of a 1x1 convolution's logits under DDP: each
-    rank its rows, the group's sums; the weight's gradient after DDP's
-    mean."""
+    """The batch-Dice loss of a 1x1 convolution's logits, replicated over
+    the ranks: each rank its rows, the group's sums; the weight's gradient
+    after the mean over the ranks (``mean_gradients``)."""
     from ldiffusion_tpu_torch.losses.dice import soft_dice_loss
 
     x = _inputs(root)
@@ -153,6 +201,7 @@ def dice(root, data):
     loss = soft_dice_loss(model(inp), mesh.local_rows(torch.from_numpy(x["seg"])),
                           group=mesh.batch_group)
     loss.backward()
+    mesh.mean_gradients(model.parameters())
     return {"loss": float(loss), "grad": conv.weight.grad.numpy()}
 
 
@@ -195,7 +244,60 @@ def mesh_groups(root):
     return out
 
 
-TASKS = {"stage1": stage1, "seg": seg, "dice": dice, "val": val, "mesh": mesh_groups}
+def graphs(root, data, fsdp):
+    """Both trainers over a (DATA, FSDP) mesh through their ``Jit``s (on
+    the CPU a program runs its function at every call): stage 1 (FSDP2)
+    two steps of half the batch, the second under ``HostReadGuard``, then
+    one of the whole batch (a second program); the segmentor (data-parallel,
+    batch Dice) two train steps, the second guarded, and two validation
+    steps, the first guarded. The optimizers as on a card
+    (``card_optimizer``)."""
+    from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig, SegmentorTrainConfig
+    from ldiffusion_tpu_torch.diffusion.pipeline import SDComponents
+    from ldiffusion_tpu_torch.losses.infonce import InfoNceLoss
+    from ldiffusion_tpu_torch.segmentor.planner import SegPlan
+    from ldiffusion_tpu_torch.segmentor.trainer import SegmentorTrainer
+    from ldiffusion_tpu_torch.train.ldiffusion import DiffusionWarmupTrainer
+
+    x = _inputs(root)
+    cfg = json.loads(str(x["config"]))
+    mesh = make_mesh(MeshConfig(data=data, fsdp=fsdp), device="cpu")
+    info = InfoNceLoss.create(device="cpu", num_anchors=cfg["anchors"],
+                              num_negatives=cfg["negatives"], num_classes=cfg["classes"])
+    tr = DiffusionWarmupTrainer(
+        SDComponents.random(device="cpu"),
+        DiffusionTrainConfig(compute_dtype="float32", num_classes=cfg["classes"],
+                             num_inference_steps=cfg["steps"]), info_nce=info, mesh=mesh)
+    card_optimizer(tr.opt)
+    images, labels = x["images"], x["labels"]
+    half = images.shape[0] // 2
+    tr.train_step(images[:half], labels[:half])
+    with HostReadGuard() as guard:
+        tr.train_step(images[half:], labels[half:])
+    tr.train_step(images, labels)
+    out = {"stage1_reads": guard.reads,
+           "stage1_losses": [h["loss"] for h in tr.history],
+           "stage1_calls": sorted(p.calls for p in tr.program.programs.values()),
+           "stage1_sharded": all(hasattr(m, "to_local") for m in tr.master)}
+
+    plan = SegPlan(**{k: tuple(v) if isinstance(v, list) else v for k, v in cfg["plan"].items()})
+    st = SegmentorTrainer(plan, SegmentorTrainConfig(compute_dtype="float32"),
+                          output_dir=os.path.join(root, "seg"), device="cpu", mesh=mesh)
+    st.train_step(x["data"], x["seg"], lr=0.01)
+    with HostReadGuard() as guard:  # the outputs are read after it
+        loss = st.train_step(x["data"], x["seg"], lr=0.009).clone()
+        val = [t.clone() for t in st.val_step(x["data"], x["seg"])]
+    val_again = st.val_step(x["data"], x["seg"])
+    out.update(seg_reads=guard.reads, seg_loss=float(loss),
+               seg_train_calls=[p.calls for p in st.train_program.programs.values()],
+               seg_val_calls=[p.calls for p in st.val_program.programs.values()],
+               seg_val_equal=all(torch.equal(a, b) for a, b in zip(val, val_again)),
+               seg_val_loss=float(val[0]))
+    return out
+
+
+TASKS = {"stage1": stage1, "seg": seg, "dice": dice, "val": val, "mesh": mesh_groups,
+         "graphs": graphs}
 
 
 def main(argv):
