@@ -72,6 +72,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ldiffusion_tpu_torch.core import tracing
 from ldiffusion_tpu_torch.core.config import (
     DiffusionTrainConfig,
     MeshConfig,
@@ -383,7 +384,8 @@ class LDiffusionModel:
                     return (t, seg) if want_transformed else seg
 
                 programs[key] = Program(f, self.device, predictor.graph_pool(),
-                                        counted=[(predictor, "network_forwards")])
+                                        counted=[(predictor, "network_forwards")],
+                                        name="tissue_fused")
             return programs[key](img_norm)
 
         run.programs = programs
@@ -401,7 +403,20 @@ class LDiffusionModel:
         blocking, run, and its mask copied into one of 3 pinned slots behind
         a CUDA event, while the host reads the next; with 3 pending the
         oldest is waited for, postprocessed and written, in sorted order.
-        The call's program caches stay in ``tissue_programs``."""
+        The call's program caches stay in ``tissue_programs``.
+
+        Spans (``core/tracing.py``, while a ``torch.profiler`` session
+        records): the call is ``tissue/call``; finding the checkpoints and
+        building the predictor ``tissue/predictor_build``; in folder mode
+        each image's probe, read and staging copy ``tissue/read_roi``, and
+        its wait, postprocessing and PNG ``tissue/write_mask``, whose wait
+        for the mask's event is ``tissue/wait_mask``."""
+        with tracing.span("tissue/call"):
+            return self._inference_tissue(image_path, ldiffusion_weight, segmentor_weight,
+                                          num_classes, output_path, overwrite)
+
+    def _inference_tissue(self, image_path, ldiffusion_weight, segmentor_weight, num_classes,
+                          output_path, overwrite):
         from ldiffusion_tpu_torch.diffusion.pipeline import trajectory_text_emb
         from ldiffusion_tpu_torch.segmentor.planner import SegPlan
         from ldiffusion_tpu_torch.segmentor.postprocess import (
@@ -416,8 +431,9 @@ class LDiffusionModel:
         print("Running inference on tissue-level model...", flush=True)
         self._load_components(unet_override_dir=ldiffusion_weight)
         plan = SegPlan.load(os.path.join(segmentor_weight, "plans.json"))
-        ckpts = find_fold_checkpoints(segmentor_weight)
-        predictor = SlidingWindowPredictor.from_checkpoints(plan, ckpts, device=self.device)
+        with tracing.span("tissue/predictor_build"):
+            ckpts = find_fold_checkpoints(segmentor_weight)
+            predictor = SlidingWindowPredictor.from_checkpoints(plan, ckpts, device=self.device)
         pp_steps = []
         for cand in [segmentor_weight] + [os.path.dirname(c) for c in ckpts]:
             pp_path = os.path.join(cand, "postprocessing.json")
@@ -463,10 +479,12 @@ class LDiffusionModel:
         pending = collections.deque()  # (out_png, host mask or pinned slot, event)
 
         def write(png, mask, done):
-            if done is not None:
-                done.synchronize()
-            mask = mask.numpy().copy() if isinstance(mask, torch.Tensor) else mask
-            Image.fromarray(finish(mask)).save(png)
+            with tracing.span("tissue/write_mask"):
+                if done is not None:
+                    with tracing.span("tissue/wait_mask"):
+                        done.synchronize()
+                mask = mask.numpy().copy() if isinstance(mask, torch.Tensor) else mask
+                Image.fromarray(finish(mask)).save(png)
 
         squares = 0
         for fn in sorted(os.listdir(image_path)):
@@ -474,13 +492,17 @@ class LDiffusionModel:
             if not overwrite and os.path.exists(out_png):
                 continue
             path = os.path.join(image_path, fn)
-            with Image.open(path) as probe:
-                w, h = probe.size
-            if w == h:
-                # the buffers of square n - 3 are free: it left ``pending``
-                i = squares % 3
-                squares += 1
-                staging[i].numpy()[...] = load_image(path, (size, size))
+            with tracing.span("tissue/read_roi"):
+                with Image.open(path) as probe:
+                    square = probe.size[0] == probe.size[1]
+                if square:
+                    # the buffers of square n - 3 are free: it left ``pending``
+                    i = squares % 3
+                    squares += 1
+                    staging[i].numpy()[...] = load_image(path, (size, size))
+                else:
+                    rgb = _plain_rgb(path)[1]
+            if square:
                 slots[i].copy_(fused(staging[i], want_transformed=False), non_blocking=True)
                 done = None
                 if pin:
@@ -488,7 +510,7 @@ class LDiffusionModel:
                     done.record()
                 pending.append((out_png, slots[i], done))
             else:
-                pending.append((out_png, predictor.predict(_plain_rgb(path)[1]), None))
+                pending.append((out_png, predictor.predict(rgb), None))
             if len(pending) >= 3:
                 write(*pending.popleft())
         while pending:

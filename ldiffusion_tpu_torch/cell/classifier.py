@@ -187,9 +187,10 @@ class CellSegClassifier:
         self._norm = (torch.from_numpy(IMAGENET_MEAN).to(device),
                       torch.from_numpy(IMAGENET_STD).to(device))
         pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
-        self.programs = {name: Jit(fn, device, pool) for name, fn in (
-            ("patch_logits", self._patch_logits), ("roi_logits", self._roi_logits),
-            ("roi_features", self._roi_features))}
+        self.programs = {name: Jit(fn, device, pool, name=f"classifier_{name}")
+                         for name, fn in (("patch_logits", self._patch_logits),
+                                          ("roi_logits", self._roi_logits),
+                                          ("roi_features", self._roi_features))}
         self.last_predict: dict = {}  # stage times and counts of the last predict_mask
 
     @property
@@ -330,7 +331,7 @@ class CellTrainer:
                                      eps=1e-8, weight_decay=1e-4, capturable=one_card)
         self.program = Jit(self.step_fn, model.device,
                            torch.cuda.graph_pool_handle() if one_card else None,
-                           program_type=TrainProgram)
+                           program_type=TrainProgram, name="classifier_head_step")
         self.log = TextLogger()
         self.feature_cache_seconds = 0.0  # host seconds, proposals + encoder features
         self.epoch_seconds = []  # host seconds a training epoch, validation included

@@ -243,9 +243,9 @@ class FlowNetProposer:
     def __post_init__(self):
         dev = self.device
         pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
-        self.programs = {name: Jit(fn, dev, pool) for name, fn in (
-            ("net", self._net_out), ("follow_flows", self._follow),
-            ("propose", self._propose_out))}
+        self.programs = {name: Jit(fn, dev, pool, name=f"flownet_{name}")
+                         for name, fn in (("net", self._net_out), ("follow_flows", self._follow),
+                                          ("propose", self._propose_out))}
 
     @classmethod
     def create(cls, features=(32, 64, 128, 256), device=None, **kw) -> "FlowNetProposer":
@@ -374,7 +374,7 @@ class FlowNetTrainer:
         self.opt = torch.optim.AdamW(proposer.net.parameters(), lr=lr, betas=(0.9, 0.999),
                                      eps=1e-8, weight_decay=1e-4, capturable=one_card)
         self.program = Jit(self.step_fn, dev, torch.cuda.graph_pool_handle() if one_card else None,
-                           program_type=TrainProgram)
+                           program_type=TrainProgram, name="flownet_step")
 
     def step_fn(self, images, flow_targets):
         """One AdamW step on device tensors, what the program captures.

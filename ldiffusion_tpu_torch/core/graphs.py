@@ -34,6 +34,14 @@ replay draws what an eager step would and advances them as far.
 ``Jit`` keeps one program per input signature (each input's shape and
 dtype) and static keyword values, the key ``jax.jit`` compiles by.
 
+Each program has a ``name``, its owner's (``stage1_step``, ``tissue_fused``,
+``predict_bucket``, ...). While a ``torch.profiler`` session records
+(``core/tracing.py``), a call is the span ``program/eager``,
+``program/capture`` or ``program/replay`` (host time), and each replay's
+device time, from timing events around ``graph.replay()``, is added to the
+counter ``program.<name>.replay_ms``. ``capture_s`` is the capture span's
+duration.
+
 Launch counters: the kernel wrappers count a launch in Python where they
 enqueue their kernel, which happens once, at capture. A ``Program`` records
 what its capture added to every counter (``counters()``, plus the
@@ -44,10 +52,11 @@ launches the device ran.
 from __future__ import annotations
 
 import functools
-import time
 import weakref
 
 import torch
+
+from ldiffusion_tpu_torch.core import tracing
 
 # (owner, attribute) pairs that captures record and replays repeat, besides
 # the kernel wrappers' counters: ``watch_counter`` adds, ``unwatch_counter``
@@ -113,10 +122,13 @@ class Program:
     """``fn`` run eagerly once, then captured and replayed (module docstring).
     ``counted``: more (owner, attribute) counters that ``fn`` raises and
     replays repeat (a predictor's ``network_forwards``); ``generators``: the
-    ``torch.Generator``s ``fn`` draws from."""
+    ``torch.Generator``s ``fn`` draws from; ``name``: the owner's name for
+    it, in its replays' counter."""
 
-    def __init__(self, fn, device, pool=None, counted=(), generators=()):
+    def __init__(self, fn, device, pool=None, counted=(), generators=(), name="program"):
         self.fn = fn
+        self.name = name
+        self._replay_ms = f"program.{name}.replay_ms"
         self.device = torch.device(device)
         self.pool = pool
         self.counted = list(counted)
@@ -145,13 +157,17 @@ class Program:
                 for static, x in zip(self.static_inputs, xs):
                     static.copy_(x, non_blocking=True)
             elif self.calls == 1:
-                return self.fn(*(x.to(self.device, non_blocking=True) for x in xs))
+                with tracing.span("program/eager"):
+                    return self.fn(*(x.to(self.device, non_blocking=True) for x in xs))
             else:
-                self._capture(xs)
-            return self._replay()
+                captured = tracing.Span("program/capture")
+                with captured:
+                    self._capture(xs)
+                self.capture_s = captured.seconds
+            with tracing.span("program/replay"), tracing.device_time(self._replay_ms):
+                return self._replay()
 
     def _capture(self, xs):
-        t0 = time.perf_counter()
         # the inputs' strides, as the eager first use saw them
         self.static_inputs = tuple(torch.empty_like(x, device=self.device)
                                    .copy_(x, non_blocking=True) for x in xs)
@@ -168,7 +184,6 @@ class Program:
             _add(pairs, deltas, -1)  # a capture launches nothing
         self.graph, self.static_output = graph, out
         self._pairs, self._deltas = pairs, deltas
-        self.capture_s = time.perf_counter() - t0
 
     def _replay(self):
         self.graph.replay()
@@ -193,16 +208,19 @@ class Jit:
     """One program per input signature (each input's shape and dtype) and
     static values (the keywords of a call, ``jax.jit``'s
     ``static_argnames``), the key ``jax.jit`` compiles by:
-    ``program_type(fn, device, pool, generators=generators)`` made at a
+    ``program_type(fn, device, pool, generators=generators, name=name)`` made at a
     key's first call, with the static values bound to ``fn`` as keywords.
-    ``fn`` is an owner's bound method, held weakly (``weak_method``)."""
+    ``fn`` is an owner's bound method, held weakly (``weak_method``);
+    ``name``: its programs' name."""
 
-    def __init__(self, fn, device, pool=None, generators=(), program_type=Program):
+    def __init__(self, fn, device, pool=None, generators=(), program_type=Program,
+                 name="program"):
         self.fn = weak_method(fn)
         self.device = device
         self.pool = pool
         self.generators = list(generators)
         self.program_type = program_type
+        self.name = name
         self.programs: dict = {}
 
     def __call__(self, *xs, **static):
@@ -211,5 +229,5 @@ class Jit:
         if program is None:
             fn = functools.partial(self.fn, **static) if static else self.fn
             program = self.programs[key] = self.program_type(
-                fn, self.device, self.pool, generators=self.generators)
+                fn, self.device, self.pool, generators=self.generators, name=self.name)
         return program(*xs)

@@ -140,18 +140,26 @@ def dump_debug_json(path: str, extra: Optional[dict] = None):
 def profiler_trace(log_dir: Optional[str]):
     """A ``torch.profiler`` trace of the block (host, and the card when there
     is one) written to ``log_dir`` as a Chrome trace
-    (``trace_<pid>_<ms>.json``); nothing when ``log_dir`` is empty or None."""
+    (``trace_<pid>_<ms>.json``), and beside it the port's spans and counters
+    of the block (``core/tracing.py``, cleared on entry): ``spans_<pid>_<ms>.json``
+    holding ``summary`` and the raw ``spans``. Nothing when ``log_dir`` is
+    empty or None."""
     if not log_dir:
         yield
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ldiffusion_tpu_torch.core import tracing
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    tracing.reset()
     with profile(activities=activities) as prof:
         yield
     os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
+    stamp = f"{os.getpid()}_{int(time.time() * 1000)}"
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{stamp}.json"))
+    with open(os.path.join(log_dir, f"spans_{stamp}.json"), "w") as f:
+        json.dump({"summary": tracing.summary(), "spans": tracing.records()}, f)

@@ -46,7 +46,8 @@ class DiffusionTransform:
         self.batch_size = batch_size
         dev = components.device
         self.program = Jit(self._transform, dev,
-                           torch.cuda.graph_pool_handle() if dev.type == "cuda" else None)
+                           torch.cuda.graph_pool_handle() if dev.type == "cuda" else None,
+                           name="transform")
         with torch.inference_mode():
             self._emb = trajectory_text_emb(components, batch_size)
 

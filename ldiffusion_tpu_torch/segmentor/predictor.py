@@ -45,6 +45,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ldiffusion_tpu_torch.core import tracing
 from ldiffusion_tpu_torch.core.checkpoint import load_pytree
 from ldiffusion_tpu_torch.core.device import resolve_device
 from ldiffusion_tpu_torch.core.graphs import Program, weak_method
@@ -174,15 +175,23 @@ class SlidingWindowPredictor:
     @classmethod
     def from_checkpoints(cls, plan: SegPlan, paths: Sequence[str], **kw):
         """Fold ensembling over the trainers' checkpoints (either package's);
-        a non-empty ``batch_stats`` makes the fold a BatchNorm net."""
+        a non-empty ``batch_stats`` makes the fold a BatchNorm net. Spans
+        (``core/tracing.py``): ``predictor/read_checkpoint`` each file (the
+        counter ``predictor.checkpoint_bytes`` its size),
+        ``predictor/convert`` each fold's conversion, ``predictor/nets``
+        the nets built, loaded and cast on the device."""
         sds = []
         for p in paths:
-            ck = load_pytree(p)
-            cfg = plan.network_config()
-            if ck.get("batch_stats"):
-                cfg = dataclasses.replace(cfg, norm="batch")
-            sds.append(dynunet_from_flax(ck["params"], cfg, ck.get("batch_stats")))
-        return cls(plan, sds, **kw)
+            with tracing.span("predictor/read_checkpoint"):
+                ck = load_pytree(p)
+            tracing.count("predictor.checkpoint_bytes", os.path.getsize(p))
+            with tracing.span("predictor/convert"):
+                cfg = plan.network_config()
+                if ck.get("batch_stats"):
+                    cfg = dataclasses.replace(cfg, norm="batch")
+                sds.append(dynunet_from_flax(ck["params"], cfg, ck.get("batch_stats")))
+        with tracing.span("predictor/nets"):
+            return cls(plan, sds, **kw)
 
     def graph_pool(self):
         """The memory pool of this predictor's captured programs (and of
@@ -270,8 +279,8 @@ class SlidingWindowPredictor:
             if program is None:
                 program = self._predict_cache[key] = Program(
                     functools.partial(weak_method(self._bucket), positions, mode, shape),
-                    self.device,
-                    self.graph_pool(), counted=[(weakref.proxy(self), "network_forwards")])
+                    self.device, self.graph_pool(),
+                    counted=[(weakref.proxy(self), "network_forwards")], name="predict_bucket")
             out = program(image)
             if mode == "seg":
                 return out

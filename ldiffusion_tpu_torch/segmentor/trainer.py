@@ -313,8 +313,9 @@ class SegmentorTrainer:
         # one train and one validation program per batch shape (module docstring)
         pool = torch.cuda.graph_pool_handle() if on_card else None
         self.train_program = Jit(self.step_fn, self.device, pool,
-                                 generators=[self.generator], program_type=TrainProgram)
-        self.val_program = Jit(self._val_step, self.device, pool)
+                                 generators=[self.generator], program_type=TrainProgram,
+                                 name="seg_train_step")
+        self.val_program = Jit(self._val_step, self.device, pool, name="seg_val_step")
         self._make_luts()
         # measurements: host seconds a train iteration (ending in the loss
         # read), of patch sampling + host spatial DA a batch, a validation

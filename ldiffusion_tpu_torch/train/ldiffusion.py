@@ -36,6 +36,17 @@ sync a step, as the JAX loop's ``float(metrics["loss"])``. ``load_state``
 writes the masters and the AdamW state in place, so the graphs read what it
 loaded.
 
+Tracing (``core/tracing.py``, while a ``torch.profiler`` session records):
+``train_step`` is the span ``train_step``, with the children
+``train_step/inputs`` (the inputs' device copies), the program's own span
+and ``train_step/read`` (the host waiting for the step's values). On a card
+``step_fn`` records four timing events (``external``: in a captured step
+they are event nodes of the graph, which every replay records again): the
+step's start, after the losses, after the backward and the gradients' cast
+to the masters, after the clip, AdamW and the cast back. After its read,
+``train_step`` adds the milliseconds between them to the counters
+``train_step.forward_ms``, ``backward_ms`` and ``optimizer_ms``.
+
 Over a mesh (``mesh=``, ``core/dist.py``; the JAX trainer's FSDP over
 (data, fsdp), the reference's ZeRO-3): the UNet and the projection go under
 FSDP2's ``fully_shard`` (each resnet, transformer and resampler a unit,
@@ -69,6 +80,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ldiffusion_tpu_torch.core import tracing
 from ldiffusion_tpu_torch.core.checkpoint import load_pytree, reshard_like, save_pytree
 from ldiffusion_tpu_torch.core.config import DiffusionTrainConfig
 from ldiffusion_tpu_torch.core.dist import MeshContext, is_main_process
@@ -154,7 +166,11 @@ class DiffusionWarmupTrainer:
         # one program per batch shape (module docstring)
         self.program = Jit(self.step_fn, self.device,
                            torch.cuda.graph_pool_handle() if on_card else None,
-                           generators=[self.generator], program_type=TrainProgram)
+                           generators=[self.generator], program_type=TrainProgram,
+                           name="stage1_step")
+        # the step's phase marks (module docstring)
+        self.phase_events = [torch.cuda.Event(enable_timing=True, external=True)
+                             for _ in range(4)] if on_card else None
         self.steps_done = 0
         self.history = []  # train_step's metrics, with its wall-clock "seconds"
 
@@ -210,6 +226,7 @@ class DiffusionWarmupTrainer:
         for p in self.params:
             p.grad = None
         loss, aux = self._loss_fn(*self.local(images, labels, noise, indices))
+        self._mark(1)
         loss.backward()
         if self.mesh is None:
             for p, m in zip(self.params, self.master):
@@ -242,24 +259,42 @@ class DiffusionWarmupTrainer:
         self.steps_done += 1
         return norm
 
+    def _mark(self, i: int):
+        """Records the step's phase event ``i`` on a card (module docstring)."""
+        if self.phase_events is not None:
+            self.phase_events[i].record()
+
     def step_fn(self, images, labels):
         """One whole step on device tensors, what the program captures:
-        ``draw``, ``loss_and_grads``, ``_update``. images (B, H, W, 3)
-        float32, labels (B, 64, 64) int64. Returns (loss, content, contrast,
-        gradient norm) of the global batch, 0-d device tensors."""
+        ``draw``, ``loss_and_grads``, ``_update``, between the phase marks.
+        images (B, H, W, 3) float32, labels (B, 64, 64) int64. Returns (loss,
+        content, contrast, gradient norm) of the global batch, 0-d device
+        tensors."""
+        self._mark(0)
         noise, indices = self.draw(images, labels)
         loss, aux = self.loss_and_grads(images, labels, noise, indices)
-        return loss, aux["content"], aux["contrast"], self._update()
+        self._mark(2)
+        norm = self._update()
+        self._mark(3)
+        return loss, aux["content"], aux["contrast"], norm
 
     def train_step(self, images, labels) -> dict:
         """images (B, H, W, 3) ImageNet-normalised (or this process's rows of
         them), labels (B, 64, 64) class ids of the global batch; numpy or
         tensors. Through the batch shape's program (module docstring).
         Returns float metrics of the global batch."""
-        t0 = time.perf_counter()
-        images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        labels = torch.as_tensor(labels, device=self.device).long()
-        values = torch.stack([v.detach().float() for v in self.program(images, labels)]).tolist()
+        with tracing.span("train_step"):
+            t0 = time.perf_counter()
+            with tracing.span("train_step/inputs"):
+                images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+                labels = torch.as_tensor(labels, device=self.device).long()
+            out = self.program(images, labels)
+            with tracing.span("train_step/read"):
+                values = torch.stack([v.detach().float() for v in out]).tolist()
+            if self.phase_events is not None and tracing.enabled():
+                e = self.phase_events
+                for i, phase in enumerate(("forward", "backward", "optimizer")):
+                    tracing.count(f"train_step.{phase}_ms", e[i].elapsed_time(e[i + 1]))
         self.steps_done += 1
         metrics = dict(zip(("loss", "content", "contrast", "grad_norm"), values))
         metrics["seconds"] = time.perf_counter() - t0  # the read waits for the device

@@ -189,14 +189,16 @@ def test_collate_outputs_and_dummy_context_match_jax():
 
 def test_profiler_trace(tmp_path):
     """None traces nothing in either package; a directory gets the port's
-    Chrome trace of the block's ops."""
+    Chrome trace of the block's ops, beside its spans file
+    (``test_torch_port_tracing``)."""
     for ctx in (tlogging.profiler_trace(None), jlogging.profiler_trace(None),
                 tlogging.profiler_trace("")):
         with ctx:
             pass
     with tlogging.profiler_trace(str(tmp_path / "trace")):
         torch.ones(64, 64).matmul(torch.ones(64, 64))
-    (trace,) = os.listdir(tmp_path / "trace")
+    spans, trace = sorted(os.listdir(tmp_path / "trace"))
+    assert spans.startswith("spans_") and spans.endswith(".json")
     assert trace.startswith("trace_") and trace.endswith(".json")
     with open(tmp_path / "trace" / trace) as f:
         events = json.load(f)["traceEvents"]
