@@ -28,7 +28,12 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               the route gn_route names, repeat bitwise, hold the other route
               (and the resident route at other slice widths) to the same
               tolerance and time it, and time the first GroupNorm kernel
-              (csrc/groupnorm.cu, "v1").
+              (csrc/groupnorm.cu, "v1"). The GroupNorm backward at stage
+              1's maps (GN_BWD_SHAPES): dx, dscale and dbias against the
+              closed form, the route gn_route names, two calls bitwise,
+              timed in a CUDA graph beside the other route where it takes
+              the shape, the autograd route it replaced, the closed form and
+              autograd through F.group_norm + F.silu.
   3. tiny:    the whole ``inference_tissue`` at the tiny configs on a 64² ROI,
               once on cuda with the kernels (f32, TF32 off) and once on the
               CPU with the plain versions, same weights; compared.
@@ -67,7 +72,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               and read after (b), replays counted, every bf16 forward and
               backward launch on the wgmma route, every GroupNorm launch on
               its gn_route route, each replayed 512² step launching what the
-              eager one did (K6: K6_PER_STEP_512); one 512² replay profiled.
+              eager one did (K6: K6_PER_STEP_512; the GroupNorm backward:
+              GN_BWD_PER_STEP_512); one 512² replay profiled.
               Then (c) at 64² and SD-v1.5 width, TRAIN_ROUTE_STEPS steps
               through ``train_step`` against as many ``step_fn`` calls (the
               eager route) from the same weights and generator seed: losses,
@@ -273,8 +279,9 @@ Phases, in order (any failure exits non-zero; nothing is caught):
               through DiffusionWarmupTrainer(mesh=...) under FSDP2, the same
               seeded weights and draws: the loss, the gradient norm, every
               gradient and updated parameter held to the one-device step
-              (DIST_*), the route counters (K2-K6, reset before each step)
-              equal. Then the FSDP2 trainer from that state takes
+              (DIST_*), the route counters (K2-K6 and the GroupNorm
+              backward, reset before each step) equal, the backward's
+              GN_BWD_PER_STEP_512. Then the FSDP2 trainer from that state takes
               DIST_ROUTE_STEPS steps through ``train_step`` (its program:
               eager first use, capture with FSDP2's collectives inside the
               graph, replay) and one profiled replay, against as many
@@ -353,6 +360,10 @@ LSE = {"bfloat16": (1e-3, 0.0, 1e-5), "float32": (1e-4, 0.0, 1e-5)}
 # dq/dk/dv to bf16 — the forward's bound; in f32 only the order of the sums
 # over up to 4096 terms differs, relative to each gradient's scale.
 BWD = {"bfloat16": ATTN_BF16, "float32": (0.0, 1e-4, 1e-4)}
+# The GroupNorm backward: f32 math on both sides, other summation order and
+# the kernel's fast exponential; dx, dscale and dbias each rounded once to
+# bf16 (2^-7 relative at worst) from f32 values 2^-9 of their rms apart.
+GN_BWD_BF16 = (0.0, 2 ** -9, 2 ** -7)
 
 
 def log(*a):
@@ -558,6 +569,17 @@ BENCH_GN_SHAPES = [(8, 8, 8, 1280, True, 1e-5), (8, 32, 32, 1280, True, 1e-5),
                    (8, 512, 512, 128, True, 1e-6), (8, 512, 512, 256, True, 1e-6)]
 
 
+# (B, H, W, C, silu, eps) of the differentiated GroupNorm at stage 1 (bf16,
+# bf16 parameters), backward launches a step in brackets: the 512² step's
+# UNet at 64² latents, 64²×320 (78) and 16²×1280 (66), and its VAE decode,
+# 256²×512 (6), 512²×128 (36) and 512²×256 (6); the 64²-image batch-8 step's
+# UNet at 8², 8²×320 (78), and VAE decode, 64²×128 (36, without SiLU too)
+GN_BWD_SHAPES = [(1, 64, 64, 320, True, 1e-5), (1, 16, 16, 1280, True, 1e-5),
+                 (1, 256, 256, 512, True, 1e-6), (1, 512, 512, 128, True, 1e-6),
+                 (1, 512, 512, 256, True, 1e-6), (8, 8, 8, 320, True, 1e-5),
+                 (8, 64, 64, 128, True, 1e-6), (8, 64, 64, 128, False, 1e-6)]
+
+
 def attn_row(b, s, h, d, dtype, gen, iters):
     import torch
     import torch.nn.functional as F
@@ -692,6 +714,89 @@ def gn_row(b, hh, ww, c, groups, silu, eps, dtype, gen, iters, sdtype="float32",
         t_ops = 10.0 * x.numel() / PEAK_F32
         row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
         row["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+    return row
+
+
+def gn_bwd_row(b, hh, ww, c, silu, eps, gen):
+    """The GroupNorm backward at one shape, bf16 with bf16 parameters: the
+    route ``gn_route(..., backward=True)`` names, dx/dscale/dbias against
+    ``plain_groupnorm_silu_backward`` (GN_BWD_BF16), two calls bitwise
+    equal; ms a call in a CUDA graph (as the captured step runs it) and
+    eager, the kernels' device ms, the other route where the shape takes it
+    (held to the same tolerance), the autograd route through
+    ``plain_groupnorm_silu`` that the kernels replaced, the closed form and
+    autograd through F.group_norm + F.silu. Bound: x and dy read, dx written
+    once."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldiffusion_tpu_torch.ops.groupnorm import (
+        _launch_bwd,
+        gn_route,
+        groupnorm_silu_backward,
+        plain_groupnorm_silu,
+        plain_groupnorm_silu_backward,
+    )
+
+    dt, groups = torch.bfloat16, 32
+    shape = (b, hh, ww, c)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dt)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    scale = (1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
+    bias = (0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
+    name = f"groupnorm_silu_backward{shape} silu={silu} eps={eps}"
+    fn = groupnorm_silu_backward
+    before = dict(fn.launches_by_route)
+    got = fn(x, dy, scale, bias, groups, eps, silu)
+    route = route_delta(fn, before)
+    if route != gn_route(b, hh * ww, c, groups, dt, True, backward=True):
+        raise AssertionError(f"{name}: took {route}, gn_route names another")
+    again = fn(x, dy, scale, bias, groups, eps, silu)
+    refs = plain_groupnorm_silu_backward(x, dy, scale, bias, groups, eps, silu)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, o) for a, o in zip(again, got)):
+        raise AssertionError(f"{name}: two calls differ ({route})")
+    row = {"shape": list(shape), "groups": groups, "silu": silu, "eps": eps, "dtype": "bfloat16",
+           "scale_dtype": "bfloat16", "route": route, "bitwise_repeat": True}
+    for key, out, ref in zip(("dx", "dscale", "dbias"), got, refs):
+        row[key] = compare(f"{name} {key}", out, ref, GN_BWD_BF16)
+    row["max_abs_err"] = max(row[k]["max_abs_err"] for k in ("dx", "dscale", "dbias"))
+    alts = ["stream"] if route == "resident" else []
+    for alt in alts:
+        *y_alt, _ = _launch_bwd(x, dy, scale, bias, groups, eps, silu, True, route=alt)
+        torch.cuda.synchronize()
+        row[f"{alt}_max_abs_err"] = max(
+            compare(f"{name} ({alt}) {key}", out, ref, GN_BWD_BF16)["max_abs_err"]
+            for key, out, ref in zip(("dx", "dscale", "dbias"), y_alt, refs))
+    del again, refs, got
+    ours = lambda: fn(x, dy, scale, bias, groups, eps, silu)
+    row["ms"] = graph_ms(ours)
+    row["eager_ms"] = cuda_ms(ours, 10)
+    by_kernel = profiled_kernels_ms(ours, 20)
+    row["device_ms"] = sum(by_kernel.values())
+    row["device_ms_by_kernel"] = {k.split("<")[0].split("::")[-1]: ms
+                                  for k, ms in by_kernel.items()}
+    for alt in alts:
+        row[f"{alt}_ms"] = graph_ms(
+            lambda: _launch_bwd(x, dy, scale, bias, groups, eps, silu, True, route=alt))
+
+    def autograd(forward, xs):
+        leaves = [t.detach().requires_grad_() for t in (xs, scale, bias)]
+        y = forward(*leaves)
+        return torch.autograd.grad(y, leaves, dy if xs is x else dy.permute(0, 3, 1, 2))
+
+    row["prev_ms"] = graph_ms(
+        lambda: autograd(lambda *t: plain_groupnorm_silu(*t, groups, eps, silu), x))
+    row["plain_ms"] = graph_ms(
+        lambda: plain_groupnorm_silu_backward(x, dy, scale, bias, groups, eps, silu))
+
+    def library(xc, w, b_):
+        y = F.group_norm(xc, groups, w, b_, eps)
+        return F.silu(y) if silu else y
+
+    row["library_ms"] = graph_ms(lambda: autograd(library, x.permute(0, 3, 1, 2)))
+    row["bound_ms"] = 1e3 * 3.0 * x.numel() * x.element_size() / PEAK_BYTES
+    row["bound_by"] = "bytes"
     return row
 
 
@@ -847,6 +952,10 @@ def phase_kernels(seed: int):
             r = gn_row(b, hh, ww, c, groups, silu, 1e-5, dtype, gen, iters=0, sdtype=sdtype,
                        offset=offset)
             log("kernel groupnorm_silu", json.dumps(r))
+    gn_bwd = []
+    for b, hh, ww, c, silu, eps in GN_BWD_SHAPES:
+        gn_bwd.append(gn_bwd_row(b, hh, ww, c, silu, eps, gen))
+        log("kernel groupnorm_silu_backward", json.dumps(gn_bwd[-1]))
     lse, bwd = [], []
     for i, (b, s, h, d) in enumerate(TRAIN_ATTN_SHAPES):
         lse.append(lse_row(b, s, h, d, "bfloat16", gen, iters=5))
@@ -860,7 +969,8 @@ def phase_kernels(seed: int):
         log("kernel k7_exp2_shapes flash_attention_fwd_lse",
             json.dumps(lse_row(b, s, h, d, "bfloat16", gen, iters=5)))
     return {"flash_attention_fwd": attn, "groupnorm_silu": gn,
-            "flash_attention_fwd_lse": lse, "flash_attention_bwd": bwd}
+            "flash_attention_fwd_lse": lse, "flash_attention_bwd": bwd,
+            "groupnorm_silu_backward": gn_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -873,11 +983,12 @@ def counters():
         flash_attention_fwd,
         flash_attention_fwd_lse,
     )
-    from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu
+    from ldiffusion_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_backward
 
     return {"flash_attention_fwd": flash_attention_fwd, "groupnorm_silu": groupnorm_silu,
             "flash_attention_fwd_lse": flash_attention_fwd_lse,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "groupnorm_silu_backward": groupnorm_silu_backward}
 
 
 def reset_counters():
@@ -899,9 +1010,9 @@ def read_routes():
 
 def check_bf16_routes(where: str, routes: dict) -> None:
     """Every bf16 forward and backward of the model's path shapes takes the
-    wgmma route."""
+    wgmma route (GroupNorm's routes are its own)."""
     for name, by_route in routes.items():
-        if name == "groupnorm_silu":
+        if name.startswith("groupnorm_silu"):
             continue
         off = {r: n for r, n in by_route.items() if r != "wgmma" and n}
         if off:
@@ -1325,6 +1436,10 @@ TINY_TRAIN_TOL = {"loss": 1e-4, "grads": 1e-3, "exp_avg": 1e-3, "exp_avg_sq": 2e
 # 512² images: 10 self-attentions of >= 512 keys per UNet pass (4096 tokens:
 # 2 down + 3 up; 1024 tokens: 2 down + 3 up) x 6 timesteps
 K6_PER_STEP_512 = 60
+# the differentiated GroupNorm layers of a 512² step: 6 timesteps × (the
+# UNet's 61 + the VAE decoder's 30); the forward runs 1114 (each of these
+# twice under remat, and the VAE encoder's 22)
+GN_BWD_PER_STEP_512 = 546
 TRAIN_512_STEPS = 5  # eager, captured, 3 replays
 
 
@@ -1664,12 +1779,15 @@ def phase_train(work, seed):
                              f"a replay: {row_b['profiled_replay_is_a_replay']}")
     if any(step != per_step[0] for step in per_step[2:]) or \
             launches_512["flash_attention_bwd"] != n * K6_PER_STEP_512 or \
-            bwd_wgmma_512 != n * K6_PER_STEP_512:
+            bwd_wgmma_512 != n * K6_PER_STEP_512 or \
+            launches_512["groupnorm_silu_backward"] != n * GN_BWD_PER_STEP_512:
         raise AssertionError(f"train 512²: the replays launched {per_step[2:]}, the eager step "
                              f"{per_step[0]}; flash_attention_bwd "
                              f"{launches_512['flash_attention_bwd']} times in {n} steps, "
                              f"{bwd_wgmma_512} on the wgmma route, expected "
-                             f"{n * K6_PER_STEP_512}")
+                             f"{n * K6_PER_STEP_512}; groupnorm_silu_backward "
+                             f"{launches_512['groupnorm_silu_backward']} times, expected "
+                             f"{n * GN_BWD_PER_STEP_512}")
     if min(launches_512.values()) == 0:
         raise AssertionError(f"train 512²: a kernel was not launched: {launches_512}")
     return total, routes
@@ -4598,6 +4716,10 @@ def dist_stage1(work, seed, mesh):
             one["launches_by_route"] != sharded["launches_by_route"]:
         raise AssertionError(f"dist stage1: the kernels' launches differ under FSDP2: "
                              f"{one['launches_by_route']} vs {sharded['launches_by_route']}")
+    if sharded["launches"]["groupnorm_silu_backward"] != GN_BWD_PER_STEP_512:
+        raise AssertionError(f"dist stage1: groupnorm_silu_backward launched "
+                             f"{sharded['launches_by_route']['groupnorm_silu_backward']}, "
+                             f"expected {GN_BWD_PER_STEP_512} in all")
     if min(sharded["launches"].values()) == 0 or not sharded["sharded_params"]:
         raise AssertionError(f"dist stage1: {sharded['launches']}, "
                              f"{sharded['sharded_params']} DTensor parameters")
@@ -5079,6 +5201,10 @@ KERNEL_META = {
         "replaces": "ldiffusion_tpu/ops/attention.py:245 (_flash_bwd_kernel, K6); its exp2 "
                     "softmax is tools/bench_attn_exp2.py:29 (_kernel, K7)",
         "per_call": TRAIN_PER_STEP["flash_attention_bwd"]},
+    "groupnorm_silu_backward": {
+        "route": "cuda", "source": "ldiffusion_tpu_torch/csrc/groupnorm_sm90.cu",
+        "replaces": "none: ldiffusion_tpu/ops/groupnorm.py:319 (_gn_bwd) takes XLA's vjp",
+        "per_call": None},
 }
 
 
@@ -5103,7 +5229,7 @@ def kernel_summary(kernel_rows, launches, routes, by_path):
                     "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                     "library_ms": top["library_ms"], "shape": top["shape"]})
         for key in ("mma_ms", "mma_device_ms", "device_ms", "library_device_ms", "v1_ms",
-                    "v1_device_ms", "sources"):
+                    "v1_device_ms", "sources", "eager_ms", "prev_ms"):
             if key in meta:
                 out[-1][key] = meta[key]
             if key in top:
@@ -5113,10 +5239,10 @@ def kernel_summary(kernel_rows, launches, routes, by_path):
         paths = {p: n[name] for p, n in by_path.items() if name in n}
         if paths:
             out[-1]["launches_by_path"] = paths
-        if name == "groupnorm_silu":  # each route at its largest map
+        if name.startswith("groupnorm_silu"):  # each route at its largest map
             out[-1]["largest_by_route"] = {
                 r["route"]: {k: r[k] for k in ("shape", "ms", "device_ms", "v1_device_ms",
-                                               "library_device_ms", "bound_ms")}
+                                               "library_device_ms", "bound_ms") if k in r}
                 for r in sorted(rows, key=lambda r: math.prod(r["shape"]))}
     return out
 
@@ -5220,9 +5346,9 @@ def main(argv=None) -> int:
             by_path["train"] = train
             log("train_launches", json.dumps({"launches": train,
                                               "launches_by_route": train_routes}))
-            launches.update({k: train[k] for k in ("flash_attention_fwd_lse",
-                                                   "flash_attention_bwd")})
-            for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
+            trained = ("flash_attention_fwd_lse", "flash_attention_bwd", "groupnorm_silu_backward")
+            launches.update({k: train[k] for k in trained})
+            for name in trained:
                 routes[name] = train_routes[name]
         if "seg" in phases:  # stage 2 runs the inference kernels in its dataset build
             with wall("seg"):

@@ -79,8 +79,8 @@ def counters() -> list:
     from ldiffusion_tpu_torch.ops import attention, groupnorm, quant
 
     fns = (attention.flash_attention_fwd, attention.flash_attention_fwd_lse,
-           attention.flash_attention_bwd, groupnorm.groupnorm_silu, quant.int8_conv,
-           quant.int8_matmul)
+           attention.flash_attention_bwd, groupnorm.groupnorm_silu,
+           groupnorm.groupnorm_silu_backward, quant.int8_conv, quant.int8_matmul)
     return [(fn, a) for fn in fns for a in ("launches", "launches_by_route")
             if hasattr(fn, a)] + list(_WATCHED)
 

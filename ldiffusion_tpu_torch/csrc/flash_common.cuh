@@ -556,6 +556,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// encode_tiled() for the memory at ptr. The encoding needs a current context,
+// and a launcher may run on a thread that has made no CUDA call yet
+// (autograd's worker thread: the encoding failed there on the card, CUDA
+// error 1): bind the primary context of ptr's device first, once a thread.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank,
+                       const void* ptr, const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, const cuuint32_t* elem, CUtensorMapSwizzle swizzle) {
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaPointerAttributes a;
+    bound = cudaPointerGetAttributes(&a, ptr) == cudaSuccess &&
+            cudaSetDevice(a.device) == cudaSuccess;
+    if (!bound) return false;
+  }
+  const EncodeTiled encode = encode_tiled();
+  return encode != nullptr &&
+         encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // (B, S, H, D) bf16 as a 4-D map (D, H, S, B); a box is (cols, 1, rows, 1).
 inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int seq, int d,
                      int cols, int rows, int sw) {
@@ -567,10 +588,8 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads, in
   const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box, elem,
+                    swizzle);
 }
 
 }  // namespace

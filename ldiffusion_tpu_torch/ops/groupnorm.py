@@ -19,9 +19,13 @@ The first, three-kernel ``csrc/groupnorm.cu`` stays reachable only through
 never picks it. ``plain_groupnorm_silu`` is ``_xla_groupnorm_silu`` in
 PyTorch: the CPU path and the reference the kernels are held against.
 
-Under autograd, ``groupnorm_silu_trainable`` runs the kernel forward and
-differentiates through ``plain_groupnorm_silu``, as the JAX package's
-``_gn_bwd`` (:319-323) takes the XLA form's vjp.
+Under autograd, ``groupnorm_silu_trainable`` runs the kernel forward; its
+backward is ``groupnorm_silu_backward``: on a card the backward kernels of
+the same file by ``gn_route(..., backward=True)`` (the resident route holds
+x and dy in a cluster's shared memory; the streamed route takes statistics,
+partials and apply passes), on the CPU ``plain_groupnorm_silu_backward``, the
+closed form of the gradient that the JAX package's ``_gn_bwd`` (:319-323)
+leaves to XLA's vjp.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import functools
 
 import torch
 
+from ldiffusion_tpu_torch.core import tracing
 from ldiffusion_tpu_torch.ops import _build
 from ldiffusion_tpu_torch.ops.attention import SMEM_PER_BLOCK
 
@@ -105,9 +110,10 @@ def vectorised(c: int, dtype, aligned: bool) -> bool:
 
 
 def gn_resident_config(b: int, hw: int, c: int, groups: int, dtype,
-                       min_slice: int = MIN_SLICE_BYTES):
+                       min_slice: int = MIN_SLICE_BYTES, backward: bool = False):
     """The resident route's configuration (``resident_config`` in
-    csrc/groupnorm_sm90.cu), or None where it does not take the shape:
+    csrc/groupnorm_sm90.cu; ``backward``: the backward kernel's, which holds
+    x and dy in the 200 KB), or None where it does not take the shape:
     ``groups`` a slice (the narrowest run of whole groups whose bytes are a
     multiple of 16 and at least ``min_slice``, else the whole row), CTAs a
     ``cluster`` (the smallest that fits 200 KB of x a CTA and gives at least
@@ -132,11 +138,12 @@ def gn_resident_config(b: int, hw: int, c: int, groups: int, dtype,
         rpc = -(-hw // cs)
         nbox = -(-rpc // _BOX_ROWS)
         br = -(-(-(-rpc // nbox)) // 8) * 8
-        data = nbox * br * sb
+        data = nbox * br * sb * (2 if backward else 1)
         if data <= _DATA_MAX:
+            smem = 128 + data + 16 * nbox + 4 * (2 * rg * w + 2 * w + 8 * gpc) if backward \
+                else 128 + data + 8 * nbox + 4 * (2 * rg * w + 2 * max(8, gpc) + 4 * gpc)
             cfg = {"groups": gpc, "slices": nslice, "slice_bytes": sb, "cluster": cs,
-                   "rows": rpc, "box_rows": br, "boxes": nbox,
-                   "smem": 128 + data + 8 * nbox + 4 * (2 * rg * w + 2 * max(8, gpc) + 4 * gpc)}
+                   "rows": rpc, "box_rows": br, "boxes": nbox, "smem": smem}
             if b * nslice * cs >= _RESIDENT_TARGET_CTAS:
                 break
         cs *= 2
@@ -145,12 +152,14 @@ def gn_resident_config(b: int, hw: int, c: int, groups: int, dtype,
     return cfg
 
 
-def gn_route(b: int, hw: int, c: int, groups: int, dtype, aligned: bool) -> str:
+def gn_route(b: int, hw: int, c: int, groups: int, dtype, aligned: bool,
+             backward: bool = False) -> str:
     """The route a call takes: ``"resident"`` where x takes 16-byte accesses,
     the call is at most ``RESIDENT_MAX_BYTES`` and ``gn_resident_config``
-    finds a configuration; else ``"stream"``."""
+    finds a configuration (``backward``: the backward's, which holds x and
+    dy; ``aligned`` then says it of both); else ``"stream"``."""
     if vectorised(c, dtype, aligned) and b * hw * c * _itemsize(dtype) <= RESIDENT_MAX_BYTES \
-            and gn_resident_config(b, hw, c, groups, dtype) is not None:
+            and gn_resident_config(b, hw, c, groups, dtype, backward=backward) is not None:
         return "resident"
     return "stream"
 
@@ -187,6 +196,24 @@ def _resident_fn():
 def _stream_fn():
     fn = _build.library("groupnorm_sm90").ldt_groupnorm_stream
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _resident_bwd_fn():
+    fn = _build.library("groupnorm_sm90").ldt_groupnorm_resident_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _stream_bwd_fn():
+    fn = _build.library("groupnorm_sm90").ldt_groupnorm_stream_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
         [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -233,6 +260,13 @@ def _workspace(device, b: int, n_chunks: int, groups: int, c: int):
     part = b * n_chunks * groups
     return f[:part], f[part:2 * part], f[2 * part:2 * part + b * c], \
         f[2 * part + b * c:2 * part + 2 * b * c], counters
+
+
+def _scratch(device, sizes):
+    """The backward's f32 scratch, one tensor of each size, allocated by the
+    call: it keeps no counters, so nothing need outlive it (under a capture
+    it comes from the graph's pool)."""
+    return [torch.empty(n, device=device, dtype=torch.float32) for n in sizes]
 
 
 def _launch(what: str, x, scale, bias, groups: int, eps: float, silu: bool, route=None,
@@ -309,9 +343,121 @@ groupnorm_silu.launches = 0
 groupnorm_silu.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
+def plain_groupnorm_silu_backward(x, dy, scale, bias, groups: int, eps: float, silu: bool):
+    """The gradient of ``plain_groupnorm_silu`` in closed form: (dx, dscale,
+    dbias) for the output gradient ``dy``. f32 math (f64 for f64 input); dx
+    in x's dtype, dscale and dbias in the parameters'. With the forward's
+    statistics, xh = (x − mean)·rstd, y = xh·scale + bias, dz = dy·SiLU′(y)
+    (dy without SiLU) and g = scale·dz: dx = rstd·(g − mean(g) − xh·mean(g·xh))
+    over each group, the last term dropped where the variance's clamp held;
+    dscale = Σ dz·xh and dbias = Σ dz over batch and space."""
+    b, h, w, c = x.shape
+    cpg = c // groups
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct).reshape(b, h * w, groups, cpg)
+    n = h * w * cpg
+    mean = xf.sum(dim=(1, 3)) / n
+    var = (xf * xf).sum(dim=(1, 3)) / n - mean * mean
+    rstd = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+    xh = (xf - mean[:, None, :, None]) * rstd[:, None, :, None]
+    sc = scale.to(ct).reshape(groups, cpg)
+    dz = dy.to(ct).reshape(xf.shape)
+    if silu:
+        y = xh * sc + bias.to(ct).reshape(groups, cpg)
+        s = torch.sigmoid(y)
+        dz = dz * s * (1 + y * (1 - s))
+    g = sc * dz
+    mean_g = g.mean(dim=(1, 3))
+    mean_gx = (g * xh).mean(dim=(1, 3)) * (var >= 0)
+    dx = rstd[:, None, :, None] * (g - mean_g[:, None, :, None] - xh * mean_gx[:, None, :, None])
+    dscale = (dz * xh).sum(dim=(0, 1)).reshape(c)
+    dbias = dz.sum(dim=(0, 1)).reshape(c)
+    return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+def _launch_bwd(x, dy, scale, bias, groups: int, eps: float, silu: bool, param_grads: bool,
+                route=None):
+    """Launch the backward by ``route`` (``gn_route(..., backward=True)``'s
+    choice when None) and return (dx, dscale, dbias, route); dscale and dbias
+    are None unless ``param_grads``. A route that does not take the shape
+    raises."""
+    what = "groupnorm_silu_backward"
+    _build.refuse_grad(what, x, dy, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes a float32/bfloat16 (B, H, W, C) tensor, "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise TypeError(f"{what}: dy is {dy.dtype} {tuple(dy.shape)}, x {x.dtype} "
+                        f"{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    hw = h * w
+    if c % groups:
+        raise ValueError(f"{what}: {c} channels not divisible by {groups} groups")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous NHWC")
+    if scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"{what}: scale/bias must be ({c},)")
+    dy = dy.contiguous()
+    sdtype = scale.dtype if scale.dtype in _DTYPES else torch.float32
+    sc = scale.to(device=x.device, dtype=sdtype).contiguous()
+    bi = bias.to(device=x.device, dtype=sdtype).contiguous()
+    dx = torch.empty_like(x)
+    dscale = torch.empty(c, device=x.device, dtype=sdtype) if param_grads else None
+    dbias = torch.empty(c, device=x.device, dtype=sdtype) if param_grads else None
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    if route is None:
+        route = gn_route(b, hw, c, groups, x.dtype, aligned, backward=True)
+    grads = (dscale.data_ptr(), dbias.data_ptr()) if param_grads else (None, None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (x.data_ptr(), dy.data_ptr(), sc.data_ptr(), bi.data_ptr(), dx.data_ptr())
+        tail = (float(eps), int(silu), _DTYPES[x.dtype], _DTYPES[sdtype])
+        if route == "resident":
+            cfg = gn_resident_config(b, hw, c, groups, x.dtype, backward=True)
+            pa, pb = _scratch(x.device, [b * (cfg["cluster"] if cfg else 1) * c] * 2)
+            err = _resident_bwd_fn()(*args, pa.data_ptr(), pb.data_ptr(), *grads, b, hw, c,
+                                     groups, *tail, stream)
+        elif route == "stream":
+            vec = vectorised(c, x.dtype, aligned)
+            n_chunks, rows = stream_chunks(b, hw, c, x.dtype, vec)
+            ws = _scratch(x.device, [b * n_chunks * groups] * 2 + [4 * b * groups] * 2
+                          + [b * n_chunks * c] * 2)
+            psum, psq, stat, gstat, pa, pb = (t.data_ptr() for t in ws)
+            err = _stream_bwd_fn()(*args, psum, psq, stat, pa, pb, gstat, *grads, b, hw, c,
+                                   groups, n_chunks, rows, *tail, int(vec), stream)
+        else:
+            raise ValueError(f"{what}: unknown route {route!r}")
+    _build.check(err, f"{what} launch ({route})")
+    if param_grads and sdtype != scale.dtype:
+        dscale, dbias = dscale.to(scale.dtype), dbias.to(bias.dtype)
+    return dx, dscale, dbias, route
+
+
+def groupnorm_silu_backward(x, dy, scale, bias, groups: int = 32, eps: float = 1e-5,
+                            silu: bool = True, param_grads: bool = True):
+    """(dx, dscale, dbias) of ``groupnorm_silu`` at x for the output gradient
+    dy (dscale and dbias None unless ``param_grads``). A CPU tensor takes
+    ``plain_groupnorm_silu_backward``; a CUDA tensor launches the backward
+    kernels of ``gn_route(..., backward=True)`` or raises."""
+    if x.device.type == "cpu":
+        dx, dscale, dbias = plain_groupnorm_silu_backward(x, dy, scale, bias, groups, eps, silu)
+        return (dx, dscale, dbias) if param_grads else (dx, None, None)
+    dx, dscale, dbias, route = _launch_bwd(x, dy, scale, bias, groups, eps, silu, param_grads)
+    groupnorm_silu_backward.launches += 1
+    groupnorm_silu_backward.launches_by_route[route] += 1
+    tracing.count(f"groupnorm.backward.{route}")
+    return dx, dscale, dbias
+
+
+groupnorm_silu_backward.launches = 0
+groupnorm_silu_backward.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
 class _GroupNormSiLU(torch.autograd.Function):
-    """Kernel forward; backward by autograd through ``plain_groupnorm_silu``,
-    recomputed from the saved input."""
+    """Kernel forward; backward by ``groupnorm_silu_backward`` from the saved
+    input (the statistics recomputed)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps, silu):
@@ -321,12 +467,12 @@ class _GroupNormSiLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        wanted = ctx.needs_input_grad[:3]
-        inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wanted)]
-        with torch.enable_grad():
-            y = plain_groupnorm_silu(*inputs, *ctx.args)
-        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], dy))
-        return (*(next(grads) if w else None for w in wanted), None, None, None)
+        x, scale, bias = ctx.saved_tensors
+        want_x, want_scale, want_bias = ctx.needs_input_grad[:3]
+        dx, dscale, dbias = groupnorm_silu_backward(x, dy, scale, bias, *ctx.args,
+                                                    param_grads=want_scale or want_bias)
+        return (dx if want_x else None, dscale if want_scale else None,
+                dbias if want_bias else None, None, None, None)
 
 
 def groupnorm_silu_trainable(x, scale, bias, groups: int = 32, eps: float = 1e-5,

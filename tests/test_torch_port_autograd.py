@@ -1,13 +1,17 @@
 """Training-side attention and GroupNorm of the port on the CPU: the plain
 versions of the flash forward with logsumexp (K5) and of the flash backward
-(K6) against the JAX package's Pallas kernels in interpret mode, the
-``autograd.Function``s under ``gradcheck`` in f64, and the routing that keeps
-every gradient attached.
+(K6) against the JAX package's Pallas kernels in interpret mode, GroupNorm's
+closed-form backward against autograd through the plain forward and the JAX
+package's vjp, the ``autograd.Function``s under ``gradcheck`` in f64, and the
+routing that keeps every gradient attached.
 
 Tolerances are those of ``tests/test_flash_backward.py`` for the same shapes
 (f32, (BH, S, D) = (2, 512, 64)): output 2e-5, logsumexp 2e-4 + 1e-5·|p|,
 dq/dk/dv 2e-4 — the interpret-mode kernels sum in blocks, the plain versions
-in one einsum. ``gradcheck`` runs at its defaults in f64.
+in one einsum. ``gradcheck`` runs at its defaults in f64. GroupNorm's backward
+in f32 differs from autograd's and XLA's only in summation order: 1e-4 of
+each gradient's largest magnitude; in bf16 its outputs may round one ulp
+apart (2^-7 relative).
 """
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+from ldiffusion_tpu.ops import groupnorm as jgn
 from ldiffusion_tpu.ops.attention import _flash_attention_bhsd_lse, _flash_backward_bhsd
 from ldiffusion_tpu_torch.models.layers import FusedGroupNormSiLU
 from ldiffusion_tpu_torch.ops import attention as tatt
@@ -57,6 +62,46 @@ def test_plain_attention_bwd_matches_pallas_k6_interpret():
     got = tatt.plain_attention_bwd(_port(q), _port(k), _port(v), out, _port(g), lse, scale)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a[:, :, 0].numpy(), np.asarray(b), atol=GRAD_TOL)
+
+
+# (shape, groups, eps, silu, dtype): SiLU on and off, B > 1, 1 to 16
+# channels a group, f32 and bf16
+GN_BWD_CASES = [((2, 8, 8, 64), 32, 1e-5, True, torch.float32),
+                ((2, 8, 8, 64), 32, 1e-5, False, torch.float32),
+                ((1, 7, 9, 96), 8, 1e-6, True, torch.float32),
+                ((3, 5, 6, 48), 48, 1e-5, True, torch.float32),
+                ((2, 6, 6, 32), 4, 1e-6, False, torch.float32),
+                ((1, 16, 16, 512), 32, 1e-6, True, torch.float32),
+                ((2, 8, 8, 64), 32, 1e-5, True, torch.bfloat16),
+                ((1, 7, 9, 96), 8, 1e-6, False, torch.bfloat16),
+                ((2, 8, 8, 320), 32, 1e-5, True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,groups,eps,silu,dtype", GN_BWD_CASES)
+def test_groupnorm_plain_backward_matches_autograd_and_jax_vjp(shape, groups, eps, silu, dtype):
+    rng = np.random.default_rng(4)
+    c = shape[-1]
+    x = (0.5 + 2.0 * rng.normal(size=shape)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.normal(size=(c,))).astype(np.float32)
+    bias = (0.1 * rng.normal(size=(c,))).astype(np.float32)
+    dy = rng.normal(size=shape).astype(np.float32)
+    tx, tscale, tbias, tdy = (torch.from_numpy(a).to(dtype) for a in (x, scale, bias, dy))
+    got = tgn.plain_groupnorm_silu_backward(tx, tdy, tscale, tbias, groups, eps, silu)
+    leaves = [t.clone().requires_grad_() for t in (tx, tscale, tbias)]
+    out = tgn.plain_groupnorm_silu(*leaves, groups, eps, silu)
+    want = torch.autograd.grad(out, leaves, tdy)
+    refs = [want]
+    if dtype == torch.float32:
+        refs.append([torch.from_numpy(np.array(r)) for r in jgn._gn_bwd(
+            groups, eps, silu, (jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias)),
+            jnp.asarray(dy))])
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for ref in refs:
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            b = b.float()
+            torch.testing.assert_close(a.float(), b, rtol=rtol,
+                                       atol=1e-4 * float(b.abs().max()))
 
 
 def _f64(rng, shape):

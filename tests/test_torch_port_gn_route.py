@@ -116,6 +116,34 @@ def test_every_unet_map_of_the_512_step_is_resident():
     assert tgn.gn_route(1, 256, 1280, 32, torch.bfloat16, True) == "resident"
 
 
+@pytest.mark.parametrize("path", ["roi", "step"])
+def test_every_call_shape_has_a_backward_route_and_a_config_that_fits(path):
+    """The backward's resident route holds x and dy: 200 KB of the two a CTA."""
+    for (b, h, w, c, g) in _all_calls(path):
+        route = tgn.gn_route(b, h * w, c, g, torch.bfloat16, True, backward=True)
+        cfg = tgn.gn_resident_config(b, h * w, c, g, torch.bfloat16, backward=True)
+        assert route == ("resident" if cfg is not None and b * h * w * c * 2 <=
+                         tgn.RESIDENT_MAX_BYTES else "stream")
+        if route == "resident":
+            assert cfg["smem"] <= SMEM_PER_BLOCK and cfg["cluster"] <= MAX_CLUSTER
+            assert cfg["cluster"] * cfg["rows"] >= h * w
+            assert 2 * cfg["boxes"] * cfg["box_rows"] * cfg["slice_bytes"] <= tgn._DATA_MAX
+            forward = tgn.gn_resident_config(b, h * w, c, g, torch.bfloat16)
+            assert cfg["cluster"] >= forward["cluster"], (h, c)
+
+
+# stage 1's maps: the 512² UNet's (64² latents), the 512² VAE decode's, and
+# the 64²-image batch-8 step's UNet (8² latents) and VAE decode
+@pytest.mark.parametrize("shape,route", [
+    ((1, 64, 64, 320), "resident"), ((1, 16, 16, 1280), "resident"),
+    ((1, 256, 256, 512), "stream"), ((1, 512, 512, 128), "stream"),
+    ((8, 8, 8, 320), "resident"), ((8, 64, 64, 128), "resident")])
+def test_stage1_maps_take_their_backward_route(shape, route):
+    b, h, w, c = shape
+    assert tgn.gn_route(b, h * w, c, 32, torch.bfloat16, True, backward=True) == route
+    assert tgn.gn_route(b, h * w, c, 32, torch.bfloat16, False, backward=True) == "stream"
+
+
 @pytest.mark.parametrize("shape", [(1, 128, 128, 960), (1, 1024, 1024, 128),
                                    (1, 512, 512, 256)])
 def test_the_widest_roi_map_and_the_vae_maps_stream(shape):

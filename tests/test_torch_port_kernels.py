@@ -577,14 +577,15 @@ def test_groupnorm_routes_clamp_the_variance(cuda, shape):
         assert bool(torch.isfinite(out).all()), route
 
 
-@pytest.mark.gpu
-def test_gn_resident_config_matches_the_kernels_choice(cuda):
+def _check_resident_config(entry: str, backward: bool):
+    """``gn_resident_config(..., backward)`` against the library's ``entry``."""
     import ctypes
 
     from ldiffusion_tpu_torch.ops import _build
 
-    fn = _build.library("groupnorm_sm90").ldt_groupnorm_resident_config
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn = getattr(_build.library("groupnorm_sm90"), entry)
+    # the backward's entry takes no narrowest slice: it launches with MIN_SLICE_BYTES
+    fn.argtypes = [ctypes.c_int] * (5 if backward else 6) + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     keys = ("groups", "cluster", "rows", "box_rows", "boxes", "smem")
     out = (ctypes.c_int * 6)()
@@ -594,13 +595,203 @@ def test_gn_resident_config_matches_the_kernels_choice(cuda):
                 for c, groups in ((64, 32), (96, 8), (128, 32), (256, 32), (320, 32),
                                   (512, 32), (640, 32), (960, 32), (1280, 32), (1920, 32),
                                   (2560, 32), (36, 4), (100, 4)):
-                    for min_slice in (32, tgn.MIN_SLICE_BYTES):
+                    for min_slice in (tgn.MIN_SLICE_BYTES,) if backward else \
+                            (32, tgn.MIN_SLICE_BYTES):
                         cfg = tgn.gn_resident_config(b, side * side, c, groups, dtype,
-                                                     min_slice)
-                        got = fn(b, side * side, c, groups, code, min_slice, out)
+                                                     min_slice, backward=backward)
+                        got = fn(b, side * side, c, groups, code,
+                                 *(() if backward else (min_slice,)), out)
                         assert got == (cfg is not None), (b, side, c, dtype, min_slice)
                         if cfg is not None:
                             assert list(out) == [cfg[k] for k in keys], (b, side, c, dtype)
+
+
+@pytest.mark.gpu
+def test_gn_resident_config_matches_the_kernels_choice(cuda):
+    _check_resident_config("ldt_groupnorm_resident_config", False)
+
+
+# The GroupNorm backward (csrc/groupnorm_sm90.cu: `gn_resident_bwd`; the
+# streamed `gn_stream_bwd_stats`, `gn_finalize_bwd_stats`,
+# `gn_stream_bwd_partials`, `gn_finalize_bwd`, `gn_apply_bwd`) against
+# `plain_groupnorm_silu_backward`. Both compute in f32 and differ only in
+# summation order and the kernel's fast exponential: f32 gradients within
+# 1e-4 of their rms plus 1e-4|p|; bf16 ones (dx in x's type, dscale and
+# dbias in the parameters') one rounding apart, 2^-7|p| plus 2^-9 of the rms.
+GN_BWD_TOL = {torch.float32: (0.0, 1e-4, 1e-4), torch.bfloat16: (0.0, 2 ** -9, 2 ** -7)}
+
+
+def _gn_bwd_inputs(rng, shape, dtype, sdtype, device):
+    x, scale, bias = _gn_inputs(rng, shape, dtype, sdtype, device)
+    return x, _normal(rng, shape, dtype, device), scale, bias
+
+
+def _check_gn_bwd(got, want):
+    for out, ref in zip(got, want):
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        _assert_close(out, ref, GN_BWD_TOL[out.dtype])
+
+
+@pytest.mark.gpu
+def test_gn_resident_bwd_config_matches_the_kernels_choice(cuda):
+    _check_resident_config("ldt_groupnorm_resident_bwd_config", True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,groups", GN_ROUTE_CASES)
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_backward_routes_match_plain_and_repeat_bitwise_on_gpu(cuda, dtype, shape,
+                                                                        groups, sdtype):
+    """Each route the backward takes for the shape (every resident map also
+    streams), SiLU on and off; without parameter gradients dx is the same."""
+    x, dy, scale, bias = _gn_bwd_inputs(np.random.default_rng(24), shape, dtype, sdtype, cuda)
+    b, h, w, c = shape
+    takes_resident = tgn.vectorised(c, dtype, True) and \
+        tgn.gn_resident_config(b, h * w, c, groups, dtype, backward=True) is not None
+    for silu in (True, False):
+        ref = tgn.plain_groupnorm_silu_backward(x, dy, scale, bias, groups, 1e-5, silu)
+        for route in ("resident", "stream") if takes_resident else ("stream",):
+            *got, took = tgn._launch_bwd(x, dy, scale, bias, groups, 1e-5, silu, True, route=route)
+            assert took == route
+            _check_gn_bwd(got, ref)
+            *again, _ = tgn._launch_bwd(x, dy, scale, bias, groups, 1e-5, silu, True, route=route)
+            assert all(torch.equal(a, o) for a, o in zip(again, got)), route
+            dx, dscale, dbias, _ = tgn._launch_bwd(x, dy, scale, bias, groups, 1e-5, silu, False,
+                                                   route=route)
+            assert dscale is None and dbias is None and torch.equal(dx, got[0]), route
+
+
+# stage 1's maps: the 512² UNet's (64² latents), the 512² VAE decode's, and
+# the 64²-image batch-8 step's UNet (8² latents) and VAE decode
+GN_BWD_STAGE1 = [((1, 64, 64, 320), 1e-5, True, "resident"),
+                 ((1, 16, 16, 1280), 1e-5, True, "resident"),
+                 ((1, 256, 256, 512), 1e-6, True, "stream"),
+                 ((1, 512, 512, 128), 1e-6, True, "stream"),
+                 ((8, 8, 8, 320), 1e-5, True, "resident"),
+                 ((8, 64, 64, 128), 1e-6, False, "resident")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,eps,silu,route", GN_BWD_STAGE1)
+def test_groupnorm_backward_stage1_maps_take_their_route_and_repeat_bitwise(cuda, shape, eps,
+                                                                           silu, route):
+    x, dy, scale, bias = _gn_bwd_inputs(np.random.default_rng(25), shape, torch.bfloat16,
+                                        torch.bfloat16, cuda)
+    b, h, w, c = shape
+    assert tgn.gn_route(b, h * w, c, 32, torch.bfloat16, True, backward=True) == route
+    fn = tgn.groupnorm_silu_backward
+    counts, launches = dict(fn.launches_by_route), fn.launches
+    got = fn(x, dy, scale, bias, 32, eps, silu)
+    assert fn.launches_by_route == {**counts, route: counts[route] + 1}
+    assert fn.launches == launches + 1
+    again = fn(x, dy, scale, bias, 32, eps, silu)
+    assert all(torch.equal(a, o) for a, o in zip(again, got))
+    _check_gn_bwd(got, tgn.plain_groupnorm_silu_backward(x, dy, scale, bias, 32, eps, silu))
+
+
+@pytest.mark.gpu
+def test_groupnorm_backward_takes_unaligned_and_strided_gradients(cuda):
+    """dy off the 16-byte grid: the streamed route's scalar variant; dy a
+    channels-first view: copied to NHWC first."""
+    x, dy, scale, bias = _gn_bwd_inputs(np.random.default_rng(26), (2, 9, 7, 96),
+                                        torch.bfloat16, torch.float32, cuda)
+    ref = tgn.plain_groupnorm_silu_backward(x, dy, scale, bias, 8, 1e-6, True)
+    flat = torch.empty(dy.numel() + 1, device=cuda, dtype=dy.dtype)
+    off = flat[1:].view(dy.shape).copy_(dy)
+    counts = dict(tgn.groupnorm_silu_backward.launches_by_route)
+    _check_gn_bwd(tgn.groupnorm_silu_backward(x, off, scale, bias, 8, 1e-6, True), ref)
+    assert tgn.groupnorm_silu_backward.launches_by_route["stream"] == counts["stream"] + 1
+    strided = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    _check_gn_bwd(tgn.groupnorm_silu_backward(x, strided, scale, bias, 8, 1e-6, True), ref)
+
+
+@pytest.mark.gpu
+def test_fused_groupnorm_layer_differentiates_through_the_backward_kernel(cuda, monkeypatch):
+    """``FusedGroupNormSiLU`` under autograd on the card: the kernel forward
+    and the backward kernel, never the plain route."""
+    from ldiffusion_tpu_torch.models.layers import FusedGroupNormSiLU
+
+    rng = np.random.default_rng(27)
+    layer = FusedGroupNormSiLU(320).to(device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        layer.weight.copy_(_normal(rng, (320,), torch.bfloat16, cuda, loc=1.0, spread=0.1))
+        layer.bias.copy_(_normal(rng, (320,), torch.bfloat16, cuda, spread=0.1))
+    x = _normal(rng, (1, 64, 64, 320), torch.bfloat16, cuda, loc=0.5, spread=2.0)
+    dy = _normal(rng, (1, 64, 64, 320), torch.bfloat16, cuda)
+    ref = tgn.plain_groupnorm_silu_backward(x, dy, layer.weight.detach(), layer.bias.detach(),
+                                            32, 1e-5, True)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain route ran on the card")
+
+    monkeypatch.setattr(tgn, "plain_groupnorm_silu_backward", plain)
+    monkeypatch.setattr(tgn, "plain_groupnorm_silu", plain)
+    fwd, bwd = tgn.groupnorm_silu.launches, tgn.groupnorm_silu_backward.launches
+    leaf = x.permute(0, 3, 1, 2).detach().requires_grad_()  # NCHW, channels last in memory
+    y = layer(leaf)
+    y.backward(dy.permute(0, 3, 1, 2))
+    assert tgn.groupnorm_silu.launches == fwd + 1
+    assert tgn.groupnorm_silu_backward.launches == bwd + 1
+    _check_gn_bwd((leaf.grad.permute(0, 2, 3, 1), layer.weight.grad, layer.bias.grad), ref)
+
+
+def _on_a_fresh_thread(fn):
+    """``fn()`` on a new thread, whose first CUDA call it makes."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # raised again on the test's thread
+            out["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+# Each launcher that encodes a TMA tensor map, as a new thread's first CUDA
+# call. The encoding needs a current context, which such a thread lacks
+# until the launcher binds one (autograd's worker thread can be one).
+@pytest.mark.gpu
+@pytest.mark.parametrize("launcher", ["flash_fwd", "flash_bwd", "gn_resident", "gn_resident_bwd"])
+def test_tma_launchers_run_as_a_fresh_threads_first_cuda_call(cuda, launcher):
+    rng = np.random.default_rng(28)
+    if launcher.startswith("flash"):
+        q, k, v, do, out, lse, scale = _bwd_inputs(rng, (1, 1024, 2, 40), torch.bfloat16, cuda)
+        route = "wgmma"
+        if launcher == "flash_fwd":
+            fn, args, tol = tatt.flash_attention_fwd, (q, k, v, scale), ATTN_TOL
+            refs = (tatt.plain_attention(q, k, v, scale),)
+        else:
+            fn, tol = tatt.flash_attention_bwd, BWD_TOL
+            args = (q, k, v, out.contiguous(), do, lse, scale)
+            refs = tatt.plain_attention_bwd(*args)
+    else:
+        x, dy, scale, bias = _gn_bwd_inputs(rng, (1, 64, 64, 320), torch.bfloat16,
+                                            torch.bfloat16, cuda)
+        route = "resident"
+        if launcher == "gn_resident":
+            fn, args, tol = tgn.groupnorm_silu, (x, scale, bias, 32, 1e-5, True), GN_TOL
+            refs = (tgn.plain_groupnorm_silu(*args),)
+        else:
+            fn, args, tol = tgn.groupnorm_silu_backward, (x, dy, scale, bias, 32, 1e-5, True), None
+            refs = tgn.plain_groupnorm_silu_backward(*args)
+    torch.cuda.synchronize()
+    before = dict(fn.launches_by_route)
+    got = _on_a_fresh_thread(lambda: fn(*args))
+    torch.cuda.synchronize()
+    assert fn.launches_by_route == {**before, route: before[route] + 1}
+    if tol is None:
+        _check_gn_bwd(got, refs)
+    else:
+        for g, ref in zip((got,) if torch.is_tensor(got) else got, refs):
+            _assert_close(g, ref, tol[torch.bfloat16])
 
 
 @pytest.mark.gpu
